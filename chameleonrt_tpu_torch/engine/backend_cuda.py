@@ -1,0 +1,33 @@
+"""The `cuda` backend: the wavefront path tracer with native SAH BVH tables
+and the hand-written CUDA traversal kernels; the counterpart of
+chameleonrt_tpu/engine/backend_tpu.py for flat (single-instance) scenes.
+
+On device="cpu" it runs the same code with the plain traversal, which is
+how the CPU tests hold it against the JAX `tpu` backend.
+"""
+
+from __future__ import annotations
+
+from chameleonrt_tpu.scene.types import Scene
+from chameleonrt_tpu_torch.engine.backend_base import TorchRenderBackend
+from chameleonrt_tpu_torch.engine.device_scene import build_device_scene
+from chameleonrt_tpu_torch.engine.trace_bvh import build_blas_set, make_trace_fns
+
+
+class CudaBackend(TorchRenderBackend):
+    def __init__(self, device="cuda", use_kernels: bool = True):
+        """use_kernels=False traces with the plain torch traversal on any
+        device; the card's parity checks use it."""
+        super().__init__(device=device)
+        self.use_kernels = use_kernels
+
+    @property
+    def name(self) -> str:
+        return "CUDA wavefront (SAH BVH4)"
+
+    def prepare_scene(self, scene: Scene):
+        flat, meta = build_device_scene(scene, self.device)
+        return flat._replace(blas=build_blas_set(flat, meta)), meta
+
+    def make_trace_fns(self, meta):
+        return make_trace_fns(meta, use_kernels=self.use_kernels)
