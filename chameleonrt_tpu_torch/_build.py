@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels at first use, from the repository's sources.
 
-The kernels (csrc/*.cu) compile with nvcc for sm_90a into a shared library
-with a plain C interface, loaded with ctypes. The library goes to
+Each kernel source (csrc/*.cu) compiles with its own nvcc, all at once,
+for sm_90a; the objects link into one shared library with a plain C
+interface, loaded with ctypes. The library goes to
 chameleonrt_tpu_torch/_build/, named by a hash of its sources, so an edited
 source never loads a stale library. A file lock serializes concurrent
 builds (test workers, for one).
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -25,8 +27,13 @@ _CSRC = os.path.join(_PKG, "csrc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# what the traversal kernels hold (kMaxStack, kMaxLeaf in
+# csrc/traverse_common.cuh); kernels() checks the library against them
+MAX_STACK = 64
+MAX_LEAF = 16
+
 
 def _digest(paths) -> str:
     h = hashlib.sha256()
@@ -62,6 +69,36 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _compile_all(nvcc: str, cus, obj_dir: str, timeout: int) -> str:
+    """One nvcc -c per source, all started together; returns their output
+    (ptxas register and spill counts), source by source."""
+    procs, logs, failed = [], [], []
+    try:
+        for cu in cus:
+            obj = os.path.join(obj_dir, os.path.basename(cu)[: -len(".cu")] + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        deadline = time.monotonic() + timeout
+        for cmd, proc in procs:
+            try:
+                out, _ = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            logs.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(logs[-1])
+    finally:
+        for _, proc in procs:  # none outlives a failure above
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+    return "\n".join(logs)
+
+
 def kernel_library_path() -> str:
     """Path of the traversal kernels' library, compiled if missing. nvcc's
     output (ptxas register and spill counts) is kept beside it, with the
@@ -72,12 +109,21 @@ def kernel_library_path() -> str:
     out = os.path.join(BUILD_DIR, f"libcrt_kernels_{_digest(sources)}.so")
     with _file_lock("kernels"):
         if not os.path.exists(out):
-            tmp = out + f".tmp{os.getpid()}"
-            cus = [s for s in sources if s.endswith(".cu")]
-            log = _run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus], 900)
-            with open(out[: -len(".so")] + ".log", "w") as f:
-                f.write(log)
-            os.replace(tmp, out)
+            nvcc = find_nvcc()
+            obj_dir = out[: -len(".so")] + f".obj{os.getpid()}"
+            os.makedirs(obj_dir, exist_ok=True)
+            try:
+                cus = [s for s in sources if s.endswith(".cu")]
+                log = _compile_all(nvcc, cus, obj_dir, 900)
+                objs = [os.path.join(obj_dir, os.path.basename(c)[: -len(".cu")] + ".o") for c in cus]
+                tmp = out + f".tmp{os.getpid()}"
+                log += _run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                             "-o", tmp, *objs], 300)
+                with open(out[: -len(".so")] + ".log", "w") as f:
+                    f.write(log)
+                os.replace(tmp, out)
+            finally:
+                shutil.rmtree(obj_dir, ignore_errors=True)
     return out
 
 
@@ -90,11 +136,20 @@ def kernels() -> ctypes.CDLL:
     lib.crt_traverse_closest.restype = i
     lib.crt_traverse_any.argtypes = [p, p, i, i, i, p, p, p, p, p, p, i, p]
     lib.crt_traverse_any.restype = i
+    lib.crt_traverse_closest_unified.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p]
+    lib.crt_traverse_closest_unified.restype = i
+    lib.crt_traverse_any_unified.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p, i, p]
+    lib.crt_traverse_any_unified.restype = i
     lib.crt_error_string.argtypes = [i]
     lib.crt_error_string.restype = ctypes.c_char_p
     lib.crt_max_stack.argtypes = []
     lib.crt_max_stack.restype = i
     lib.crt_max_leaf.argtypes = []
     lib.crt_max_leaf.restype = i
+    if (lib.crt_max_stack(), lib.crt_max_leaf()) != (MAX_STACK, MAX_LEAF):
+        raise RuntimeError(
+            f"the kernels hold stack {lib.crt_max_stack()} and leaf {lib.crt_max_leaf()}, "
+            f"the wrappers expect {MAX_STACK} and {MAX_LEAF}"
+        )
     return lib
 

@@ -1,0 +1,127 @@
+// Device helpers shared by the traversal kernels (traverse_flat.cu: B1, B2;
+// traverse_unified.cu: B3, B4).
+//
+// Semantics shared with the plain torch version
+// (chameleonrt_tpu_torch/ops/traverse.py):
+//   - node rows (n, 32) f32: child c's box at [6c, 6c+6), child codes at
+//     [24, 28) (bitcast int32; code < 0 is leaf -(code+1)); empty slots
+//     have lo = hi = 1e30 and never pass the slab test;
+//   - leaf rows (n_leaves, 10L) f32, component-major v0 e1 e2 prim;
+//   - hit children are sorted by entry distance with the Bose-Nelson
+//     network (strict >), the nearest is visited next and the others are
+//     pushed far-first; a push onto a full stack (depth - 1 entries) is an
+//     overflow;
+//   - Moller-Trumbore with det eps 1e-9 and barycentric band 4e-6.
+// Every file is built with -fmad=false so every product and sum rounds as
+// in the plain version.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace crt {
+
+constexpr int kArity = 4;
+constexpr int kRow = 8 * kArity;  // floats per node row
+constexpr int kMaxStack = 64;     // _build.MAX_STACK
+constexpr int kMaxLeaf = 16;      // _build.MAX_LEAF
+constexpr int kThreads = 128;
+constexpr int kDone = 0x7FFFFFFF;
+constexpr float kTMax = 1e20f;
+constexpr float kBig = 1e30f;
+constexpr float kMtEps = 1e-9f;
+constexpr float kUvEps = 4e-6f;
+constexpr float kOnePlusUvEps = 1.0f + 4e-6f;
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
+};
+
+// min / max that treat a NaN operand as an unbounded slab side, as the
+// oracle's NaN-propagating minimum followed by NaN -> -inf / +inf does.
+__device__ __forceinline__ float near_of(float a, float b) {
+  return (isnan(a) || isnan(b)) ? -INFINITY : fminf(a, b);
+}
+__device__ __forceinline__ float far_of(float a, float b) {
+  return (isnan(a) || isnan(b)) ? INFINITY : fmaxf(a, b);
+}
+
+__device__ __forceinline__ void cswap(float* k, int* c, int i, int j) {
+  if (k[i] > k[j]) {
+    float tk = k[i]; k[i] = k[j]; k[j] = tk;
+    int tc = c[i]; c[i] = c[j]; c[j] = tc;
+  }
+}
+
+// One internal row: keys[c] = entry distance of hit child c (kBig on a
+// miss), codes[c] its child code, both sorted ascending by key.
+__device__ __forceinline__ void node_step(const float* __restrict__ nodes, int cur,
+                                          const Ray& r, float tmax, float* keys,
+                                          int* codes) {
+  const float4* row4 = reinterpret_cast<const float4*>(nodes + (size_t)cur * kRow);
+  float row[kRow];
+#pragma unroll
+  for (int q = 0; q < kRow / 4; ++q) {
+    float4 x = __ldg(row4 + q);
+    row[4 * q] = x.x; row[4 * q + 1] = x.y; row[4 * q + 2] = x.z; row[4 * q + 3] = x.w;
+  }
+#pragma unroll
+  for (int c = 0; c < kArity; ++c) {
+    const float* b = row + 6 * c;
+    float tx0 = (b[0] - r.ox) * r.ix, tx1 = (b[3] - r.ox) * r.ix;
+    float ty0 = (b[1] - r.oy) * r.iy, ty1 = (b[4] - r.oy) * r.iy;
+    float tz0 = (b[2] - r.oz) * r.iz, tz1 = (b[5] - r.oz) * r.iz;
+    float entry = fmaxf(fmaxf(near_of(tx0, tx1), near_of(ty0, ty1)),
+                        fmaxf(near_of(tz0, tz1), r.tmin));
+    float exit_ = fminf(fminf(far_of(tx0, tx1), far_of(ty0, ty1)),
+                        fminf(far_of(tz0, tz1), tmax));
+    keys[c] = (entry <= exit_) ? entry : kBig;
+    codes[c] = __float_as_int(row[6 * kArity + c]);
+  }
+  cswap(keys, codes, 0, 1);
+  cswap(keys, codes, 2, 3);
+  cswap(keys, codes, 0, 2);
+  cswap(keys, codes, 1, 3);
+  cswap(keys, codes, 1, 2);
+}
+
+// Moller-Trumbore for slot j of one leaf row; the operation order is the
+// plain version's, term by term.
+__device__ __forceinline__ bool mt_slot(const float* __restrict__ lrow, int L, int j,
+                                        const Ray& r, float tmax, float* t_out,
+                                        float* u_out, float* v_out, int* prim_out) {
+  float v0x = __ldg(lrow + 0 * L + j), v0y = __ldg(lrow + 1 * L + j), v0z = __ldg(lrow + 2 * L + j);
+  float e1x = __ldg(lrow + 3 * L + j), e1y = __ldg(lrow + 4 * L + j), e1z = __ldg(lrow + 5 * L + j);
+  float e2x = __ldg(lrow + 6 * L + j), e2y = __ldg(lrow + 7 * L + j), e2z = __ldg(lrow + 8 * L + j);
+  int prim = __float_as_int(__ldg(lrow + 9 * L + j));
+  float px = r.dy * e2z - r.dz * e2y;
+  float py = r.dz * e2x - r.dx * e2z;
+  float pz = r.dx * e2y - r.dy * e2x;
+  float det = e1x * px + e1y * py + e1z * pz;
+  bool small = fabsf(det) < kMtEps;
+  float inv = 1.0f / (small ? 1.0f : det);
+  float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+  float u = (tx * px + ty * py + tz * pz) * inv;
+  float qx = ty * e1z - tz * e1y;
+  float qy = tz * e1x - tx * e1z;
+  float qz = tx * e1y - ty * e1x;
+  float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+  float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  *t_out = t; *u_out = u; *v_out = v; *prim_out = prim;
+  return !small && prim >= 0 && u >= -kUvEps && v >= -kUvEps && u + v <= kOnePlusUvEps &&
+         t > r.tmin && t < tmax;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,
+                                        const float* t_min, int i) {
+  Ray r;
+  r.ox = orig[3 * i]; r.oy = orig[3 * i + 1]; r.oz = orig[3 * i + 2];
+  r.dx = dir[3 * i]; r.dy = dir[3 * i + 1]; r.dz = dir[3 * i + 2];
+  r.ix = 1.0f / r.dx; r.iy = 1.0f / r.dy; r.iz = 1.0f / r.dz;
+  r.tmin = t_min[i];
+  return r;
+}
+
+}  // namespace crt

@@ -1,6 +1,8 @@
 """The `cuda` backend: the wavefront path tracer with native SAH BVH tables
 and the hand-written CUDA traversal kernels; the counterpart of
-chameleonrt_tpu/engine/backend_tpu.py for flat (single-instance) scenes.
+chameleonrt_tpu/engine/backend_tpu.py. A single-instance scene traces its
+one mesh's table (kernels B1 and B2); a multi-instance scene traces one
+two-level TLAS+BLAS table (kernels B3 and B4).
 
 On device="cpu" it runs the same code with the plain traversal, which is
 how the CPU tests hold it against the JAX `tpu` backend.

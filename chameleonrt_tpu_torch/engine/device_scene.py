@@ -1,16 +1,18 @@
 """Scene -> device tensors (torch): the counterpart of
-chameleonrt_tpu/engine/device_scene.py for the flat tables.
+chameleonrt_tpu/engine/device_scene.py, with the BVH table types of
+chameleonrt_tpu/ops/lbvh.py.
 
 The scene flattens into per-triangle (v0, e1, e2), one fused (T, 32) shade
 row per triangle, a packed material table whose float slots may carry
-texture handles, a quad-light table and one texture atlas of bilinear quad
-rows. SceneMeta is the static structure the render loop specializes on.
+texture handles, per-instance transforms and material tables, a quad-light
+table and one texture atlas of bilinear quad rows. SceneMeta is the static
+structure the render loop specializes on.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,6 +64,40 @@ class BlasPair(NamedTuple):
     any: PackedBvh
 
 
+class UnifiedBvh(NamedTuple):
+    """Two-level table of a multi-instance scene (layout of
+    chameleonrt_tpu/ops/lbvh.py UnifiedBvh): every mesh's BLAS rows, then
+    the TLAS rows from row ``tlas_lo`` on, in one node table. ``leaf_rows``
+    holds every BLAS triangle leaf (prim ids global), then one instance
+    entry row per instance from leaf ``n_tri_leaves`` on: cols [0, 12) the
+    world-to-object 3x4 matrix row-major, col 12 the instance's BLAS root
+    row and col 13 its instance id (both bitcast int32), prim slots -1.
+    ``stack_bound`` is the certified stack need (TLAS + BLAS + 2)."""
+
+    nodes: torch.Tensor
+    leaf_rows: torch.Tensor
+    n_tri_leaves: int
+    tlas_lo: int
+    stack_bound: int
+
+    @property
+    def arity(self) -> int:
+        return self.nodes.shape[1] // 8
+
+    @property
+    def leaf_size(self) -> int:
+        return self.leaf_rows.shape[1] // 10
+
+
+class UnifiedPair(NamedTuple):
+    """Binary (closest) and BVH4 (any) unified tables of one scene, and the
+    instances' world boxes (I, 6) that the TLAS was built over."""
+
+    closest: UnifiedBvh
+    any: UnifiedBvh
+    inst_aabb: torch.Tensor
+
+
 class FlatScene(NamedTuple):
     """Device-resident scene."""
 
@@ -78,7 +114,8 @@ class FlatScene(NamedTuple):
     inst_mat_table: torch.Tensor  # (I, G_max) int32
     lights: LightArrays
     atlas: TextureAtlas
-    blas: Tuple[BlasPair, ...] = ()
+    # one BlasPair per mesh (single-instance scenes), or (UnifiedPair,)
+    blas: Tuple[Union[BlasPair, UnifiedPair], ...] = ()
 
 
 @dataclass(frozen=True)
@@ -250,6 +287,13 @@ def build_device_scene(scene: Scene, device) -> Tuple[FlatScene, SceneMeta]:
         atlas=atlas,
     )
     return flat, meta
+
+
+def unpack_material(flat: FlatScene, meta: SceneMeta, mat_id, uv) -> MaterialBatch:
+    """Per-lane material by id from the packed material table (multi-
+    instance scenes, whose shade rows carry no material)."""
+    row = flat.mat_rows[torch.clamp(mat_id, 0, flat.mat_rows.shape[0] - 1).long()]
+    return unpack_material_row(flat, meta, row, uv)
 
 
 def unpack_material_row(flat: FlatScene, meta: SceneMeta, row, uv) -> MaterialBatch:

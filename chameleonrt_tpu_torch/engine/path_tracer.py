@@ -24,7 +24,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from chameleonrt_tpu_torch.engine.device_scene import FlatScene, SceneMeta, unpack_material_row
+from chameleonrt_tpu_torch.engine.device_scene import (
+    FlatScene,
+    SceneMeta,
+    unpack_material,
+    unpack_material_row,
+)
 from chameleonrt_tpu_torch.ops import bsdf as bsdf_ops
 from chameleonrt_tpu_torch.ops import camera as camera_ops
 from chameleonrt_tpu_torch.ops import lights as light_ops
@@ -73,7 +78,6 @@ def _shade_bounce(
     """The shading stage of one bounce for a set of lanes
     (render_embree.ispc:105-181 without the occlusion calls, then the
     continuation sample and Russian roulette). Pure per-lane math."""
-    del hit_inst  # single-instance scenes: the material rides in the shade row
     w_o = -dir
 
     tri = torch.clamp(hit_tri, 0, max(meta.num_tris - 1, 0)).long()
@@ -84,16 +88,25 @@ def _shade_bounce(
     w = hit_u[..., None]
     wv = hit_v[..., None]
     uv = (1.0 - w - wv) * srow[:, 6:8] + w * srow[:, 8:10] + wv * srow[:, 10:12]
-    inv3 = flat.inst_inv[0, :3, :3]
-    # world normal = ng_obj @ inv3 (row vector times the 3x3), term by term
+    if meta.num_instances == 1:
+        # the one instance's matrix; the packed material rides in the shade row
+        inv3 = flat.inst_inv[0, :3, :3]
+        mat = unpack_material_row(flat, meta, srow[:, 16:32], uv)
+    else:
+        # each lane's own instance: its matrix, and its material by geometry slot
+        inst = torch.clamp(hit_inst, 0, meta.num_instances - 1).long()
+        inv3 = flat.inst_inv[inst, :3, :3]
+        geom_slot = srow[:, 12].view(torch.int32).long()
+        mat = unpack_material(flat, meta, flat.inst_mat_table[inst, geom_slot], uv)
+    # world normal = ng_obj @ inv3 (row vector times the 3x3; ispc:287-290),
+    # term by term; inv3 is (3, 3) or per lane (R, 3, 3)
     normal = normalize(
         torch.stack(
-            [ng_obj[:, 0] * inv3[0, j] + ng_obj[:, 1] * inv3[1, j] + ng_obj[:, 2] * inv3[2, j]
-             for j in range(3)],
+            [ng_obj[:, 0] * inv3[..., 0, j] + ng_obj[:, 1] * inv3[..., 1, j]
+             + ng_obj[:, 2] * inv3[..., 2, j] for j in range(3)],
             dim=-1,
         )
     )
-    mat = unpack_material_row(flat, meta, srow[:, 16:32], uv)
 
     # face-forward for non-transmissive materials (ispc:297-299)
     flip = (mat.specular_transmission == 0.0) & (dot(w_o, normal) < 0.0)

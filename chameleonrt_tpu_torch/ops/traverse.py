@@ -1,22 +1,25 @@
 """Plain BVH traversal in torch: the counterpart of the XLA lockstep traversal
-in chameleonrt_tpu/ops/traverse.py (traverse_closest / traverse_any and
+in chameleonrt_tpu/ops/traverse.py (traverse_closest / traverse_any, the
+two-level traverse_closest_unified / traverse_any_unified, and
 ray_sort_perm_only).
 
-This is the plain version of kernels B1 and B2 (ops/traverse_cuda.py): the
+This is the plain version of kernels B1-B4 (ops/traverse_cuda.py): the
 CPU path, and the version the kernels are held against on the card. Each
 lane follows the same depth-first order as the XLA oracle: at an internal
 row it tests every child, pushes the hit children far-first in
 ``_SORT_NETS`` order and descends into the nearest; at a leaf it runs
-Möller–Trumbore on all L slots and then pops. The lanes advance in
-lockstep, and lanes that finish are dropped from the working set after
-each step, so a step costs the live lanes only.
+Möller–Trumbore on all L slots and then pops. In a two-level table an
+instance-entry leaf instead moves the lane into that instance's object
+space and jumps to its BLAS root. The lanes advance in lockstep, and lanes
+that finish are dropped from the working set after each step, so a step
+costs the live lanes only.
 """
 
 from __future__ import annotations
 
 import torch
 
-from chameleonrt_tpu_torch.engine.device_scene import PackedBvh
+from chameleonrt_tpu_torch.engine.device_scene import PackedBvh, UnifiedBvh
 from chameleonrt_tpu_torch.ops.intersect import _MT_EPS, ONE_PLUS_UV_EPS, T_MAX, UV_EPS
 
 STACK_DEPTH = 48
@@ -125,11 +128,11 @@ def _mt_rows(rows, L, orig, dir, t_min, t_max):
     return hit, t, u, v, prim
 
 
-def _leaf_closest(pbvh: PackedBvh, leaf_id, orig, dir, t_min, t_max):
-    """Closest slot of one leaf per lane; ties go to the highest slot.
-    Returns (t, prim, u, v) with t = T_MAX, prim = -1 on a miss."""
-    L = pbvh.leaf_size
-    hit, t, u, v, prim = _mt_rows(pbvh.leaf_rows[leaf_id.long()], L, orig, dir, t_min, t_max)
+def _leaf_closest(rows, L, orig, dir, t_min, t_max):
+    """Closest slot of one gathered leaf row per lane; ties go to the
+    highest slot. Returns (t, prim, u, v) with t = T_MAX, prim = -1 on a
+    miss."""
+    hit, t, u, v, prim = _mt_rows(rows, L, orig, dir, t_min, t_max)
     t = torch.where(hit, t, torch.full_like(t, T_MAX))
     best_t = t.min(dim=1).values
     iota = torch.arange(L, dtype=torch.int32, device=t.device)[None, :]
@@ -197,7 +200,8 @@ def traverse_closest(pbvh: PackedBvh, orig, dir, t_min, active, t_max=None):
             ovf |= o_flow
 
         leaf_id = torch.where(is_leaf, -cur - 1, torch.zeros_like(cur))
-        lt, lp, lu, lv = _leaf_closest(pbvh, leaf_id, o, d, tmn, bt)
+        rows = pbvh.leaf_rows[leaf_id.long()]
+        lt, lp, lu, lv = _leaf_closest(rows, pbvh.leaf_size, o, d, tmn, bt)
         take = is_leaf & (lt < bt)
         bt = torch.where(take, lt, bt)
         bp = torch.where(take, lp, bp)
@@ -264,6 +268,175 @@ def traverse_any(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
             keep = ~done
             lanes, o, d, inv, tmn, tmx = lanes[keep], o[keep], d[keep], inv[keep], tmn[keep], tmx[keep]
             occ, cur, stack, sp = occ[keep], cur[keep], stack[keep], sp[keep]
+    return occ_out
+
+
+def unified_stack_limit(ubvh: UnifiedBvh) -> int:
+    """Short-stack size of the two-level traversal: one slot per certified
+    level, capped at 2 * STACK_DEPTH, as the XLA oracle's."""
+    return max(2, min(2 * STACK_DEPTH, int(ubvh.stack_bound) + 1))
+
+
+def _instance_entry(rows, orig, dir):
+    """Decode gathered instance-entry rows: the WORLD ray through the 3x4
+    world-to-object matrix at cols [0, 12), summed left to right as the
+    oracle does; directions are not renormalized, so object t is world t.
+    Returns (o_obj, d_obj, blas_root, inst_id)."""
+
+    def lin(k, x):  # row k of the 3x3 part times x
+        return rows[:, 4 * k] * x[:, 0] + rows[:, 4 * k + 1] * x[:, 1] + rows[:, 4 * k + 2] * x[:, 2]
+
+    o = torch.stack([lin(k, orig) + rows[:, 4 * k + 3] for k in range(3)], dim=1)
+    d = torch.stack([lin(k, dir) for k in range(3)], dim=1)
+    codes = rows.view(torch.int32)
+    return o, d, codes[:, 12], codes[:, 13]
+
+
+def _unified_advance(ubvh: UnifiedBvh, cur, is_entry, descend, next_int, can_pop, stack, sp,
+                     rows, world_o, world_d, o, d):
+    """One step's move of the two-level walk: an entry leaf jumps to its
+    BLAS root in object space, an internal row descends into its nearest
+    hit child, anything else pops. The world ray comes back whenever the
+    new cur is a TLAS row or an entry leaf. Returns (cur, sp, o, d,
+    entered instance id)."""
+    sp = torch.where(can_pop, sp - 1, sp)
+    popped = stack.gather(1, sp[:, None].long())[:, 0]
+    o_ent, d_ent, root, ent_inst = _instance_entry(rows, world_o, world_d)
+    cur = torch.where(
+        is_entry, root,
+        torch.where(descend, next_int, torch.where(can_pop, popped, torch.full_like(cur, _DONE))),
+    )
+    o = torch.where(is_entry[:, None], o_ent, o)
+    d = torch.where(is_entry[:, None], d_ent, d)
+    world = (cur >= ubvh.tlas_lo) | ((cur < 0) & (-cur - 1 >= ubvh.n_tri_leaves))
+    o = torch.where(world[:, None], world_o, o)
+    d = torch.where(world[:, None], world_d, d)
+    return cur, sp, o, d, ent_inst
+
+
+def _unified_start(ubvh: UnifiedBvh, lanes):
+    """Initial (cur, stack, sp, limit) for n live lanes: the TLAS root."""
+    n = lanes.shape[0]
+    limit = unified_stack_limit(ubvh)
+    cur = torch.full((n,), ubvh.tlas_lo, dtype=torch.int32, device=lanes.device)
+    stack = torch.full((n, limit), _DONE, dtype=torch.int32, device=lanes.device)
+    sp = torch.zeros((n,), dtype=torch.int32, device=lanes.device)
+    return cur, stack, sp, limit
+
+
+def traverse_closest_unified(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
+    """Closest hit over a two-level table (the XLA oracle's
+    traverse_closest_unified, lane by lane in lockstep). Returns (t, prim,
+    inst, u, v): prim is the global triangle id; a miss or inactive lane is
+    (T_MAX, -1, -1, 0, 0); a stack overflow is prim = -2, otherwise as a
+    miss."""
+    R = orig.shape[0]
+    dev = orig.device
+    t_out = torch.full((R,), T_MAX, dtype=torch.float32, device=dev)
+    prim_out = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    inst_out = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    u_out = torch.zeros((R,), dtype=torch.float32, device=dev)
+    v_out = torch.zeros((R,), dtype=torch.float32, device=dev)
+    L, n_tri = ubvh.leaf_size, ubvh.n_tri_leaves
+
+    lanes = torch.nonzero(active).flatten()
+    wo, wd, tmn = orig[lanes], dir[lanes], t_min[lanes]
+    o, d = wo, wd
+    bt = torch.minimum(t_out, t_max)[lanes]
+    bp = torch.full_like(lanes, -1, dtype=torch.int32)
+    bi = torch.full_like(bp, -1)
+    reg = torch.zeros_like(bp)  # instance whose object space o, d hold
+    bu = torch.zeros_like(bt)
+    bv = torch.zeros_like(bt)
+    ovf = torch.zeros_like(lanes, dtype=torch.bool)
+    cur, stack, sp, limit = _unified_start(ubvh, lanes)
+
+    while lanes.numel():
+        is_leaf = cur < 0
+        is_int = ~is_leaf
+        is_tri = is_leaf & (-cur - 1 < n_tri)
+        is_entry = is_leaf & ~is_tri
+        next_int, pushes = _node_phase(ubvh, cur, is_int, o, 1.0 / d, tmn, bt)
+        for code, push in pushes:
+            sp, o_flow = _push(stack, sp, limit, code, push)
+            ovf |= o_flow
+
+        leaf_id = torch.where(is_leaf, -cur - 1, torch.zeros_like(cur))
+        rows = ubvh.leaf_rows[leaf_id.long()]
+        lt, lp, lu, lv = _leaf_closest(rows, L, o, d, tmn, bt)
+        take = is_tri & (lt < bt)
+        bt = torch.where(take, lt, bt)
+        bp = torch.where(take, lp, bp)
+        bi = torch.where(take, reg, bi)
+        bu = torch.where(take, lu, bu)
+        bv = torch.where(take, lv, bv)
+
+        descend = is_int & (next_int != _DONE)
+        can_pop = ~descend & ~is_entry & (sp > 0)
+        cur, sp, o, d, ent_inst = _unified_advance(
+            ubvh, cur, is_entry, descend, next_int, can_pop, stack, sp, rows, wo, wd, o, d
+        )
+        reg = torch.where(is_entry, ent_inst, reg)
+
+        done = cur == _DONE
+        if bool(done.any()):
+            idx = lanes[done]
+            p = torch.where(ovf[done], torch.full_like(bp[done], -2), bp[done])
+            miss = p < 0
+            t_out[idx] = torch.where(miss, torch.full_like(bt[done], T_MAX), bt[done])
+            prim_out[idx] = p
+            inst_out[idx] = torch.where(miss, torch.full_like(p, -1), bi[done])
+            u_out[idx] = torch.where(miss, torch.zeros_like(bu[done]), bu[done])
+            v_out[idx] = torch.where(miss, torch.zeros_like(bv[done]), bv[done])
+            keep = ~done
+            lanes, wo, wd, o, d, tmn = lanes[keep], wo[keep], wd[keep], o[keep], d[keep], tmn[keep]
+            bt, bp, bi, reg, bu, bv = bt[keep], bp[keep], bi[keep], reg[keep], bu[keep], bv[keep]
+            ovf, cur, stack, sp = ovf[keep], cur[keep], stack[keep], sp[keep]
+    return t_out, prim_out, inst_out, u_out, v_out
+
+
+def traverse_any_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
+    """Any hit (occlusion) over a two-level table with early out per lane
+    (the XLA oracle's traverse_any_unified). A stack overflow reports
+    occluded. Returns (R,) bool, False where mask is False."""
+    R = orig.shape[0]
+    occ_out = torch.zeros((R,), dtype=torch.bool, device=orig.device)
+    L, n_tri = ubvh.leaf_size, ubvh.n_tri_leaves
+    lanes = torch.nonzero(mask).flatten()
+    wo, wd, tmn, tmx = orig[lanes], dir[lanes], t_min[lanes], t_max[lanes]
+    o, d = wo, wd
+    occ = torch.zeros_like(lanes, dtype=torch.bool)
+    cur, stack, sp, limit = _unified_start(ubvh, lanes)
+
+    while lanes.numel():
+        is_leaf = cur < 0
+        is_int = ~is_leaf
+        is_tri = is_leaf & (-cur - 1 < n_tri)
+        is_entry = is_leaf & ~is_tri
+        next_int, pushes = _node_phase(ubvh, cur, is_int, o, 1.0 / d, tmn, tmx)
+        for code, push in pushes:
+            sp, o_flow = _push(stack, sp, limit, code, push)
+            occ |= o_flow
+
+        leaf_id = torch.where(is_leaf, -cur - 1, torch.zeros_like(cur))
+        rows = ubvh.leaf_rows[leaf_id.long()]
+        hit, _, _, _, _ = _mt_rows(rows, L, o, d, tmn, tmx)
+        occ |= is_tri & hit.any(dim=1)
+
+        descend = is_int & (next_int != _DONE)
+        can_pop = ~descend & ~is_entry & (sp > 0) & ~occ
+        cur, sp, o, d, _ = _unified_advance(
+            ubvh, cur, is_entry, descend, next_int, can_pop, stack, sp, rows, wo, wd, o, d
+        )
+        cur = torch.where(occ, torch.full_like(cur, _DONE), cur)
+
+        done = cur == _DONE
+        if bool(done.any()):
+            occ_out[lanes[done]] = occ[done]
+            keep = ~done
+            lanes, wo, wd, o, d = lanes[keep], wo[keep], wd[keep], o[keep], d[keep]
+            tmn, tmx, occ = tmn[keep], tmx[keep], occ[keep]
+            cur, stack, sp = cur[keep], stack[keep], sp[keep]
     return occ_out
 
 

@@ -1,11 +1,14 @@
-"""Wrappers of the flat traversal kernels B1 (closest hit) and B2 (any hit),
-csrc/traverse_flat.cu.
+"""Wrappers of the traversal kernels: B1 (flat closest hit) and B2 (flat any
+hit) in csrc/traverse_flat.cu, B3 (two-level closest hit) and B4
+(two-level any hit) in csrc/traverse_unified.cu.
 
 They replace the Pallas slot-lane kernels of
-chameleonrt_tpu/ops/traverse_slotlane.py (traverse_closest_slotlane and
-traverse_any_slotlane). On CUDA tensors a wrapper checks its inputs,
+chameleonrt_tpu/ops/traverse_slotlane.py (traverse_closest_slotlane,
+traverse_any_slotlane, traverse_closest_unified_slotlane and
+traverse_any_unified_slotlane). A wrapper checks its inputs against what
+the kernel takes and raises on anything else. Then, on CUDA tensors, it
 allocates the outputs, launches the kernel on the current stream without
-synchronizing, and raises if the launch fails. On CPU tensors it runs the
+synchronizing, and raises if the launch fails; on CPU tensors it runs the
 plain version in ops/traverse.py instead. There is no other fallback.
 
 LAUNCHES counts kernel launches, one per launch, so a caller can show that
@@ -19,19 +22,19 @@ import ctypes
 import torch
 
 from chameleonrt_tpu_torch import _build
-from chameleonrt_tpu_torch.engine.device_scene import PackedBvh
+from chameleonrt_tpu_torch.engine.device_scene import PackedBvh, UnifiedBvh
 from chameleonrt_tpu_torch.ops import traverse as plain
 
-LAUNCHES = {"closest": 0, "any": 0}
+LAUNCHES = {"closest": 0, "any": 0, "closest_unified": 0, "any_unified": 0}
 
 
-def _check(pbvh: PackedBvh, orig, dir, t_min, t_max, flag):
-    """Validate everything the kernels take; raise on anything else."""
+def _check(table, orig, dir, t_min, t_max, flag, depth: int) -> int:
+    """Validate everything the kernels take; raise on anything else.
+    Returns the leaf size."""
     R = orig.shape[0]
-    lib = _build.kernels()
     want = [
-        ("nodes", pbvh.nodes, torch.float32, None),
-        ("leaf_rows", pbvh.leaf_rows, torch.float32, None),
+        ("nodes", table.nodes, torch.float32, None),
+        ("leaf_rows", table.leaf_rows, torch.float32, None),
         ("orig", orig, torch.float32, (R, 3)),
         ("dir", dir, torch.float32, (R, 3)),
         ("t_min", t_min, torch.float32, (R,)),
@@ -48,17 +51,31 @@ def _check(pbvh: PackedBvh, orig, dir, t_min, t_max, flag):
             raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if pbvh.arity != 4:
-        raise ValueError(f"the flat kernels take BVH4 rows, got arity {pbvh.arity}")
-    L = pbvh.leaf_size
-    if pbvh.leaf_rows.shape[1] != 10 * L or not 1 <= L <= lib.crt_max_leaf():
-        raise ValueError(f"leaf rows of width {pbvh.leaf_rows.shape[1]} are not supported")
-    depth = plain.stack_limit(pbvh)
-    if depth > lib.crt_max_stack():
-        raise ValueError(f"stack depth {depth} exceeds the kernel's {lib.crt_max_stack()}")
-    if pbvh.nodes.data_ptr() % 16:
+    if table.nodes.dim() != 2 or table.nodes.shape[1] != 32:
+        raise ValueError(f"the kernels take BVH4 rows of 32 floats, got {tuple(table.nodes.shape)}")
+    L = table.leaf_size
+    if table.leaf_rows.dim() != 2 or table.leaf_rows.shape[1] != 10 * L or not 1 <= L <= _build.MAX_LEAF:
+        raise ValueError(f"leaf rows of shape {tuple(table.leaf_rows.shape)} are not supported")
+    if depth > _build.MAX_STACK:
+        raise ValueError(f"stack depth {depth} exceeds the kernel's {_build.MAX_STACK}")
+    if table.nodes.data_ptr() % 16:
         raise ValueError("node rows must be 16-byte aligned")
-    return lib, L, depth
+    return L
+
+
+def _check_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, flag):
+    """_check for a two-level table, plus the bounds of its sections."""
+    depth = plain.unified_stack_limit(ubvh)
+    L = _check(ubvh, orig, dir, t_min, t_max, flag, depth)
+    if not 0 <= ubvh.tlas_lo < ubvh.nodes.shape[0]:
+        raise ValueError(f"tlas_lo {ubvh.tlas_lo} is outside the {ubvh.nodes.shape[0]} node rows")
+    if not 0 <= ubvh.n_tri_leaves < ubvh.leaf_rows.shape[0]:
+        raise ValueError(f"n_tri_leaves {ubvh.n_tri_leaves} leaves no instance-entry rows")
+    return L, depth
+
+
+def _stream(x):
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def _raise_on(lib, err: int, name: str):
@@ -68,9 +85,11 @@ def _raise_on(lib, err: int, name: str):
 
 def traverse_closest(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
     """B1: closest hit. Returns (t, prim, u, v), as plain.traverse_closest."""
+    depth = plain.stack_limit(pbvh)
+    L = _check(pbvh, orig, dir, t_min, t_max, active, depth)
     if orig.device.type == "cpu":
         return plain.traverse_closest(pbvh, orig, dir, t_min, active, t_max)
-    lib, L, depth = _check(pbvh, orig, dir, t_min, t_max, active)
+    lib = _build.kernels()
     R = orig.shape[0]
     t = torch.empty((R,), dtype=torch.float32, device=orig.device)
     prim = torch.empty((R,), dtype=torch.int32, device=orig.device)
@@ -82,7 +101,7 @@ def traverse_closest(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
         pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves, L, depth,
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         active.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), R,
-        ctypes.c_void_p(torch.cuda.current_stream(orig.device).cuda_stream),
+        _stream(orig),
     )
     _raise_on(lib, err, "closest-hit kernel")
     LAUNCHES["closest"] += 1
@@ -91,9 +110,11 @@ def traverse_closest(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
 
 def traverse_any(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     """B2: any hit. Returns (R,) bool occluded & mask, as plain.traverse_any."""
+    depth = plain.stack_limit(pbvh)
+    L = _check(pbvh, orig, dir, t_min, t_max, mask, depth)
     if orig.device.type == "cpu":
         return plain.traverse_any(pbvh, orig, dir, t_min, t_max, mask)
-    lib, L, depth = _check(pbvh, orig, dir, t_min, t_max, mask)
+    lib = _build.kernels()
     R = orig.shape[0]
     occ = torch.empty((R,), dtype=torch.bool, device=orig.device)
     if R == 0:
@@ -101,9 +122,55 @@ def traverse_any(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     err = lib.crt_traverse_any(
         pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves, L, depth,
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-        mask.data_ptr(), occ.data_ptr(), R,
-        ctypes.c_void_p(torch.cuda.current_stream(orig.device).cuda_stream),
+        mask.data_ptr(), occ.data_ptr(), R, _stream(orig),
     )
     _raise_on(lib, err, "any-hit kernel")
     LAUNCHES["any"] += 1
+    return occ
+
+
+def traverse_closest_unified(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
+    """B3: closest hit over a two-level table. Returns (t, prim, inst, u,
+    v), as plain.traverse_closest_unified."""
+    L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, active)
+    if orig.device.type == "cpu":
+        return plain.traverse_closest_unified(ubvh, orig, dir, t_min, active, t_max)
+    lib = _build.kernels()
+    R = orig.shape[0]
+    t = torch.empty((R,), dtype=torch.float32, device=orig.device)
+    prim = torch.empty((R,), dtype=torch.int32, device=orig.device)
+    inst = torch.empty_like(prim)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    if R == 0:
+        return t, prim, inst, u, v
+    err = lib.crt_traverse_closest_unified(
+        ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, L,
+        depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+        active.data_ptr(), t.data_ptr(), prim.data_ptr(), inst.data_ptr(), u.data_ptr(),
+        v.data_ptr(), R, _stream(orig),
+    )
+    _raise_on(lib, err, "two-level closest-hit kernel")
+    LAUNCHES["closest_unified"] += 1
+    return t, prim, inst, u, v
+
+
+def traverse_any_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
+    """B4: any hit over a two-level table. Returns (R,) bool occluded &
+    mask, as plain.traverse_any_unified."""
+    L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, mask)
+    if orig.device.type == "cpu":
+        return plain.traverse_any_unified(ubvh, orig, dir, t_min, t_max, mask)
+    lib = _build.kernels()
+    R = orig.shape[0]
+    occ = torch.empty((R,), dtype=torch.bool, device=orig.device)
+    if R == 0:
+        return occ
+    err = lib.crt_traverse_any_unified(
+        ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, L,
+        depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+        mask.data_ptr(), occ.data_ptr(), R, _stream(orig),
+    )
+    _raise_on(lib, err, "two-level any-hit kernel")
+    LAUNCHES["any_unified"] += 1
     return occ

@@ -6,18 +6,24 @@ CUDA card, nvcc and the repository's sources, and imports no JAX. Phases:
 
 1. device and toolchain: the card's name and power limit (nvidia-smi),
    torch, CUDA and nvcc versions;
-2. build: the traversal kernels (csrc/traverse_flat.cu) with nvcc;
-3. kernels against their plain torch versions on the card, at the parity
-   shape (proc://hall?subdiv=2 at 320x180) and at the main path's shape
-   (the textured hall at 1280x720): a sorted primary wavefront and a
-   diffuse-bounce wavefront from its hit points, with kernel and plain
-   times; and B2 on the 10 masked shadow-ray wavefronts of one main-path
-   frame;
-4. an image through the kernels against one through the plain traversal
-   (textured hall, 128x72, 2 frames): 8-bit mean abs difference < 1;
-5. the main path: get_backend("cuda") rendering
-   proc://hall?subdiv=4&textured=1 at 1280x720, 1 spp, with the kernels'
-   launch counts read around it.
+2. build: the traversal kernels (csrc/*.cu, one nvcc each, in parallel);
+3. kernels against their plain torch versions on the card, each with
+   kernel and plain times on a sorted primary wavefront and a
+   diffuse-bounce wavefront from its hit points:
+   - B1/B2 (flat) on proc://hall?subdiv=2 at 320x180 and on the textured
+     hall at 1280x720, and B2 on the 10 masked shadow-ray wavefronts of
+     one 1280x720 hall frame;
+   - B3/B4 (two-level) on proc://instances?nx=4&ny=4&subdiv=2 at 320x180
+     and on the San Miguel proxy at 1280x720, and B4 on the 10 masked
+     shadow-ray wavefronts of one 1-spp San Miguel frame at 1280x720;
+4. images through the kernels against images through the plain traversal
+   (textured hall and proc://instances?nx=6&ny=6&subdiv=3, 128x72, 2
+   frames each): 8-bit mean abs difference < 1;
+5. the main paths, each with the kernels' launch counts set to 0 just
+   before it and read just after: get_backend("cuda") rendering
+   proc://hall?subdiv=4&textured=1 at 1280x720, 1 spp (B1/B2), and the San
+   Miguel proxy (gen://san_miguel: 155 instances, 9.67M instanced
+   triangles, generated as bench.py does) at 1280x720, 4 spp (B3/B4).
 
 Every phase raises on failure and the script then exits nonzero. The line
 before the last is a JSON object with one entry per kernel; the last line
@@ -34,15 +40,27 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-MAIN_SCENE = "proc://hall?subdiv=4&textured=1"
-PARITY_SCENE = "proc://hall?subdiv=2"
-IMAGE_SCENE = "proc://hall?subdiv=1&textured=1&columns=4"
+HALL_SCENE = "proc://hall?subdiv=4&textured=1"
+HALL_PARITY = "proc://hall?subdiv=2"
+HALL_IMAGE = "proc://hall?subdiv=1&textured=1&columns=4"
+INST_PARITY = "proc://instances?nx=4&ny=4&subdiv=2"
+INST_IMAGE = "proc://instances?nx=6&ny=6&subdiv=3"
+SAN_MIGUEL = "gen://san_miguel"
 MAIN_W, MAIN_H = 1280, 720
-TIMED_FRAMES = 4
-# traversal gates (the JAX bench's parity gates): prim / occlusion
-# mismatches <= max(2, R / 50000), |dt| and |du|, |dv| over common hits <= 1e-5
+HALL_TIMED_FRAMES = 4
+SM_SPP = 4
+SM_TIMED_FRAMES = 4
+# traversal gates (the JAX bench's parity gates): prim (and instance) /
+# occlusion mismatches <= max(2, R / 50000), |dt| and |du|, |dv| over
+# common hits <= 1e-5
 DT_TOL = 1e-5
 UV_TOL = 1e-5
+# timings: median of this many CUDA-event timed calls after one warmup;
+# the plain two-level walk over the San Miguel proxy takes ~1 s a call,
+# so it gets fewer
+KERNEL_REPS = 5
+PLAIN_REPS = 5
+PLAIN_REPS_SAN_MIGUEL = 3
 
 
 def log(msg: str) -> None:
@@ -80,27 +98,43 @@ def phase_build():
     return secs
 
 
-def _scene_tables(torch, uri):
+def _load(uri):
+    """The scene at uri; gen://san_miguel is generated first, as bench.py
+    does, into the build directory."""
     from chameleonrt_tpu.scene.loader import load_scene
+
+    if uri == SAN_MIGUEL:
+        from chameleonrt_tpu.scene.pbrt_gen import generate_san_miguel_proxy
+        from chameleonrt_tpu_torch import _build
+
+        uri = generate_san_miguel_proxy(os.path.join(_build.BUILD_DIR, "san_miguel"))
+    return load_scene(uri)
+
+
+def _scene_tables(torch, uri):
     from chameleonrt_tpu_torch.engine.device_scene import build_device_scene
     from chameleonrt_tpu_torch.engine.trace_bvh import build_blas_set
 
-    scene = load_scene(uri)
+    scene = _load(uri)
     flat, meta = build_device_scene(scene, torch.device("cuda"))
     return scene, flat._replace(blas=build_blas_set(flat, meta)), meta
 
 
-def _primary_wavefront(torch, scene, W, H):
-    """Sorted primary rays, as the JAX bench's _parity_wavefront builds them."""
+def _view(scene):
     import numpy as np
-
-    from chameleonrt_tpu_torch.ops import camera, rng
-    from chameleonrt_tpu_torch.ops.traverse import ray_sort_perm_only
 
     cam = scene.cameras[0]
     d = cam.center - cam.position
-    d = d / np.linalg.norm(d)
-    view = camera.compute_view_params(cam.position, d, cam.up, cam.fov_y, W, H)
+    return cam.position, d / np.linalg.norm(d), cam.up, cam.fov_y
+
+
+def _primary_wavefront(torch, scene, W, H):
+    """Sorted primary rays, as the JAX bench's _parity_wavefront builds them."""
+    from chameleonrt_tpu_torch.ops import camera, rng
+    from chameleonrt_tpu_torch.ops.traverse import ray_sort_perm_only
+
+    pos, d, up, fov = _view(scene)
+    view = camera.compute_view_params(pos, d, up, fov, W, H)
     ys, xs = torch.meshgrid(
         torch.arange(H, device="cuda"), torch.arange(W, device="cuda"), indexing="ij"
     )
@@ -112,17 +146,23 @@ def _primary_wavefront(torch, scene, W, H):
     return orig[perm].contiguous(), dirs[perm].contiguous(), active
 
 
-def _bounce_wavefront(torch, flat, orig, dirs, t, prim):
+def _bounce_wavefront(torch, flat, orig, dirs, t, prim, inst):
     """Diffuse-bounce rays from the primary hit points: uniform directions
-    in the hemisphere of the face normal that faces the incoming ray, from
-    a seeded generator; lanes whose primary ray missed are inactive."""
+    in the hemisphere of the world face normal that faces the incoming
+    ray, from a seeded generator; lanes whose primary ray missed are
+    inactive. inst is the hit instance (None in a flat scene, whose one
+    instance is the identity)."""
     from chameleonrt_tpu_torch.ops.math import cross, dot, normalize
     from chameleonrt_tpu_torch.ops.traverse import ray_sort_perm_only
 
     hit = prim >= 0
     p = orig + torch.where(hit, t, torch.zeros_like(t))[:, None] * dirs
     srow = flat.shade_rows[prim.clamp(min=0).long()]
-    n = normalize(cross(srow[:, 0:3], srow[:, 3:6]))
+    n = cross(srow[:, 0:3], srow[:, 3:6])
+    if inst is not None:
+        inv3 = flat.inst_inv[inst.clamp(min=0).long(), :3, :3]
+        n = torch.einsum("rji,rj->ri", inv3, n)
+    n = normalize(n)
     n = torch.where((dot(n, dirs) > 0)[:, None], -n, n)
     g = torch.Generator(device="cuda").manual_seed(11)
     w = normalize(torch.randn(orig.shape, generator=g, device="cuda"))
@@ -131,7 +171,7 @@ def _bounce_wavefront(torch, flat, orig, dirs, t, prim):
     return p[perm].contiguous(), w[perm].contiguous(), hit[perm].contiguous()
 
 
-def _median_ms(torch, fn, reps=5):
+def _median_ms(torch, fn, reps):
     fn()  # warmup
     times = []
     for _ in range(reps):
@@ -145,77 +185,94 @@ def _median_ms(torch, fn, reps=5):
     return statistics.median(times)
 
 
-def _check_closest(torch, pbvh, orig, dirs, t_min, active, label, timed):
+def _kernel_pair(unified: bool, closest: bool):
+    """(label, kernel wrapper, plain version)."""
     from chameleonrt_tpu_torch.ops import traverse, traverse_cuda
+
+    if unified:
+        if closest:
+            return "B3", traverse_cuda.traverse_closest_unified, traverse.traverse_closest_unified
+        return "B4", traverse_cuda.traverse_any_unified, traverse.traverse_any_unified
+    if closest:
+        return "B1", traverse_cuda.traverse_closest, traverse.traverse_closest
+    return "B2", traverse_cuda.traverse_any, traverse.traverse_any
+
+
+def _check_closest(torch, table, unified, orig, dirs, t_min, active, label, plain_reps):
+    """Kernel against plain closest hit; returns (result, t, prim, inst)
+    of the plain version (inst None in a flat scene)."""
     from chameleonrt_tpu_torch.ops.intersect import T_MAX
 
+    name, kernel, plain = _kernel_pair(unified, closest=True)
     R = orig.shape[0]
     t_max = torch.full((R,), T_MAX, dtype=torch.float32, device="cuda")
-    k = traverse_cuda.traverse_closest(pbvh, orig, dirs, t_min, active, t_max)
+    k = kernel(table, orig, dirs, t_min, active, t_max)
     torch.cuda.synchronize()
-    p = traverse.traverse_closest(pbvh, orig, dirs, t_min, active, t_max)
-    (tk, pk, uk, vk), (tp, pp, up, vp) = k, p
+    p = plain(table, orig, dirs, t_min, active, t_max)
+    tk, pk, uk, vk = k[0], k[1], k[-2], k[-1]
+    tp, pp, up, vp = p[0], p[1], p[-2], p[-1]
+    mism_lanes = pk != pp
+    if unified:
+        mism_lanes |= k[2] != p[2]
     common = (pk >= 0) & (pp >= 0)
-    mism = int((pk != pp).sum())
+    mism = int(mism_lanes.sum())
     dt = float((tk - tp)[common].abs().max()) if bool(common.any()) else 0.0
     duv = float(torch.maximum((uk - up).abs(), (vk - vp).abs())[common].max()) if bool(common.any()) else 0.0
     ok = mism <= max(2, R // 50000) and dt <= DT_TOL and duv <= UV_TOL
-    res = {"rays": R, "hits": int((pk >= 0).sum()), "prim_mismatch": mism,
-           "max_dt_common": dt, "max_duv_common": duv, "ok": ok}
-    if timed:
-        res["ms"] = _median_ms(torch, lambda: traverse_cuda.traverse_closest(
-            pbvh, orig, dirs, t_min, active, t_max))
-        res["plain_ms"] = _median_ms(torch, lambda: traverse.traverse_closest(
-            pbvh, orig, dirs, t_min, active, t_max))
-    log(f"[kernels] B1 closest {label}: {json.dumps(res)}")
+    res = {"rays": R, "active": int(active.sum()), "hits": int((pk >= 0).sum()),
+           "prim_mismatch": mism, "max_dt_common": dt, "max_duv_common": duv, "ok": ok}
+    if unified:
+        res["instances_hit"] = int(torch.unique(k[2][pk >= 0]).numel())
+    res["ms"] = _median_ms(torch, lambda: kernel(table, orig, dirs, t_min, active, t_max), KERNEL_REPS)
+    res["plain_ms"] = _median_ms(torch, lambda: plain(table, orig, dirs, t_min, active, t_max), plain_reps)
+    res["plain_reps"] = plain_reps
+    log(f"[kernels] {name} closest {label}: {json.dumps(res)}")
     if not ok:
-        raise AssertionError(f"B1 disagrees with its plain version on {label}: {res}")
-    return res, tp, pp
+        raise AssertionError(f"{name} disagrees with its plain version on {label}: {res}")
+    return res, tp, pp, (p[2] if unified else None)
 
 
-def _check_any(torch, pbvh, orig, dirs, t_closest, active, label, timed, factor):
+def _check_any(torch, table, unified, orig, dirs, t_closest, active, label, factor, plain_reps):
     """t_max = factor * the closest hit (100 on a miss). factor 1.001 is the
     JAX bench's gate: a hitting ray is occluded, mostly by that very
     triangle, and stops early. factor 0.999 stops just short of it, so a ray
     walks every box in front of its hit and is rarely occluded."""
-    from chameleonrt_tpu_torch.ops import traverse, traverse_cuda
     from chameleonrt_tpu_torch.ops.math import EPSILON
 
+    name, kernel, plain = _kernel_pair(unified, closest=False)
     R = orig.shape[0]
     t_max = torch.where(t_closest < 1e19, t_closest * factor, torch.full_like(t_closest, 100.0))
     t_min = torch.full((R,), EPSILON, dtype=torch.float32, device="cuda")
-    ok_k = traverse_cuda.traverse_any(pbvh, orig, dirs, t_min, t_max, active)
+    ok_k = kernel(table, orig, dirs, t_min, t_max, active)
     torch.cuda.synchronize()
-    ok_p = traverse.traverse_any(pbvh, orig, dirs, t_min, t_max, active)
+    ok_p = plain(table, orig, dirs, t_min, t_max, active)
     mism = int((ok_k != ok_p).sum())
     ok = mism <= max(2, R // 50000)
-    res = {"rays": R, "occluded": int(ok_k.sum()), "occ_mismatch": mism,
+    res = {"rays": R, "t_max_factor": factor, "occluded": int(ok_k.sum()), "occ_mismatch": mism,
            "max_abs_err": float((ok_k.float() - ok_p.float()).abs().max()), "ok": ok}
-    if timed:
-        res["ms"] = _median_ms(torch, lambda: traverse_cuda.traverse_any(
-            pbvh, orig, dirs, t_min, t_max, active))
-        res["plain_ms"] = _median_ms(torch, lambda: traverse.traverse_any(
-            pbvh, orig, dirs, t_min, t_max, active))
-    log(f"[kernels] B2 any {label}: {json.dumps(res)}")
+    res["ms"] = _median_ms(torch, lambda: kernel(table, orig, dirs, t_min, t_max, active), KERNEL_REPS)
+    res["plain_ms"] = _median_ms(torch, lambda: plain(table, orig, dirs, t_min, t_max, active), plain_reps)
+    res["plain_reps"] = plain_reps
+    log(f"[kernels] {name} any {label}: {json.dumps(res)}")
     if not ok:
-        raise AssertionError(f"B2 disagrees with its plain version on {label}: {res}")
+        raise AssertionError(f"{name} disagrees with its plain version on {label}: {res}")
     return res
 
 
-def _check_any_shadow(torch, scene):
-    """B2 on the main path's own traffic: the 10 masked shadow-ray
-    wavefronts of one 1280x720 frame (per bounce, light samples and then
-    bsdf samples toward the lights), captured through the backend and
-    traced again by the plain version. Requires zero mismatches and some
-    occluded rays."""
-    import numpy as np
-
+def _check_any_shadow(torch, scene, unified, spp=1):
+    """The any-hit kernel on a main path's own traffic: the 10 masked
+    shadow-ray wavefronts of one 1280x720 frame at one sample per pixel
+    (per bounce, light samples and then bsdf samples toward the lights),
+    captured through the backend and traced again by the plain version.
+    Requires zero mismatches and some occluded rays."""
     from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
     from chameleonrt_tpu_torch.engine.trace_bvh import make_trace_fns
 
+    name = _kernel_pair(unified, closest=False)[0]
     b = CudaBackend()
     b.initialize(MAIN_W, MAIN_H)
     b.set_scene(scene)
+    b.samples_per_pixel = spp
     trace_closest, trace_any = b._trace
     calls = []
 
@@ -225,89 +282,101 @@ def _check_any_shadow(torch, scene):
         return occ
 
     b._trace = (trace_closest, capture)
-    cam = scene.cameras[0]
-    d = cam.center - cam.position
-    b.render(cam.position, d / np.linalg.norm(d), cam.up, cam.fov_y, True, readback_framebuffer=False)
+    pos, d, up, fov = _view(scene)
+    b.render(pos, d, up, fov, True, readback_framebuffer=False)
     _, plain_any = make_trace_fns(b.meta, use_kernels=False)
     per_call = []
     for orig, dirs, t_max, mask, occ in calls:
         occ_p = plain_any(b.flat, orig, dirs, t_max, mask)
         per_call.append((int(mask.sum()), int(occ.sum()), int((occ != occ_p).sum())))
-    res = {"rays": MAIN_W * MAIN_H, "calls": len(calls),
+    res = {"rays": MAIN_W * MAIN_H, "spp": spp, "calls": len(calls),
            "masked_in": [c[0] for c in per_call], "occluded": [c[1] for c in per_call],
            "occ_mismatch": sum(c[2] for c in per_call)}
     res["ok"] = (len(calls) == 10 and res["occ_mismatch"] == 0 and sum(res["occluded"]) > 0
                  and all(0 < c[0] < MAIN_W * MAIN_H for c in per_call[:2]))
-    log(f"[kernels] B2 any main-path shadow rays, one frame: {json.dumps(res)}")
+    log(f"[kernels] {name} any main-path shadow rays, one frame: {json.dumps(res)}")
     if not res["ok"]:
-        raise AssertionError(f"B2 disagrees with its plain version on the main path's shadow rays: {res}")
+        raise AssertionError(f"{name} disagrees with its plain version on the main path's shadow rays: {res}")
     return res
 
 
-def phase_kernels(torch):
-    """B1 and B2 against their plain versions on two scenes, with kernel
-    and plain times, and B2 on one main-path frame's shadow rays. Returns
-    {kernel: (primary, bounce) results at the main path's shape}."""
+def phase_kernels(torch, unified: bool):
+    """The closest- and any-hit kernels of one path against their plain
+    versions on two scenes, with kernel and plain times, and the any-hit
+    kernel on one main-path frame's shadow rays. Returns {"closest":
+    (primary, bounce), "any": (primary, bounce), "shadow": ...} at the main
+    path's shape."""
     from chameleonrt_tpu_torch.ops.math import EPSILON
 
+    if unified:
+        cases = (("parity instances nx=4 ny=4 320x180", INST_PARITY, 320, 180, PLAIN_REPS),
+                 ("main-path San Miguel proxy 1280x720", SAN_MIGUEL, MAIN_W, MAIN_H,
+                  PLAIN_REPS_SAN_MIGUEL))
+    else:
+        cases = (("parity hall subdiv=2 320x180", HALL_PARITY, 320, 180, PLAIN_REPS),
+                 ("main-path hall 1280x720", HALL_SCENE, MAIN_W, MAIN_H, PLAIN_REPS))
     out = {}
-    for label, uri, W, H, timed in (
-        ("parity hall subdiv=2 320x180", PARITY_SCENE, 320, 180, True),
-        ("main-path hall 1280x720", MAIN_SCENE, MAIN_W, MAIN_H, True),
-    ):
+    for label, uri, W, H, reps in cases:
         scene, flat, meta = _scene_tables(torch, uri)
-        pbvh = flat.blas[0].any
+        table = flat.blas[0].any
+        if unified:
+            log(f"[kernels] {label}: two-level BVH4 table {tuple(table.nodes.shape)} nodes, "
+                f"{tuple(table.leaf_rows.shape)} leaf rows, n_tri_leaves {table.n_tri_leaves}, "
+                f"tlas_lo {table.tlas_lo}, stack_bound {table.stack_bound}, "
+                f"{meta.num_instances} instances of {len(meta.mesh_tri_ranges)} meshes")
         orig, dirs, active = _primary_wavefront(torch, scene, W, H)
         R = orig.shape[0]
         zeros = torch.zeros((R,), dtype=torch.float32, device="cuda")
-        r1, t, prim = _check_closest(torch, pbvh, orig, dirs, zeros, active, f"{label} primary", timed)
-        r2 = _check_any(torch, pbvh, orig, dirs, t, active, f"{label} primary", timed, 1.001)
-        bo, bd, bact = _bounce_wavefront(torch, flat, orig, dirs, t, prim)
+        r1, t, prim, inst = _check_closest(torch, table, unified, orig, dirs, zeros, active,
+                                           f"{label} primary", reps)
+        r2 = _check_any(torch, table, unified, orig, dirs, t, active, f"{label} primary", 1.001, reps)
+        bo, bd, bact = _bounce_wavefront(torch, flat, orig, dirs, t, prim, inst)
         eps = torch.full((R,), EPSILON, dtype=torch.float32, device="cuda")
-        r3, bt, _ = _check_closest(torch, pbvh, bo, bd, eps, bact, f"{label} bounce", timed)
-        r4 = _check_any(torch, pbvh, bo, bd, bt, bact, f"{label} bounce", timed, 0.999)
+        r3, bt, _, _ = _check_closest(torch, table, unified, bo, bd, eps, bact, f"{label} bounce", reps)
+        r4 = _check_any(torch, table, unified, bo, bd, bt, bact, f"{label} bounce", 0.999, reps)
         out = {"closest": (r1, r3), "any": (r2, r4)}
-        del flat
-    out["shadow"] = _check_any_shadow(torch, scene)
+        del flat, table
+    out["shadow"] = _check_any_shadow(torch, scene, unified)
     return out
 
 
-def phase_image(torch):
+def phase_image(torch, uri):
     import numpy as np
 
-    from chameleonrt_tpu.scene.loader import load_scene
     from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
 
-    scene = load_scene(IMAGE_SCENE)
-    cam = scene.cameras[0]
-    d = cam.center - cam.position
-    d = d / np.linalg.norm(d)
+    scene = _load(uri)
+    pos, d, up, fov = _view(scene)
     imgs = {}
     for use_kernels in (True, False):
         b = CudaBackend(use_kernels=use_kernels)
         b.initialize(128, 72)
         b.set_scene(scene)
         for i in range(2):
-            b.render(cam.position, d, cam.up, cam.fov_y, i == 0, readback_framebuffer=(i == 1))
+            b.render(pos, d, up, fov, i == 0, readback_framebuffer=(i == 1))
         imgs[use_kernels] = b.img[..., :3].astype(np.float32)
-    mad = float(np.abs(imgs[True] - imgs[False]).mean())
-    log(f"[image] {IMAGE_SCENE} 128x72 x2 frames, kernels vs plain traversal: "
-        f"8-bit mean abs diff {mad:.6f} (gate < 1.0), max {float(np.abs(imgs[True] - imgs[False]).max())}")
-    if not mad < 1.0:
-        raise AssertionError(f"kernel image differs from the plain image: MAD {mad}")
+    diff = np.abs(imgs[True] - imgs[False])
+    mad = float(diff.mean())
+    log(f"[image] {uri} 128x72 x2 frames, kernels vs plain traversal: "
+        f"8-bit mean abs diff {mad:.6f} (gate < 1.0), max {float(diff.max())}, "
+        f"image mean {float(imgs[True].mean()):.3f}")
+    if not mad < 1.0 or not imgs[True].max() > 0:
+        raise AssertionError(f"kernel image of {uri} differs from the plain image or is black: MAD {mad}")
 
 
-def phase_main(torch):
+def phase_main(torch, uri, spp, timed_frames, expect):
+    """get_backend("cuda") on uri at 1280x720 and spp samples per pixel
+    (set after set_scene, as bench.py does): one warmup and timed_frames
+    timed frames, with every launch count set to 0 just before and read
+    just after. expect maps each count to its launches per frame."""
     import numpy as np
 
     from chameleonrt_tpu.core import get_backend
-    from chameleonrt_tpu.scene.loader import load_scene
     from chameleonrt_tpu_torch.ops import traverse_cuda
 
-    scene = load_scene(MAIN_SCENE)
-    cam = scene.cameras[0]
-    d = cam.center - cam.position
-    d = d / np.linalg.norm(d)
+    scene = _load(uri)
+    pos, d, up, fov = _view(scene)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in traverse_cuda.LAUNCHES:
         traverse_cuda.LAUNCHES[k] = 0
@@ -316,13 +385,13 @@ def phase_main(torch):
     t0 = time.perf_counter()
     backend.set_scene(scene)
     set_scene_s = time.perf_counter() - t0
+    backend.samples_per_pixel = spp
     stats = []
-    n_frames = 1 + TIMED_FRAMES
+    n_frames = 1 + timed_frames
     for i in range(n_frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = backend.render(cam.position, d, cam.up, cam.fov_y, i == 0,
-                            readback_framebuffer=(i == n_frames - 1))
+        st = backend.render(pos, d, up, fov, i == 0, readback_framebuffer=(i == n_frames - 1))
         torch.cuda.synchronize()
         stats.append((time.perf_counter() - t0, st))
     launches = dict(traverse_cuda.LAUNCHES)
@@ -331,23 +400,25 @@ def phase_main(torch):
     rays = [st.rays_traced for _, st in timed]
     mray_s = [r / s / 1e6 for (s, _), r in zip(timed, rays)]
     peak = torch.cuda.max_memory_allocated()
-    tris = sum(c for _, c in backend.meta.mesh_tri_ranges)
     res = {
-        "scene": MAIN_SCENE, "width": MAIN_W, "height": MAIN_H, "spp": 1, "tris": tris,
+        "scene": uri, "width": MAIN_W, "height": MAIN_H, "spp": spp,
+        "unique_tris": backend.meta.num_tris, "instances": backend.meta.num_instances,
+        "instanced_tris": scene.total_tris(),
         "set_scene_s": set_scene_s, "warmup_ms": stats[0][0] * 1e3,
         "ms_per_frame": ms, "min_ms": min(ms), "median_ms": statistics.median(ms),
         "rays_per_frame": rays, "mray_s_median": statistics.median(mray_s),
         "peak_mem_bytes": peak, "launches": launches, "frames": n_frames,
     }
     log(f"[main] {json.dumps(res)}")
-    if launches["closest"] != 5 * n_frames or launches["any"] != 10 * n_frames:
-        raise AssertionError(f"expected 5 closest and 10 any launches per frame, got {launches}")
+    want = {k: expect.get(k, 0) * n_frames for k in launches}
+    if launches != want:
+        raise AssertionError(f"expected {want} launches over {n_frames} frames, got {launches}")
     accum = backend._accum
     if tuple(accum.shape) != (MAIN_H, MAIN_W, 3) or not bool(torch.isfinite(accum).all()):
         raise AssertionError("accumulated image is not a finite (H, W, 3) buffer")
     if not float(accum.max()) > 0.0 or int(backend.img[..., :3].max()) == 0:
         raise AssertionError("accumulated image is all black")
-    log(f"[main] image mean {float(accum.mean()):.5f}, max {float(accum.max()):.5f}; "
+    log(f"[main] {uri}: image mean {float(accum.mean()):.5f}, max {float(accum.max()):.5f}; "
         f"8-bit image mean {float(backend.img[..., :3].mean()):.3f}")
     return launches
 
@@ -364,35 +435,47 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chameleonrt_tpu_torch  # noqa: F401  (registers the cuda backend)
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_toolchain(torch)
     phase_build()
-    kres = phase_kernels(torch)
-    phase_image(torch)
-    launches = phase_main(torch)
+    kres = {"flat": phase_kernels(torch, unified=False),
+            "unified": phase_kernels(torch, unified=True)}
+    phase_image(torch, HALL_IMAGE)
+    phase_image(torch, INST_IMAGE)
+    launches = {
+        "flat": phase_main(torch, HALL_SCENE, 1, HALL_TIMED_FRAMES, {"closest": 5, "any": 10}),
+        "unified": phase_main(torch, SAN_MIGUEL, SM_SPP, SM_TIMED_FRAMES,
+                              {"closest_unified": 5 * SM_SPP, "any_unified": 10 * SM_SPP}),
+    }
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
-    src = "chameleonrt_tpu_torch/csrc/traverse_flat.cu"
     kernels = []
-    for name, key, replaces in (
-        ("B1 flat closest hit", "closest",
-         "chameleonrt_tpu/ops/traverse_slotlane.py:771 (_closest_call_slotlane)"),
-        ("B2 flat any hit", "any",
-         "chameleonrt_tpu/ops/traverse_slotlane.py:835 (_any_call_slotlane)"),
+    slotlane = "chameleonrt_tpu/ops/traverse_slotlane.py"
+    for name, path, key, src, replaces in (
+        ("B1 flat closest hit", "flat", "closest", "traverse_flat.cu",
+         f"{slotlane}:771 (_closest_call_slotlane)"),
+        ("B2 flat any hit", "flat", "any", "traverse_flat.cu",
+         f"{slotlane}:835 (_any_call_slotlane)"),
+        ("B3 two-level closest hit", "unified", "closest", "traverse_unified.cu",
+         f"{slotlane}:1025 (_closest_unified_call_slotlane)"),
+        ("B4 two-level any hit", "unified", "any", "traverse_unified.cu",
+         f"{slotlane}:1085 (_any_unified_call_slotlane)"),
     ):
-        primary, bounce = kres[key]
-        err = primary.get("max_dt_common", primary.get("max_abs_err"))
-        err = max(err, bounce.get("max_dt_common", bounce.get("max_abs_err")))
+        primary, bounce = kres[path][key]
+        err = max(r.get("max_dt_common", r.get("max_abs_err")) for r in (primary, bounce))
         if key == "any":
-            err = max(err, float(kres["shadow"]["occ_mismatch"] > 0))
+            err = max(err, float(kres[path]["shadow"]["occ_mismatch"] > 0))
+        count = key if path == "flat" else f"{key}_unified"
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": err,
+            "name": name, "route": "cuda", "source": f"chameleonrt_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[path][count], "max_abs_err": err,
             "ms": primary["ms"], "plain_ms": primary["plain_ms"],
             "bounce_ms": bounce["ms"], "bounce_plain_ms": bounce["plain_ms"],
         })
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

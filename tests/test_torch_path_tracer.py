@@ -32,6 +32,9 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.skipif(native.get_lib() is None, reason="native builder unavailable")
 
 HALL = "proc://hall?subdiv=1&textured=1&columns=4"
+# nine rotated instances of one box mesh under two materials: the
+# two-level tables, traced by the plain versions of B3 and B4
+INSTANCES = "proc://instances?nx=3&ny=3&subdiv=1"
 
 
 def _camera(scene):
@@ -59,7 +62,9 @@ def _render_port(uri, res, n_frames):
     return b
 
 
-@pytest.mark.parametrize("uri, res, n_frames", [("proc://cornell", 40, 3), (HALL, 64, 1)])
+@pytest.mark.parametrize(
+    "uri, res, n_frames", [("proc://cornell", 40, 3), (HALL, 64, 1), (INSTANCES, 40, 2)]
+)
 def test_frames_match_jax_tpu_backend(uri, res, n_frames, tmp_path):
     img_ref, acc_ref, _ = render_frames("tpu", uri, res, n_frames, tmpdir=str(tmp_path))
     b = _render_port(uri, res, n_frames)
@@ -68,10 +73,11 @@ def test_frames_match_jax_tpu_backend(uri, res, n_frames, tmp_path):
     _assert_images_match(img_ref, b.img[..., :3].astype(np.float32), acc_ref, acc)
 
 
-def test_shade_bounce_matches_jax():
-    """One shading stage at bounce 3 (roulette on) on the textured hall:
-    the same tables (convert.from_jax), rays, RNG states and hits."""
-    scene = load_scene(HALL)
+def _shade_both(uri):
+    """One shading stage at bounce 3 (roulette on) through both packages:
+    the same tables (convert.from_jax), rays, RNG states and hits. Returns
+    (port ShadeOut, JAX ShadeOut, active lanes, JAX hit)."""
+    scene = load_scene(uri)
     jflat, jmeta, host = jds.build_device_scene(scene, want_host=True)
     jflat = jflat._replace(blas=jtb.build_blas_set(jflat, jmeta, host))
     flat, meta = convert.from_jax(
@@ -103,22 +109,60 @@ def test_shade_bounce_matches_jax():
 
     got = tpt._shade_bounce(flat, meta, bounce, t(state), t(orig), t(dirs), t(tp), t(active),
                             t(hit_p), t(hit.tri), t(hit.inst), t(hit.u), t(hit.v))
-    assert int(np.asarray(active).sum()) > R // 2
+    return got, want, np.asarray(active), hit
+
+
+def _assert_shade_close(got, want, live, light_lanes=None):
+    """light_lanes: the lanes on which t_light is compared (default: the
+    live ones)."""
     np.testing.assert_array_equal(got.state.numpy().astype(np.uint32), np.asarray(want.state))
     for name in ("shoot1", "shoot2", "new_active"):
         a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
         assert (a != b).sum() <= 2, name
     # lanes that missed hold unobservable values (hit points at t = 1e20):
     # compare the live ones
-    live = np.asarray(active)
     same = live & (got.new_active.numpy() == np.asarray(want.new_active))
-    for name in ("light_dir", "light_dist", "w_i2", "t_light", "cont_dir"):
+    for name, lanes in (("light_dir", live), ("light_dist", live), ("w_i2", live),
+                        ("t_light", live if light_lanes is None else light_lanes),
+                        ("cont_dir", live)):
         a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
-        np.testing.assert_allclose(a[live], b[live], atol=1e-5, rtol=1e-5, err_msg=name)
+        np.testing.assert_allclose(a[lanes], b[lanes], atol=1e-5, rtol=1e-5, err_msg=name)
     # contributions carry f / pdf at sampled lobe peaks: see test_torch_bsdf
     for name in ("c1", "c2", "new_throughput"):
         a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
         np.testing.assert_allclose(a[same], b[same], atol=1e-5, rtol=1e-3, err_msg=name)
+
+
+def test_shade_bounce_matches_jax():
+    """One shading stage on the textured hall (one instance: the material
+    rides in the shade row)."""
+    got, want, live, _ = _shade_both(HALL)
+    assert live.sum() > live.shape[0] // 2
+    _assert_shade_close(got, want, live)
+
+
+def test_shade_bounce_multi_instance_matches_jax():
+    """One shading stage on the bench's instanced parity scene (16 rotated
+    instances, two materials): each lane's material comes from its
+    instance's material table and its normal from its instance's matrix.
+    The shade rows of a multi-instance scene carry no material, so reading
+    them instead gives all-zero materials, and instance 0's matrix gives
+    the other instances wrong normals; both change every output below.
+
+    t_light, the distance to the light's plane along the bsdf sample, is
+    compared where that sample shoots its shadow ray, the only lanes that
+    use it: on a direction almost parallel to the plane it is
+    ill-conditioned (measured: 1.02e-5 relative at t = 1368 on one of 152
+    live lanes, a direction that misses the light)."""
+    got, want, live, hit = _shade_both("proc://instances?nx=4&ny=4&subdiv=2")
+    inst = np.asarray(hit.inst)[live]
+    assert live.sum() > 100 and len(np.unique(inst)) >= 8
+    shoot2 = live & got.shoot2.numpy() & np.asarray(want.shoot2)
+    assert shoot2.any()
+    _assert_shade_close(got, want, live, light_lanes=shoot2)
+    # the throughput carries the lanes' own base colours (both materials)
+    tp = got.new_throughput.numpy()[live & got.new_active.numpy()]
+    assert (tp[:, 0] > tp[:, 2]).any() and (tp[:, 2] > tp[:, 0]).any()
 
 
 def test_save_load_state_round_trip(tmp_path):
