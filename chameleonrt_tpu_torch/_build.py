@@ -140,6 +140,10 @@ def kernels() -> ctypes.CDLL:
     lib.crt_traverse_closest_unified.restype = i
     lib.crt_traverse_any_unified.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p, i, p]
     lib.crt_traverse_any_unified.restype = i
+    lib.crt_traverse_closest_stream.argtypes = lib.crt_traverse_closest.argtypes
+    lib.crt_traverse_closest_stream.restype = i
+    lib.crt_traverse_any_stream.argtypes = lib.crt_traverse_any.argtypes
+    lib.crt_traverse_any_stream.restype = i
     lib.crt_error_string.argtypes = [i]
     lib.crt_error_string.restype = ctypes.c_char_p
     lib.crt_max_stack.argtypes = []

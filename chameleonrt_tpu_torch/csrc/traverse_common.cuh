@@ -1,5 +1,5 @@
 // Device helpers shared by the traversal kernels (traverse_flat.cu: B1, B2;
-// traverse_unified.cu: B3, B4).
+// traverse_unified.cu: B3, B4; traverse_stream.cu: B5a, B5b).
 //
 // Semantics shared with the plain torch version
 // (chameleonrt_tpu_torch/ops/traverse.py):
@@ -48,25 +48,29 @@ __device__ __forceinline__ float far_of(float a, float b) {
   return (isnan(a) || isnan(b)) ? INFINITY : fmaxf(a, b);
 }
 
-__device__ __forceinline__ void cswap(float* k, int* c, int i, int j) {
+template <typename K, typename C>
+__device__ __forceinline__ void cswap(K* k, C* c, int i, int j) {
   if (k[i] > k[j]) {
-    float tk = k[i]; k[i] = k[j]; k[j] = tk;
-    int tc = c[i]; c[i] = c[j]; c[j] = tc;
+    K tk = k[i]; k[i] = k[j]; k[j] = tk;
+    C tc = c[i]; c[i] = c[j]; c[j] = tc;
   }
 }
 
-// One internal row: keys[c] = entry distance of hit child c (kBig on a
-// miss), codes[c] its child code, both sorted ascending by key.
-__device__ __forceinline__ void node_step(const float* __restrict__ nodes, int cur,
-                                          const Ray& r, float tmax, float* keys,
-                                          int* codes) {
+// One node row into registers, 16 bytes a load.
+__device__ __forceinline__ void load_row(const float* __restrict__ nodes, int cur, float* row) {
   const float4* row4 = reinterpret_cast<const float4*>(nodes + (size_t)cur * kRow);
-  float row[kRow];
 #pragma unroll
   for (int q = 0; q < kRow / 4; ++q) {
     float4 x = __ldg(row4 + q);
     row[4 * q] = x.x; row[4 * q + 1] = x.y; row[4 * q + 2] = x.z; row[4 * q + 3] = x.w;
   }
+}
+
+// Slab test of the four children of a row already in registers or shared
+// memory against one ray: keys[c] = entry distance of child c, kBig on a
+// miss; codes[c] its child code. Unsorted.
+__device__ __forceinline__ void slab_children(const float* row, const Ray& r, float tmax,
+                                              float* keys, int* codes) {
 #pragma unroll
   for (int c = 0; c < kArity; ++c) {
     const float* b = row + 6 * c;
@@ -80,6 +84,12 @@ __device__ __forceinline__ void node_step(const float* __restrict__ nodes, int c
     keys[c] = (entry <= exit_) ? entry : kBig;
     codes[c] = __float_as_int(row[6 * kArity + c]);
   }
+}
+
+// The plain version's Bose-Nelson network (_SORT_NETS[4]): (keys, codes)
+// ascending by key.
+template <typename K, typename C>
+__device__ __forceinline__ void sort_children(K* keys, C* codes) {
   cswap(keys, codes, 0, 1);
   cswap(keys, codes, 2, 3);
   cswap(keys, codes, 0, 2);
@@ -87,15 +97,51 @@ __device__ __forceinline__ void node_step(const float* __restrict__ nodes, int c
   cswap(keys, codes, 1, 2);
 }
 
-// Moller-Trumbore for slot j of one leaf row; the operation order is the
-// plain version's, term by term.
-__device__ __forceinline__ bool mt_slot(const float* __restrict__ lrow, int L, int j,
-                                        const Ray& r, float tmax, float* t_out,
-                                        float* u_out, float* v_out, int* prim_out) {
-  float v0x = __ldg(lrow + 0 * L + j), v0y = __ldg(lrow + 1 * L + j), v0z = __ldg(lrow + 2 * L + j);
-  float e1x = __ldg(lrow + 3 * L + j), e1y = __ldg(lrow + 4 * L + j), e1z = __ldg(lrow + 5 * L + j);
-  float e2x = __ldg(lrow + 6 * L + j), e2y = __ldg(lrow + 7 * L + j), e2z = __ldg(lrow + 8 * L + j);
-  int prim = __float_as_int(__ldg(lrow + 9 * L + j));
+// One internal row: keys[c] = entry distance of hit child c (kBig on a
+// miss), codes[c] its child code, both sorted ascending by key.
+__device__ __forceinline__ void node_step(const float* __restrict__ nodes, int cur,
+                                          const Ray& r, float tmax, float* keys,
+                                          int* codes) {
+  float row[kRow];
+  load_row(nodes, cur, row);
+  slab_children(row, r, tmax, keys, codes);
+  sort_children(keys, codes);
+}
+
+// One triangle slot of a leaf row: v0, e1, e2 and the prim id.
+struct Tri {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+  int prim;
+};
+
+// Slot j of a component-major leaf row in device memory (read-only path).
+__device__ __forceinline__ Tri load_tri(const float* __restrict__ lrow, int L, int j) {
+  Tri s;
+  s.v0x = __ldg(lrow + 0 * L + j); s.v0y = __ldg(lrow + 1 * L + j); s.v0z = __ldg(lrow + 2 * L + j);
+  s.e1x = __ldg(lrow + 3 * L + j); s.e1y = __ldg(lrow + 4 * L + j); s.e1z = __ldg(lrow + 5 * L + j);
+  s.e2x = __ldg(lrow + 6 * L + j); s.e2y = __ldg(lrow + 7 * L + j); s.e2z = __ldg(lrow + 8 * L + j);
+  s.prim = __float_as_int(__ldg(lrow + 9 * L + j));
+  return s;
+}
+
+// Slot j of a component-major leaf row already in shared memory.
+__device__ __forceinline__ Tri shared_tri(const float* lrow, int L, int j) {
+  Tri s;
+  s.v0x = lrow[0 * L + j]; s.v0y = lrow[1 * L + j]; s.v0z = lrow[2 * L + j];
+  s.e1x = lrow[3 * L + j]; s.e1y = lrow[4 * L + j]; s.e1z = lrow[5 * L + j];
+  s.e2x = lrow[6 * L + j]; s.e2y = lrow[7 * L + j]; s.e2z = lrow[8 * L + j];
+  s.prim = __float_as_int(lrow[9 * L + j]);
+  return s;
+}
+
+// Moller-Trumbore for one slot; the operation order is the plain
+// version's, term by term.
+__device__ __forceinline__ bool mt_tri(const Tri& s, const Ray& r, float tmax, float* t_out,
+                                       float* u_out, float* v_out, int* prim_out) {
+  const float v0x = s.v0x, v0y = s.v0y, v0z = s.v0z;
+  const float e1x = s.e1x, e1y = s.e1y, e1z = s.e1z;
+  const float e2x = s.e2x, e2y = s.e2y, e2z = s.e2z;
+  const int prim = s.prim;
   float px = r.dy * e2z - r.dz * e2y;
   float py = r.dz * e2x - r.dx * e2z;
   float pz = r.dx * e2y - r.dy * e2x;
@@ -112,6 +158,13 @@ __device__ __forceinline__ bool mt_slot(const float* __restrict__ lrow, int L, i
   *t_out = t; *u_out = u; *v_out = v; *prim_out = prim;
   return !small && prim >= 0 && u >= -kUvEps && v >= -kUvEps && u + v <= kOnePlusUvEps &&
          t > r.tmin && t < tmax;
+}
+
+// Moller-Trumbore for slot j of one leaf row in device memory.
+__device__ __forceinline__ bool mt_slot(const float* __restrict__ lrow, int L, int j,
+                                        const Ray& r, float tmax, float* t_out,
+                                        float* u_out, float* v_out, int* prim_out) {
+  return mt_tri(load_tri(lrow, L, j), r, tmax, t_out, u_out, v_out, prim_out);
 }
 
 __device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,

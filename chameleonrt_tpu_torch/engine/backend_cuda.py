@@ -1,7 +1,8 @@
 """The `cuda` backend: the wavefront path tracer with native SAH BVH tables
 and the hand-written CUDA traversal kernels; the counterpart of
 chameleonrt_tpu/engine/backend_tpu.py. A single-instance scene traces its
-one mesh's table (kernels B1 and B2); a multi-instance scene traces one
+one mesh's table (kernels B1 and B2, or B5a and B5b of the streamed tier
+where the table exceeds the card's L2); a multi-instance scene traces one
 two-level TLAS+BLAS table (kernels B3 and B4).
 
 On device="cpu" it runs the same code with the plain traversal, which is
@@ -10,6 +11,8 @@ how the CPU tests hold it against the JAX `tpu` backend.
 
 from __future__ import annotations
 
+from typing import Optional
+
 from chameleonrt_tpu.scene.types import Scene
 from chameleonrt_tpu_torch.engine.backend_base import TorchRenderBackend
 from chameleonrt_tpu_torch.engine.device_scene import build_device_scene
@@ -17,11 +20,14 @@ from chameleonrt_tpu_torch.engine.trace_bvh import build_blas_set, make_trace_fn
 
 
 class CudaBackend(TorchRenderBackend):
-    def __init__(self, device="cuda", use_kernels: bool = True):
+    def __init__(self, device="cuda", use_kernels: bool = True, stream: Optional[bool] = None):
         """use_kernels=False traces with the plain torch traversal on any
-        device; the card's parity checks use it."""
+        device; the card's parity checks use it. stream picks the flat
+        path's tier: True B5a/B5b, False B1/B2, None (the default) by the
+        gate trace_bvh.streamed_tier on the scene's table."""
         super().__init__(device=device)
         self.use_kernels = use_kernels
+        self.stream = stream
 
     @property
     def name(self) -> str:
@@ -32,4 +38,5 @@ class CudaBackend(TorchRenderBackend):
         return flat._replace(blas=build_blas_set(flat, meta)), meta
 
     def make_trace_fns(self, meta):
-        return make_trace_fns(meta, use_kernels=self.use_kernels)
+        return make_trace_fns(meta, use_kernels=self.use_kernels, stream=self.stream,
+                              blas=self.flat.blas)

@@ -7,7 +7,8 @@ table and a BVH4 table over shared leaf rows, unpadded.
 
 - A single-instance (flat) scene keeps one BlasPair per mesh: rays move
   into the instance's object space and traverse the BVH4 table, through
-  kernels B1 and B2 on the card.
+  kernels B1 and B2 on the card, or B5a and B5b where the table exceeds
+  the card's L2 (streamed_tier).
 - A multi-instance scene fuses every mesh's BLAS and a TLAS over the
   instances' world boxes into one UnifiedPair, and one launch traces the
   whole two-level scene, through kernels B3 and B4 on the card.
@@ -18,7 +19,7 @@ ops/traverse.py.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -217,18 +218,53 @@ def _unified_trace_fns(use_kernels: bool):
     return trace_closest, trace_any
 
 
-def make_trace_fns(meta: SceneMeta, use_kernels: bool = True):
+def table_bytes(pbvh: PackedBvh) -> int:
+    """Bytes of a table's node and leaf rows."""
+    return pbvh.nodes.numel() * pbvh.nodes.element_size() + \
+        pbvh.leaf_rows.numel() * pbvh.leaf_rows.element_size()
+
+
+def streamed_tier(pbvh: PackedBvh, l2_bytes: Optional[int] = None) -> bool:
+    """The streamed tier's gate, the counterpart of the JAX package's
+    slotlane_eligible / slotlane_stream_eligible (ops/traverse_slotlane.py):
+    True where the BVH4 node and leaf rows exceed the L2 of the table's
+    device, so that most row fetches go to HBM. l2_bytes, if given, stands
+    for the L2's size; a table on the CPU has none and stays in the B1/B2
+    tier."""
+    if l2_bytes is None:
+        if pbvh.nodes.device.type != "cuda":
+            return False
+        l2_bytes = torch.cuda.get_device_properties(pbvh.nodes.device).L2_cache_size
+    return table_bytes(pbvh) > l2_bytes
+
+
+def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[bool] = None,
+                   blas=None, l2_bytes: Optional[int] = None):
     """(trace_closest, trace_any) for the scene, both on BVH4 tables:
     the two-level table of a multi-instance scene, or the one instanced
     mesh's table of a flat scene. use_kernels=False runs the plain
     traversal on any device (the card's parity checks use it); otherwise
-    CUDA tensors go through the kernels (B3 and B4, or B1 and B2)."""
+    CUDA tensors go through the kernels: B3 and B4, or for a flat scene B1
+    and B2, or B5a and B5b of the streamed tier where stream is True.
+    stream=None decides by streamed_tier on the scene's tables (blas, the
+    FlatScene's; l2_bytes as there). The two-level streamed tier (B5c/B5d)
+    is not ported, so stream=True raises for a multi-instance scene."""
     if meta.num_instances > 1:
+        if stream:
+            raise ValueError("the streamed tier of the two-level path (B5c/B5d) is not ported")
         return _unified_trace_fns(use_kernels)
-    closest_fn = traverse_cuda.traverse_closest if use_kernels else plain.traverse_closest
-    any_fn = traverse_cuda.traverse_any if use_kernels else plain.traverse_any
     mesh_id = meta.inst_mesh[0]
     start = meta.mesh_tri_ranges[mesh_id][0]
+    if use_kernels and stream is None:
+        if blas is None:
+            raise ValueError("the streamed tier's gate needs the scene's tables (blas)")
+        stream = streamed_tier(blas[mesh_id].any, l2_bytes)
+    if not use_kernels:
+        closest_fn, any_fn = plain.traverse_closest, plain.traverse_any
+    elif stream:
+        closest_fn, any_fn = traverse_cuda.traverse_closest_stream, traverse_cuda.traverse_any_stream
+    else:
+        closest_fn, any_fn = traverse_cuda.traverse_closest, traverse_cuda.traverse_any
 
     def _object_rays(flat: FlatScene, orig, dir):
         inv = flat.inst_inv[0]

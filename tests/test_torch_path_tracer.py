@@ -51,9 +51,9 @@ def _camera(scene):
     return pos, d / np.linalg.norm(d), up, fov
 
 
-def _render_port(uri, res, n_frames):
+def _render_port(uri, res, n_frames, **backend_kwargs):
     scene = load_scene(uri)
-    b = get_backend("cuda", device="cpu")
+    b = get_backend("cuda", device="cpu", **backend_kwargs)
     b.initialize(res, res)
     b.set_scene(scene)
     pos, d, up, fov = _camera(scene)
