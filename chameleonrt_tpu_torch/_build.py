@@ -144,6 +144,10 @@ def kernels() -> ctypes.CDLL:
     lib.crt_traverse_closest_stream.restype = i
     lib.crt_traverse_any_stream.argtypes = lib.crt_traverse_any.argtypes
     lib.crt_traverse_any_stream.restype = i
+    lib.crt_traverse_closest_unified_stream.argtypes = lib.crt_traverse_closest_unified.argtypes
+    lib.crt_traverse_closest_unified_stream.restype = i
+    lib.crt_traverse_any_unified_stream.argtypes = lib.crt_traverse_any_unified.argtypes
+    lib.crt_traverse_any_unified_stream.restype = i
     lib.crt_error_string.argtypes = [i]
     lib.crt_error_string.restype = ctypes.c_char_p
     lib.crt_max_stack.argtypes = []

@@ -15,11 +15,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-import chameleonrt_tpu_torch  # noqa: F401  (registers the cuda backend)
-from chameleonrt_tpu.core.registry import get_backend
-from chameleonrt_tpu.scene.loader import load_scene
-from chameleonrt_tpu.utils.image_io import write_image
-from chameleonrt_tpu.utils.util import pretty_print_count
+from chameleonrt_tpu_torch.core.registry import get_backend
+from chameleonrt_tpu_torch.scene.loader import load_scene
+from chameleonrt_tpu_torch.utils.image_io import write_image
+from chameleonrt_tpu_torch.utils.util import pretty_print_count
 
 USAGE = """Usage: python -m chameleonrt_tpu_torch.cli cuda <scene | proc://name> [options]
 Options:

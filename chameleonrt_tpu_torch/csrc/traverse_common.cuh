@@ -1,5 +1,5 @@
 // Device helpers shared by the traversal kernels (traverse_flat.cu: B1, B2;
-// traverse_unified.cu: B3, B4; traverse_stream.cu: B5a, B5b).
+// traverse_unified.cu: B3, B4; traverse_stream.cu: B5a, B5b, B5c, B5d).
 //
 // Semantics shared with the plain torch version
 // (chameleonrt_tpu_torch/ops/traverse.py):
@@ -165,6 +165,36 @@ __device__ __forceinline__ bool mt_slot(const float* __restrict__ lrow, int L, i
                                         const Ray& r, float tmax, float* t_out,
                                         float* u_out, float* v_out, int* prim_out) {
   return mt_tri(load_tri(lrow, L, j), r, tmax, t_out, u_out, v_out, prim_out);
+}
+
+// Two-level tables (B3, B4, B5c, B5d): an instance-entry row holds the 3x4
+// world-to-object matrix at cols 0-11 (row-major), the BLAS root row at
+// col 12 and the instance id at col 13 (both bitcast int32).
+constexpr int kEntryCols = 14;
+
+// The object-space ray of an instance: the world ray w through the matrix
+// m (an entry row's cols 0-11, in registers or shared memory), each sum
+// left to right as in the plain version. Directions are not renormalized,
+// so object t is world t.
+__device__ __forceinline__ Ray enter_instance(const float* m, const Ray& w) {
+  Ray r;
+  r.ox = m[0] * w.ox + m[1] * w.oy + m[2] * w.oz + m[3];
+  r.oy = m[4] * w.ox + m[5] * w.oy + m[6] * w.oz + m[7];
+  r.oz = m[8] * w.ox + m[9] * w.oy + m[10] * w.oz + m[11];
+  r.dx = m[0] * w.dx + m[1] * w.dy + m[2] * w.dz;
+  r.dy = m[4] * w.dx + m[5] * w.dy + m[6] * w.dz;
+  r.dz = m[8] * w.dx + m[9] * w.dy + m[10] * w.dz;
+  r.ix = 1.0f / r.dx; r.iy = 1.0f / r.dy; r.iz = 1.0f / r.dz;
+  r.tmin = w.tmin;
+  return r;
+}
+
+// True where the walk at `cur` runs in world space: a TLAS row or an
+// instance-entry leaf (or the end, where it does not matter). Whenever the
+// next step is such a row, the world ray comes back: the stack is LIFO, so
+// an instance's BLAS entries all pop before the TLAS entries beneath them.
+__device__ __forceinline__ bool in_world(int cur, int n_tri, int tlas_lo) {
+  return cur >= tlas_lo || (cur < 0 && -cur - 1 >= n_tri);
 }
 
 __device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,

@@ -23,7 +23,8 @@
 // never runs Moller-Trumbore. Whenever the next row is a TLAS row or an
 // entry leaf, the world ray comes back: the stack is LIFO, so an
 // instance's BLAS entries all pop before the TLAS entries beneath them.
-// Rules shared with the flat kernels are in traverse_common.cuh. Here:
+// Rules shared with the flat kernels, and the instance-entry transform and
+// world-space test shared with B5c/B5d, are in traverse_common.cuh. Here:
 //   - B3 keeps a hit on t < best (ties inside a leaf go to the highest
 //     slot) with the instance of the current object space; a stack
 //     overflow reports prim = -2;
@@ -48,28 +49,13 @@ namespace {
 
 using namespace crt;
 
-// The object-space ray of the instance whose entry row is erow: the world
-// ray w through cols 0-11, each sum left to right as in the plain version.
-__device__ __forceinline__ Ray enter_instance(const float* __restrict__ erow, const Ray& w) {
+// The object-space ray of the instance whose entry row is erow (the matrix
+// through the read-only path, then traverse_common.cuh's enter_instance).
+__device__ __forceinline__ Ray enter_instance_row(const float* __restrict__ erow, const Ray& w) {
   float m[12];
 #pragma unroll
   for (int k = 0; k < 12; ++k) m[k] = __ldg(erow + k);
-  Ray r;
-  r.ox = m[0] * w.ox + m[1] * w.oy + m[2] * w.oz + m[3];
-  r.oy = m[4] * w.ox + m[5] * w.oy + m[6] * w.oz + m[7];
-  r.oz = m[8] * w.ox + m[9] * w.oy + m[10] * w.oz + m[11];
-  r.dx = m[0] * w.dx + m[1] * w.dy + m[2] * w.dz;
-  r.dy = m[4] * w.dx + m[5] * w.dy + m[6] * w.dz;
-  r.dz = m[8] * w.dx + m[9] * w.dy + m[10] * w.dz;
-  r.ix = 1.0f / r.dx; r.iy = 1.0f / r.dy; r.iz = 1.0f / r.dz;
-  r.tmin = w.tmin;
-  return r;
-}
-
-// True where the walk at `cur` runs in world space: a TLAS row or an
-// instance-entry leaf (or the end, where it does not matter).
-__device__ __forceinline__ bool in_world(int cur, int n_tri, int tlas_lo) {
-  return cur >= tlas_lo || (cur < 0 && -cur - 1 >= n_tri);
+  return enter_instance(m, w);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -123,7 +109,7 @@ closest_unified_kernel(const float* __restrict__ nodes, const float* __restrict_
         cur = sp > 0 ? stack[--sp] : kDone;
       } else {
         const float* erow = leaf_rows + (size_t)(-cur - 1) * 10 * L;
-        r = enter_instance(erow, w);
+        r = enter_instance_row(erow, w);
         cur = __float_as_int(__ldg(erow + 12));  // a BLAS row: stay in object space
         inst = __float_as_int(__ldg(erow + 13));
         continue;
@@ -180,7 +166,7 @@ any_unified_kernel(const float* __restrict__ nodes, const float* __restrict__ le
         cur = sp > 0 ? stack[--sp] : kDone;
       } else {
         const float* erow = leaf_rows + (size_t)(-cur - 1) * 10 * L;
-        r = enter_instance(erow, w);
+        r = enter_instance_row(erow, w);
         cur = __float_as_int(__ldg(erow + 12));
         continue;
       }

@@ -14,12 +14,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from chameleonrt_tpu.core.backend import RenderBackend, RenderStats
-from chameleonrt_tpu.scene.types import Scene
+from chameleonrt_tpu_torch.core.backend import RenderBackend, RenderStats
 from chameleonrt_tpu_torch.engine import path_tracer
-from chameleonrt_tpu_torch.engine.device_scene import FlatScene, SceneMeta
+from chameleonrt_tpu_torch.engine.device_scene import FlatScene, SceneMeta, check_scene
 from chameleonrt_tpu_torch.ops import camera as camera_ops
 from chameleonrt_tpu_torch.ops.tonemap import linear_to_srgb_u8
+from chameleonrt_tpu_torch.scene.types import Scene
 
 
 class TorchRenderBackend(RenderBackend):
@@ -62,6 +62,8 @@ class TorchRenderBackend(RenderBackend):
         self._pixels = (xs.reshape(-1), ys.reshape(-1))
 
     def set_scene(self, scene: Scene) -> None:
+        """Raises TypeError on a Scene that is not the port's own class."""
+        check_scene(scene)
         self.samples_per_pixel = int(scene.samples_per_pixel)
         self.flat, self.meta = self.prepare_scene(scene)
         self._trace = self.make_trace_fns(self.meta)

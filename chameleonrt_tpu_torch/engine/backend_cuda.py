@@ -3,7 +3,8 @@ and the hand-written CUDA traversal kernels; the counterpart of
 chameleonrt_tpu/engine/backend_tpu.py. A single-instance scene traces its
 one mesh's table (kernels B1 and B2, or B5a and B5b of the streamed tier
 where the table exceeds the card's L2); a multi-instance scene traces one
-two-level TLAS+BLAS table (kernels B3 and B4).
+two-level TLAS+BLAS table (kernels B3 and B4, or B5c and B5d of the
+streamed tier where that table exceeds the card's L2).
 
 On device="cpu" it runs the same code with the plain traversal, which is
 how the CPU tests hold it against the JAX `tpu` backend.
@@ -13,18 +14,19 @@ from __future__ import annotations
 
 from typing import Optional
 
-from chameleonrt_tpu.scene.types import Scene
 from chameleonrt_tpu_torch.engine.backend_base import TorchRenderBackend
 from chameleonrt_tpu_torch.engine.device_scene import build_device_scene
 from chameleonrt_tpu_torch.engine.trace_bvh import build_blas_set, make_trace_fns
+from chameleonrt_tpu_torch.scene.types import Scene
 
 
 class CudaBackend(TorchRenderBackend):
     def __init__(self, device="cuda", use_kernels: bool = True, stream: Optional[bool] = None):
         """use_kernels=False traces with the plain torch traversal on any
-        device; the card's parity checks use it. stream picks the flat
-        path's tier: True B5a/B5b, False B1/B2, None (the default) by the
-        gate trace_bvh.streamed_tier on the scene's table."""
+        device; the card's parity checks use it. stream picks the tier:
+        True the streamed tier (B5a/B5b flat, B5c/B5d two-level), False
+        B1/B2 flat and B3/B4 two-level, None (the default) by the gate
+        trace_bvh.streamed_tier on the scene's BVH4 table."""
         super().__init__(device=device)
         self.use_kernels = use_kernels
         self.stream = stream

@@ -17,7 +17,6 @@ from typing import NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
-from chameleonrt_tpu.scene.types import ColorSpace, DisneyMaterial, MaterialMode, Scene
 from chameleonrt_tpu_torch.ops.bsdf import MaterialBatch
 from chameleonrt_tpu_torch.ops.lights import LightArrays
 from chameleonrt_tpu_torch.ops.texture import (
@@ -25,6 +24,13 @@ from chameleonrt_tpu_torch.ops.texture import (
     build_quad_rows,
     textured_color_param,
     textured_scalar_param,
+)
+from chameleonrt_tpu_torch.scene.types import (
+    ColorSpace,
+    DisneyMaterial,
+    MaterialMode,
+    Scene,
+    default_obj_light,
 )
 
 # MaterialBatch scalar fields in packed-row order (cols 3..13)
@@ -258,12 +264,24 @@ def _host_tables(scene: Scene):
     return t, meta
 
 
+def check_scene(scene) -> None:
+    """Raise TypeError unless scene is the port's own Scene. A Scene of
+    another package (the JAX package's loaders, for one) carries enums that
+    compare unequal to the port's, so its sRGB textures would silently
+    decode as linear."""
+    if not isinstance(scene, Scene):
+        raise TypeError(
+            f"expected a {Scene.__module__}.Scene (from chameleonrt_tpu_torch.scene.loader), "
+            f"got {type(scene).__module__}.{type(scene).__name__}"
+        )
+
+
 def build_device_scene(scene: Scene, device) -> Tuple[FlatScene, SceneMeta]:
     """Flatten the scene and upload it to ``device``. The BVH tables
-    (``blas``) are added by engine.trace_bvh.build_blas_set."""
+    (``blas``) are added by engine.trace_bvh.build_blas_set. Raises
+    TypeError on a Scene that is not the port's own class."""
+    check_scene(scene)
     if not scene.lights:
-        from chameleonrt_tpu.scene.types import default_obj_light
-
         scene.lights = [default_obj_light()]
     t, meta = _host_tables(scene)
 

@@ -1,9 +1,9 @@
 """BVH tables and scene traversal (torch): the counterpart of
 chameleonrt_tpu/engine/trace_bvh.py.
 
-Each mesh gets one native binned-SAH build (native/bvhbuilder.cpp, built
-with make at first use by chameleonrt_tpu/native.py), which emits a binary
-table and a BVH4 table over shared leaf rows, unpadded.
+Each mesh gets one native binned-SAH build (native/bvhbuilder.cpp,
+compiled at first use by chameleonrt_tpu_torch/native.py), which emits a
+binary table and a BVH4 table over shared leaf rows, unpadded.
 
 - A single-instance (flat) scene keeps one BlasPair per mesh: rays move
   into the instance's object space and traverse the BVH4 table, through
@@ -11,7 +11,8 @@ table and a BVH4 table over shared leaf rows, unpadded.
   the card's L2 (streamed_tier).
 - A multi-instance scene fuses every mesh's BLAS and a TLAS over the
   instances' world boxes into one UnifiedPair, and one launch traces the
-  whole two-level scene, through kernels B3 and B4 on the card.
+  whole two-level scene, through kernels B3 and B4 on the card, or B5c
+  and B5d where the two-level table exceeds the card's L2.
 
 The kernels' wrappers are in ops/traverse_cuda.py, their plain versions in
 ops/traverse.py.
@@ -24,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from chameleonrt_tpu import native
+from chameleonrt_tpu_torch import native
 from chameleonrt_tpu_torch.engine.device_scene import (
     BlasPair,
     FlatScene,
@@ -47,7 +48,7 @@ def _native_build(v0, e1, e2, leaf_size: int = LEAF_SIZE):
     """One native SAH build: (nodes2, nodes4, leaf_rows, depth2, stack4).
     Raises if the native builder is unavailable."""
     if native.get_lib() is None:
-        raise RuntimeError("the native SAH builder (native/, built with make) is unavailable")
+        raise RuntimeError("the native SAH builder (native/) is unavailable: no C++ compiler")
     res = native.build_bvh_pair_native(v0, e1, e2, leaf_size, wide_arity=WIDE_ARITY)
     if res is None:
         raise RuntimeError(f"native SAH build of {len(v0)} triangles returned no tables")
@@ -190,11 +191,18 @@ def compute_instance_aabbs(flat: FlatScene) -> torch.Tensor:
     return flat.blas[0].inst_aabb
 
 
-def _unified_trace_fns(use_kernels: bool):
+def _unified_trace_fns(use_kernels: bool, stream: bool):
     """(trace_closest, trace_any) over the two-level BVH4 table: one
-    traversal for the whole scene (B3 and B4 on the card)."""
-    closest_fn = traverse_cuda.traverse_closest_unified if use_kernels else plain.traverse_closest_unified
-    any_fn = traverse_cuda.traverse_any_unified if use_kernels else plain.traverse_any_unified
+    traversal for the whole scene, through B3 and B4 on the card, or B5c
+    and B5d of the streamed tier where stream is True; the plain two-level
+    traversal where use_kernels is False."""
+    if not use_kernels:
+        closest_fn, any_fn = plain.traverse_closest_unified, plain.traverse_any_unified
+    elif stream:
+        closest_fn = traverse_cuda.traverse_closest_unified_stream
+        any_fn = traverse_cuda.traverse_any_unified_stream
+    else:
+        closest_fn, any_fn = traverse_cuda.traverse_closest_unified, traverse_cuda.traverse_any_unified
 
     def trace_closest(flat: FlatScene, orig, dir, t_min: float, active) -> Hit:
         """Closest hit from t_min; tri is the global triangle id and inst
@@ -218,19 +226,20 @@ def _unified_trace_fns(use_kernels: bool):
     return trace_closest, trace_any
 
 
-def table_bytes(pbvh: PackedBvh) -> int:
-    """Bytes of a table's node and leaf rows."""
+def table_bytes(pbvh) -> int:
+    """Bytes of a table's node and leaf rows (a PackedBvh or a
+    UnifiedBvh)."""
     return pbvh.nodes.numel() * pbvh.nodes.element_size() + \
         pbvh.leaf_rows.numel() * pbvh.leaf_rows.element_size()
 
 
-def streamed_tier(pbvh: PackedBvh, l2_bytes: Optional[int] = None) -> bool:
+def streamed_tier(pbvh, l2_bytes: Optional[int] = None) -> bool:
     """The streamed tier's gate, the counterpart of the JAX package's
     slotlane_eligible / slotlane_stream_eligible (ops/traverse_slotlane.py):
-    True where the BVH4 node and leaf rows exceed the L2 of the table's
-    device, so that most row fetches go to HBM. l2_bytes, if given, stands
-    for the L2's size; a table on the CPU has none and stays in the B1/B2
-    tier."""
+    True where the BVH4 node and leaf rows (of a flat PackedBvh or a
+    two-level UnifiedBvh) exceed the L2 of the table's device, so that most
+    row fetches go to HBM. l2_bytes, if given, stands for the L2's size; a
+    table on the CPU has none and stays in the B1-B4 tier."""
     if l2_bytes is None:
         if pbvh.nodes.device.type != "cuda":
             return False
@@ -244,21 +253,20 @@ def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[b
     the two-level table of a multi-instance scene, or the one instanced
     mesh's table of a flat scene. use_kernels=False runs the plain
     traversal on any device (the card's parity checks use it); otherwise
-    CUDA tensors go through the kernels: B3 and B4, or for a flat scene B1
-    and B2, or B5a and B5b of the streamed tier where stream is True.
-    stream=None decides by streamed_tier on the scene's tables (blas, the
-    FlatScene's; l2_bytes as there). The two-level streamed tier (B5c/B5d)
-    is not ported, so stream=True raises for a multi-instance scene."""
-    if meta.num_instances > 1:
-        if stream:
-            raise ValueError("the streamed tier of the two-level path (B5c/B5d) is not ported")
-        return _unified_trace_fns(use_kernels)
-    mesh_id = meta.inst_mesh[0]
-    start = meta.mesh_tri_ranges[mesh_id][0]
+    CUDA tensors go through the kernels: for a flat scene B1 and B2, or B5a
+    and B5b of the streamed tier where stream is True; for a multi-instance
+    scene B3 and B4, or B5c and B5d where stream is True. stream=None
+    decides by streamed_tier on the scene's BVH4 table (blas, the
+    FlatScene's; l2_bytes as there)."""
+    multi = meta.num_instances > 1
+    mesh_id = 0 if multi else meta.inst_mesh[0]
     if use_kernels and stream is None:
         if blas is None:
             raise ValueError("the streamed tier's gate needs the scene's tables (blas)")
         stream = streamed_tier(blas[mesh_id].any, l2_bytes)
+    if multi:
+        return _unified_trace_fns(use_kernels, bool(stream))
+    start = meta.mesh_tri_ranges[mesh_id][0]
     if not use_kernels:
         closest_fn, any_fn = plain.traverse_closest, plain.traverse_any
     elif stream:

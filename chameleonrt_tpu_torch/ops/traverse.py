@@ -3,7 +3,7 @@ in chameleonrt_tpu/ops/traverse.py (traverse_closest / traverse_any, the
 two-level traverse_closest_unified / traverse_any_unified, and
 ray_sort_perm_only).
 
-This is the plain version of kernels B1-B4 (ops/traverse_cuda.py): the
+This is the plain version of kernels B1-B5d (ops/traverse_cuda.py): the
 CPU path, and the version the kernels are held against on the card. Each
 lane follows the same depth-first order as the XLA oracle: at an internal
 row it tests every child, pushes the hit children far-first in
@@ -39,6 +39,42 @@ _SORT_NETS = {
         (1, 2), (3, 4), (5, 6),
     ),
 }
+
+
+class WalkCount:
+    """What one plain walk did, for a kernel's least time on the same rays
+    (chip_smoke.py's bound): the distinct node, triangle-leaf and
+    instance-entry rows the rays visited, and how many visits of each kind
+    the lanes made (a node visit slab-tests every child of the row, a leaf
+    visit runs Möller–Trumbore on every slot, an entry visit transforms the
+    ray). Only a caller that asks for it passes one; the render path never
+    does."""
+
+    def __init__(self, table):
+        dev = table.nodes.device
+        self.node_seen = torch.zeros(table.nodes.shape[0], dtype=torch.bool, device=dev)
+        self.leaf_seen = torch.zeros(table.leaf_rows.shape[0], dtype=torch.bool, device=dev)
+        self.n_tri = getattr(table, "n_tri_leaves", table.leaf_rows.shape[0])
+        self.visits = torch.zeros(3, dtype=torch.int64, device=dev)  # node, leaf, entry
+
+    def step(self, cur):
+        """Record one lockstep step of the live lanes at rows cur."""
+        node = cur >= 0
+        leaf = torch.where(node, 0, -cur - 1).long()
+        tri = ~node & (leaf < self.n_tri)
+        self.node_seen[cur[node].long()] = True
+        self.leaf_seen[leaf[~node]] = True
+        self.visits += torch.stack([node.sum(), tri.sum(), (~node & ~tri).sum()])
+
+    def totals(self) -> dict:
+        node_visits, leaf_visits, entry_visits = (int(x) for x in self.visits)
+        leaves = self.leaf_seen.nonzero().flatten()
+        return {
+            "node_rows": int(self.node_seen.sum()),
+            "leaf_rows": int((leaves < self.n_tri).sum()),
+            "entry_rows": int((leaves >= self.n_tri).sum()),
+            "node_visits": node_visits, "leaf_visits": leaf_visits, "entry_visits": entry_visits,
+        }
 
 
 def stack_limit(pbvh: PackedBvh) -> int:
@@ -169,10 +205,11 @@ def _start_lanes(pbvh: PackedBvh, lanes):
     return cur, stack, sp, limit
 
 
-def traverse_closest(pbvh: PackedBvh, orig, dir, t_min, active, t_max=None):
+def traverse_closest(pbvh: PackedBvh, orig, dir, t_min, active, t_max=None, count=None):
     """Closest hit per lane. orig, dir (R, 3) f32; t_min, t_max (R,) f32;
     active (R,) bool. Returns (t, prim, u, v): a miss or inactive lane is
-    (T_MAX, -1, 0, 0); a stack overflow is prim = -2, t = T_MAX."""
+    (T_MAX, -1, 0, 0); a stack overflow is prim = -2, t = T_MAX. count, a
+    WalkCount, records the walk's work."""
     R = orig.shape[0]
     dev = orig.device
     t_out = torch.full((R,), T_MAX, dtype=torch.float32, device=dev)
@@ -192,6 +229,8 @@ def traverse_closest(pbvh: PackedBvh, orig, dir, t_min, active, t_max=None):
     cur, stack, sp, limit = _start_lanes(pbvh, lanes)
 
     while lanes.numel():
+        if count is not None:
+            count.step(cur)
         is_leaf = cur < 0
         is_int = ~is_leaf
         next_int, pushes = _node_phase(pbvh, cur, is_int, o, inv, tmn, bt)
@@ -229,11 +268,11 @@ def traverse_closest(pbvh: PackedBvh, orig, dir, t_min, active, t_max=None):
     return t_out, prim_out, u_out, v_out
 
 
-def traverse_any(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
+def traverse_any(pbvh: PackedBvh, orig, dir, t_min, t_max, mask, count=None):
     """Any hit (occlusion) with early out per lane: True where some triangle
     lies in (t_min, t_max). A stack overflow reports occluded, a visible
     artifact rather than a light leak. Returns (R,) bool, False where mask
-    is False."""
+    is False. count as in traverse_closest."""
     R = orig.shape[0]
     occ_out = torch.zeros((R,), dtype=torch.bool, device=orig.device)
     lanes = torch.nonzero(mask).flatten()
@@ -244,6 +283,8 @@ def traverse_any(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     L = pbvh.leaf_size
 
     while lanes.numel():
+        if count is not None:
+            count.step(cur)
         is_leaf = cur < 0
         is_int = ~is_leaf
         next_int, pushes = _node_phase(pbvh, cur, is_int, o, inv, tmn, tmx)
@@ -324,12 +365,12 @@ def _unified_start(ubvh: UnifiedBvh, lanes):
     return cur, stack, sp, limit
 
 
-def traverse_closest_unified(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
+def traverse_closest_unified(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max, count=None):
     """Closest hit over a two-level table (the XLA oracle's
     traverse_closest_unified, lane by lane in lockstep). Returns (t, prim,
     inst, u, v): prim is the global triangle id; a miss or inactive lane is
     (T_MAX, -1, -1, 0, 0); a stack overflow is prim = -2, otherwise as a
-    miss."""
+    miss. count as in traverse_closest."""
     R = orig.shape[0]
     dev = orig.device
     t_out = torch.full((R,), T_MAX, dtype=torch.float32, device=dev)
@@ -352,6 +393,8 @@ def traverse_closest_unified(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
     cur, stack, sp, limit = _unified_start(ubvh, lanes)
 
     while lanes.numel():
+        if count is not None:
+            count.step(cur)
         is_leaf = cur < 0
         is_int = ~is_leaf
         is_tri = is_leaf & (-cur - 1 < n_tri)
@@ -395,10 +438,11 @@ def traverse_closest_unified(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
     return t_out, prim_out, inst_out, u_out, v_out
 
 
-def traverse_any_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
+def traverse_any_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask, count=None):
     """Any hit (occlusion) over a two-level table with early out per lane
     (the XLA oracle's traverse_any_unified). A stack overflow reports
-    occluded. Returns (R,) bool, False where mask is False."""
+    occluded. Returns (R,) bool, False where mask is False. count as in
+    traverse_closest."""
     R = orig.shape[0]
     occ_out = torch.zeros((R,), dtype=torch.bool, device=orig.device)
     L, n_tri = ubvh.leaf_size, ubvh.n_tri_leaves
@@ -409,6 +453,8 @@ def traverse_any_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
     cur, stack, sp, limit = _unified_start(ubvh, lanes)
 
     while lanes.numel():
+        if count is not None:
+            count.step(cur)
         is_leaf = cur < 0
         is_int = ~is_leaf
         is_tri = is_leaf & (-cur - 1 < n_tri)

@@ -1,12 +1,13 @@
 """Wrappers of the traversal kernels: B1 (flat closest hit) and B2 (flat any
 hit) in csrc/traverse_flat.cu, B3 (two-level closest hit) and B4
-(two-level any hit) in csrc/traverse_unified.cu, B5a (flat closest hit)
-and B5b (flat any hit) of the streamed tier in csrc/traverse_stream.cu.
+(two-level any hit) in csrc/traverse_unified.cu, and the streamed tier in
+csrc/traverse_stream.cu: B5a (flat closest hit), B5b (flat any hit), B5c
+(two-level closest hit) and B5d (two-level any hit).
 
 They replace the Pallas slot-lane kernels of
 chameleonrt_tpu/ops/traverse_slotlane.py (traverse_closest_slotlane,
 traverse_any_slotlane, traverse_closest_unified_slotlane and
-traverse_any_unified_slotlane; B5a/B5b the first two with stream=True).
+traverse_any_unified_slotlane; B5a-B5d the same four with stream=True).
 Every kernel sizes its stack as the TPU kernels do (stack_depth). A
 wrapper checks its inputs against what the kernel takes and raises on
 anything else. Then, on CUDA tensors, it allocates the outputs, launches
@@ -29,7 +30,8 @@ from chameleonrt_tpu_torch.engine.device_scene import PackedBvh, UnifiedBvh
 from chameleonrt_tpu_torch.ops import traverse as plain
 
 LAUNCHES = {"closest": 0, "any": 0, "closest_unified": 0, "any_unified": 0,
-            "closest_stream": 0, "any_stream": 0}
+            "closest_stream": 0, "any_stream": 0,
+            "closest_unified_stream": 0, "any_unified_stream": 0}
 
 
 def stack_depth(table) -> int:
@@ -82,6 +84,8 @@ def _check(table, orig, dir, t_min, t_max, flag):
 def _check_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, flag):
     """_check for a two-level table, plus the bounds of its sections."""
     L, depth = _check(ubvh, orig, dir, t_min, t_max, flag)
+    if 10 * L < 14:
+        raise ValueError(f"leaf rows of {10 * L} floats cannot hold an instance-entry row (14)")
     if not 0 <= ubvh.tlas_lo < ubvh.nodes.shape[0]:
         raise ValueError(f"tlas_lo {ubvh.tlas_lo} is outside the {ubvh.nodes.shape[0]} node rows")
     if not 0 <= ubvh.n_tri_leaves < ubvh.leaf_rows.shape[0]:
@@ -171,9 +175,8 @@ def traverse_any_stream(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     return _any("crt_traverse_any_stream", "any_stream", pbvh, orig, dir, t_min, t_max, mask)
 
 
-def traverse_closest_unified(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
-    """B3: closest hit over a two-level table. Returns (t, prim, inst, u,
-    v), as plain.traverse_closest_unified."""
+def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
+    """A two-level closest-hit kernel (B3 or B5c) through its C entry point."""
     L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, active)
     if orig.device.type == "cpu":
         return plain.traverse_closest_unified(ubvh, orig, dir, t_min, active, t_max)
@@ -186,20 +189,19 @@ def traverse_closest_unified(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
     v = torch.empty_like(t)
     if R == 0:
         return t, prim, inst, u, v
-    err = lib.crt_traverse_closest_unified(
+    err = getattr(lib, entry)(
         ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, L,
         depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         active.data_ptr(), t.data_ptr(), prim.data_ptr(), inst.data_ptr(), u.data_ptr(),
         v.data_ptr(), R, _stream(orig),
     )
-    _raise_on(lib, err, "two-level closest-hit kernel")
-    LAUNCHES["closest_unified"] += 1
+    _raise_on(lib, err, entry)
+    LAUNCHES[key] += 1
     return t, prim, inst, u, v
 
 
-def traverse_any_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
-    """B4: any hit over a two-level table. Returns (R,) bool occluded &
-    mask, as plain.traverse_any_unified."""
+def _any_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
+    """A two-level any-hit kernel (B4 or B5d) through its C entry point."""
     L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, mask)
     if orig.device.type == "cpu":
         return plain.traverse_any_unified(ubvh, orig, dir, t_min, t_max, mask)
@@ -208,11 +210,42 @@ def traverse_any_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
     occ = torch.empty((R,), dtype=torch.bool, device=orig.device)
     if R == 0:
         return occ
-    err = lib.crt_traverse_any_unified(
+    err = getattr(lib, entry)(
         ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, L,
         depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         mask.data_ptr(), occ.data_ptr(), R, _stream(orig),
     )
-    _raise_on(lib, err, "two-level any-hit kernel")
-    LAUNCHES["any_unified"] += 1
+    _raise_on(lib, err, entry)
+    LAUNCHES[key] += 1
     return occ
+
+
+def traverse_closest_unified(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
+    """B3: closest hit over a two-level table. Returns (t, prim, inst, u,
+    v), as plain.traverse_closest_unified."""
+    return _closest_unified("crt_traverse_closest_unified", "closest_unified",
+                            ubvh, orig, dir, t_min, active, t_max)
+
+
+def traverse_any_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
+    """B4: any hit over a two-level table. Returns (R,) bool occluded &
+    mask, as plain.traverse_any_unified."""
+    return _any_unified("crt_traverse_any_unified", "any_unified",
+                        ubvh, orig, dir, t_min, t_max, mask)
+
+
+def traverse_closest_unified_stream(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
+    """B5c: closest hit over a two-level table in the streamed tier, one
+    warp per packet of 32 consecutive rays. Returns (t, prim, inst, u, v);
+    its plain version is plain.traverse_closest_unified. As with B5a, t
+    agrees; a prim may differ only where two hits tie exactly in t."""
+    return _closest_unified("crt_traverse_closest_unified_stream", "closest_unified_stream",
+                            ubvh, orig, dir, t_min, active, t_max)
+
+
+def traverse_any_unified_stream(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
+    """B5d: any hit over a two-level table in the streamed tier, one warp
+    per packet. Returns (R,) bool occluded & mask; its plain version is
+    plain.traverse_any_unified, with which it agrees lane for lane."""
+    return _any_unified("crt_traverse_any_unified_stream", "any_unified_stream",
+                        ubvh, orig, dir, t_min, t_max, mask)

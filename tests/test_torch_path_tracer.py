@@ -1,8 +1,9 @@
 """The port's path tracer against chameleonrt_tpu's.
 
 - One shading stage (_shade_bounce) on the same lanes, tables and hits.
-- Whole frames: the port's `cuda` backend, on the CPU (plain traversal),
-  against the JAX `tpu` backend rendered in its own process by
+- Whole frames: the port's `cuda` backend on the port's own loader's
+  scene, on the CPU (plain traversal), against the JAX `tpu` backend
+  rendered in its own process by
   tests/subproc_render.py, held to tests/test_cross_backend.py's
   _assert_images_match.
 - save_state / load_state round trips.
@@ -14,17 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from chameleonrt_tpu import native
-from chameleonrt_tpu.core import get_backend
 from chameleonrt_tpu.engine import device_scene as jds
 from chameleonrt_tpu.engine import path_tracer as jpt
 from chameleonrt_tpu.engine import trace_bvh as jtb
 from chameleonrt_tpu.ops import camera as jcam
 from chameleonrt_tpu.ops import rng as jrng
-from chameleonrt_tpu.scene.loader import load_scene
-import chameleonrt_tpu_torch  # noqa: F401  (registers the cuda backend)
-from chameleonrt_tpu_torch import convert
+from chameleonrt_tpu.scene.loader import load_scene as jax_load_scene
+from chameleonrt_tpu_torch import convert, native
+from chameleonrt_tpu_torch.core import get_backend
 from chameleonrt_tpu_torch.engine import path_tracer as tpt
+from chameleonrt_tpu_torch.scene.loader import load_scene
 from test_cross_backend import _assert_images_match, render_frames
 
 torch.set_num_threads(1)
@@ -77,7 +77,7 @@ def _shade_both(uri):
     """One shading stage at bounce 3 (roulette on) through both packages:
     the same tables (convert.from_jax), rays, RNG states and hits. Returns
     (port ShadeOut, JAX ShadeOut, active lanes, JAX hit)."""
-    scene = load_scene(uri)
+    scene = jax_load_scene(uri)
     jflat, jmeta, host = jds.build_device_scene(scene, want_host=True)
     jflat = jflat._replace(blas=jtb.build_blas_set(jflat, jmeta, host))
     flat, meta = convert.from_jax(

@@ -1,8 +1,10 @@
 """The port's scene tables against chameleonrt_tpu's: shade rows, material
 rows, instance tables, lights and the texture atlas from
-build_device_scene are bit-equal to the JAX arrays, and convert.from_jax
-hands the JAX tables over unchanged. The BVH tables built on this host
-equal the JAX package's (which pads them to bucketed row counts)."""
+build_device_scene (on the port's own loader's scene) are bit-equal to the
+JAX arrays (on the JAX loader's), and convert.from_jax hands the JAX tables
+over unchanged. The BVH tables built on this host equal the JAX package's
+(which pads them to bucketed row counts) when both run on one native SAH
+library (test_torch_host.jax_native_on_port_library)."""
 
 import dataclasses
 
@@ -11,13 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from chameleonrt_tpu import native
 from chameleonrt_tpu.engine import device_scene as jds
 from chameleonrt_tpu.engine import trace_bvh as jtb
-from chameleonrt_tpu.scene.loader import load_scene
-from chameleonrt_tpu_torch import convert
+from chameleonrt_tpu.scene.loader import load_scene as jax_load_scene
+from chameleonrt_tpu_torch import convert, native
 from chameleonrt_tpu_torch.engine import device_scene as tds
 from chameleonrt_tpu_torch.engine import trace_bvh as ttb
+from chameleonrt_tpu_torch.scene.loader import load_scene
+from test_torch_host import jax_native_on_port_library
 
 torch.set_num_threads(1)
 
@@ -43,7 +46,7 @@ def _assert_tables_equal(port, jflat):
 
 @pytest.mark.parametrize("uri", SCENES)
 def test_device_scene_matches_jax(uri):
-    jflat, jmeta = jds.build_device_scene(load_scene(uri))
+    jflat, jmeta = jds.build_device_scene(jax_load_scene(uri))
     flat, meta = tds.build_device_scene(load_scene(uri), torch.device("cpu"))
     _assert_tables_equal(flat, jflat)
     assert dataclasses.asdict(meta) == dataclasses.asdict(jmeta)
@@ -54,8 +57,9 @@ def test_device_scene_matches_jax(uri):
 @pytest.mark.skipif(native.get_lib() is None, reason="native builder unavailable")
 @pytest.mark.parametrize("uri", SCENES)
 def test_from_jax_and_bvh_tables(uri):
-    jflat, jmeta, host = jds.build_device_scene(load_scene(uri), want_host=True)
-    jblas = jtb.build_blas_set(jflat, jmeta, host)
+    jflat, jmeta, host = jds.build_device_scene(jax_load_scene(uri), want_host=True)
+    with jax_native_on_port_library():
+        jblas = jtb.build_blas_set(jflat, jmeta, host)
     flat_np = jax.tree.map(np.asarray, jflat)
     blas_np = jax.tree.map(np.asarray, jblas)
     conv, cmeta = convert.from_jax(flat_np, jmeta, blas_np, torch.device("cpu"))

@@ -27,19 +27,17 @@ import numpy as np
 import pytest
 import torch
 
-from chameleonrt_tpu import native
 from chameleonrt_tpu.ops import camera as jcam
 from chameleonrt_tpu.ops import rng as jrng
 from chameleonrt_tpu.ops import traverse_slotlane as tsl
 from chameleonrt_tpu.ops.lbvh import PackedBvh as JaxPackedBvh
 from chameleonrt_tpu.ops.traverse import ray_sort_perm_only as jax_sort_perm
-from chameleonrt_tpu.scene.loader import load_scene
-import chameleonrt_tpu_torch  # noqa: F401  (registers the cuda backend)
-from chameleonrt_tpu_torch import _build
+from chameleonrt_tpu_torch import _build, native
 from chameleonrt_tpu_torch.engine import device_scene as tds
 from chameleonrt_tpu_torch.engine import trace_bvh as ttb
 from chameleonrt_tpu_torch.ops import traverse as plain
 from chameleonrt_tpu_torch.ops import traverse_cuda
+from chameleonrt_tpu_torch.scene.loader import load_scene
 from test_cross_backend import _assert_images_match, render_frames
 from test_torch_path_tracer import _camera, _render_port
 
@@ -93,6 +91,8 @@ WRAPPERS = {
     "any_stream": (traverse_cuda.traverse_any_stream, "any"),
     "closest_unified": (traverse_cuda.traverse_closest_unified, "closest"),
     "any_unified": (traverse_cuda.traverse_any_unified, "any"),
+    "closest_unified_stream": (traverse_cuda.traverse_closest_unified_stream, "closest"),
+    "any_unified_stream": (traverse_cuda.traverse_any_unified_stream, "any"),
 }
 
 
@@ -114,7 +114,7 @@ def test_wrappers_pass_the_certified_stack_depth(city, unified_table, name, monk
     the oracle's 48 (flat; the two-level cap is 96). On CPU tensors the
     wrapper still runs the plain version."""
     _, flat, _ = city
-    unified = name.endswith("_unified")
+    unified = "unified" in name
     table = (unified_table._replace(stack_bound=SOUP_STACK) if unified
              else flat.blas[0].any._replace(max_depth=SOUP_STACK))
     seen = []
@@ -134,7 +134,7 @@ def test_wrappers_raise_above_max_stack(city, unified_table, name, monkeypatch):
     """A bound of MAX_STACK needs MAX_STACK + 1 entries: every wrapper
     raises before it would reach a kernel or the plain version."""
     _, flat, _ = city
-    if name.endswith("_unified"):
+    if "unified" in name:
         table = unified_table._replace(stack_bound=_build.MAX_STACK)
     else:
         table = flat.blas[0].any._replace(max_depth=_build.MAX_STACK)
@@ -195,19 +195,22 @@ def test_make_trace_fns_routes_by_tier(city, stream, l2_fits, want, monkeypatch)
 
 
 def test_make_trace_fns_tier_arguments(city, monkeypatch):
-    """The plain traversal ignores the tier; the gate needs the tables; the
-    two-level streamed tier is not ported, so forcing it raises."""
+    """The plain traversal ignores the tier; the gate needs the tables, of
+    a flat or a two-level scene; a forced tier does not."""
     _, flat, meta = city
     monkeypatch.setattr(traverse_cuda, "traverse_closest_stream", None)
+    monkeypatch.setattr(traverse_cuda, "traverse_closest_unified_stream", None)
     closest, any_ = ttb.make_trace_fns(meta, use_kernels=False, stream=True)
     o, d = _rays(flat.blas[0].any.nodes, 16, seed=4)
     assert closest(flat, o, d, 1e-4, torch.ones((16,), dtype=torch.bool)).t.shape == (16,)
     with pytest.raises(ValueError, match="tables"):
         ttb.make_trace_fns(meta)
     imeta = tds.build_device_scene(load_scene(INSTANCES), torch.device("cpu"))[1]
-    with pytest.raises(ValueError, match="B5c"):
-        ttb.make_trace_fns(imeta, stream=True)
-    assert len(ttb.make_trace_fns(imeta)) == 2
+    with pytest.raises(ValueError, match="tables"):
+        ttb.make_trace_fns(imeta)
+    assert len(ttb.make_trace_fns(imeta, use_kernels=False, stream=True)) == 2
+    for stream in (True, False):
+        assert len(ttb.make_trace_fns(imeta, stream=stream)) == 2
 
 
 @pytest.mark.parametrize("wrapper", ["closest_stream", "any_stream"])

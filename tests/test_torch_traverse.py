@@ -17,7 +17,6 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chameleonrt_tpu import native
 from chameleonrt_tpu.ops import traverse_slotlane as tsl
 from chameleonrt_tpu.ops import intersect as jint
 from chameleonrt_tpu.ops.lbvh import PackedBvh as JaxPackedBvh
@@ -27,6 +26,7 @@ from chameleonrt_tpu.ops.traverse import (
     traverse_any_blocked,
     traverse_closest_blocked,
 )
+from chameleonrt_tpu_torch import native
 from chameleonrt_tpu_torch.engine.device_scene import PackedBvh
 from chameleonrt_tpu_torch.ops import intersect as tint
 from chameleonrt_tpu_torch.ops import traverse as plain

@@ -4,7 +4,9 @@ one box mesh, two materials) and a scene of three random meshes under
 five rotated, scaled and translated instances (test_unified_tlas._scene).
 
 - The port's unified tables equal the JAX package's bit for bit on its
-  unpadded prefix (the JAX package pads rows that no code reaches).
+  unpadded prefix (the JAX package pads rows that no code reaches), both
+  built on one native SAH library
+  (test_torch_host.jax_native_on_port_library).
 - The plain two-level traversal against the XLA oracle
   (traverse_*_unified_blocked) on 1024 rays, and against the slot-lane
   Pallas kernel that B3/B4 replace, in interpret mode, on 512 rays; both
@@ -31,7 +33,6 @@ import numpy as np
 import pytest
 import torch
 
-from chameleonrt_tpu import native
 from chameleonrt_tpu.engine import device_scene as jds
 from chameleonrt_tpu.engine import trace_bvh as jtb
 from chameleonrt_tpu.ops import traverse_slotlane as tsl
@@ -39,12 +40,14 @@ from chameleonrt_tpu.ops.traverse import (
     traverse_any_unified_blocked,
     traverse_closest_unified_blocked,
 )
-from chameleonrt_tpu.scene.loader import load_scene
-from chameleonrt_tpu_torch import convert
+from chameleonrt_tpu.scene.loader import load_scene as jax_load_scene
+from chameleonrt_tpu_torch import convert, native
 from chameleonrt_tpu_torch.engine import device_scene as tds
 from chameleonrt_tpu_torch.engine import trace_bvh as ttb
 from chameleonrt_tpu_torch.ops import traverse as plain
 from chameleonrt_tpu_torch.ops import traverse_cuda
+from chameleonrt_tpu_torch.scene.loader import load_scene
+from test_torch_host import jax_native_on_port_library, port_scene
 from test_unified_tlas import _scene as three_mesh_scene
 
 torch.set_num_threads(1)
@@ -54,9 +57,12 @@ pytestmark = pytest.mark.skipif(native.get_lib() is None, reason="native builder
 T_RTOL = 1e-5
 T_ATOL = 3e-6
 UV_ATOL = 5e-5
+# (the JAX package's scene, the port's): from each package's loader, or the
+# JAX test's scene taken over by test_torch_host.port_scene
+PARITY_GRID = "proc://instances?nx=4&ny=4&subdiv=2"
 SCENES = {
-    "parity_grid": lambda: load_scene("proc://instances?nx=4&ny=4&subdiv=2"),
-    "three_meshes": three_mesh_scene,
+    "parity_grid": (lambda: jax_load_scene(PARITY_GRID), lambda: load_scene(PARITY_GRID)),
+    "three_meshes": (three_mesh_scene, lambda: port_scene(three_mesh_scene())),
 }
 
 
@@ -64,9 +70,11 @@ SCENES = {
 def tables(request):
     """(JAX blas, port blas built by the port, port blas from the JAX
     tables, JAX compute_instance_aabbs) for one scene."""
-    jflat, jmeta, host = jds.build_device_scene(SCENES[request.param](), want_host=True)
-    jblas = jtb.build_blas_set(jflat, jmeta, host)
-    flat, meta = tds.build_device_scene(SCENES[request.param](), torch.device("cpu"))
+    jax_scene, scene = SCENES[request.param]
+    jflat, jmeta, host = jds.build_device_scene(jax_scene(), want_host=True)
+    with jax_native_on_port_library():
+        jblas = jtb.build_blas_set(jflat, jmeta, host)
+    flat, meta = tds.build_device_scene(scene(), torch.device("cpu"))
     port = ttb.build_blas_set(flat, meta)
     jflat_np = jax.tree.map(np.asarray, jflat)
     conv, _ = convert.from_jax(jflat_np, jmeta, jax.tree.map(np.asarray, jblas), torch.device("cpu"))
