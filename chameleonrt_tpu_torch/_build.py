@@ -3,8 +3,8 @@
 Each kernel source (csrc/*.cu) compiles with its own nvcc, all at once,
 for sm_90a; the objects link into one shared library with a plain C
 interface, loaded with ctypes. The library goes to
-chameleonrt_tpu_torch/_build/, named by a hash of its sources, so an edited
-source never loads a stale library. A file lock serializes concurrent
+chameleonrt_tpu_torch/_build/, named by a hash of its sources and nvcc's
+flags, so an edited source or flag never loads a stale library. A file lock serializes concurrent
 builds (test workers, for one).
 """
 
@@ -35,11 +35,16 @@ MAX_STACK = 64
 MAX_LEAF = 16
 
 
-def _digest(paths) -> str:
+def _digest(paths, build=()) -> str:
+    """Hash of the sources at paths and of what builds them (build: the
+    compiler, its version, its flags), so neither an edited source nor a
+    changed build loads a stale library."""
     h = hashlib.sha256()
     for p in paths:
         with open(p, "rb") as f:
             h.update(os.path.basename(p).encode() + b"\0" + f.read())
+    for s in build:
+        h.update(b"\1" + s.encode())
     return h.hexdigest()[:16]
 
 
@@ -106,7 +111,7 @@ def kernel_library_path() -> str:
     sources = sorted(
         os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith((".cu", ".cuh"))
     )
-    out = os.path.join(BUILD_DIR, f"libcrt_kernels_{_digest(sources)}.so")
+    out = os.path.join(BUILD_DIR, f"libcrt_kernels_{_digest(sources, NVCC_FLAGS)}.so")
     with _file_lock("kernels"):
         if not os.path.exists(out):
             nvcc = find_nvcc()

@@ -4,8 +4,8 @@ chameleonrt_tpu/native.py, over the same plain C interface.
 
 The library is compiled at first use from the repository's sources and
 nothing else, with g++ -O3 -std=c++17 -fPIC -shared -ffp-contract=off into
-chameleonrt_tpu_torch/_build/, named by a hash of its sources as _build.py
-names the CUDA kernels' library. Without -march=native a library built on
+chameleonrt_tpu_torch/_build/, named by a hash of its sources, the
+compiler and its flags, as _build.py names the CUDA kernels' library. Without -march=native a library built on
 one host loads on any other, and without contracted multiply-adds every
 host builds the same tables. (native/Makefile builds the JAX package's
 copy with -march=native: on a host with FMA its SAH costs round otherwise,
@@ -35,8 +35,11 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 
 
 def library_path(cxx: str) -> str:
-    """Path of the native library, compiled with cxx if missing."""
-    out = os.path.join(_build.BUILD_DIR, f"libcrt_native_{_build._digest(SOURCES)}.so")
+    """Path of the native library, compiled with cxx if missing. Its name
+    hashes the sources, cxx's path and version, and CXX_FLAGS."""
+    version = _build._run([cxx, "--version"], 60)
+    out = os.path.join(_build.BUILD_DIR,
+                       f"libcrt_native_{_build._digest(SOURCES, (cxx, version, *CXX_FLAGS))}.so")
     with _build._file_lock("native"):
         if not os.path.exists(out):
             tmp = out + f".tmp{os.getpid()}"

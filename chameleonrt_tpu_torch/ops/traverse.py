@@ -44,18 +44,25 @@ _SORT_NETS = {
 class WalkCount:
     """What one plain walk did, for a kernel's least time on the same rays
     (chip_smoke.py's bound): the distinct node, triangle-leaf and
-    instance-entry rows the rays visited, and how many visits of each kind
-    the lanes made (a node visit slab-tests every child of the row, a leaf
-    visit runs Möller–Trumbore on every slot, an entry visit transforms the
-    ray). Only a caller that asks for it passes one; the render path never
+    instance-entry rows the rays visited, how many visits of each kind the
+    lanes made, and the tests those visits need: one slab test per live
+    child of a visited node row (an empty slot, lo = hi = 1e30, needs
+    none), one Möller–Trumbore per valid slot of a visited triangle leaf
+    (prim >= 0; padding needs none). An entry visit transforms the ray.
+    Only a caller that asks for it passes one; the render path never
     does."""
 
     def __init__(self, table):
         dev = table.nodes.device
+        arity = table.nodes.shape[1] // 8
+        L = table.leaf_rows.shape[1] // 10
         self.node_seen = torch.zeros(table.nodes.shape[0], dtype=torch.bool, device=dev)
         self.leaf_seen = torch.zeros(table.leaf_rows.shape[0], dtype=torch.bool, device=dev)
         self.n_tri = getattr(table, "n_tri_leaves", table.leaf_rows.shape[0])
-        self.visits = torch.zeros(3, dtype=torch.int64, device=dev)  # node, leaf, entry
+        self.live_children = (table.nodes[:, 0 : 6 * arity : 6] < _BIG).sum(dim=1)
+        self.live_slots = (table.leaf_rows.view(torch.int32)[:, 9 * L : 10 * L] >= 0).sum(dim=1)
+        # node, leaf and entry visits; slab tests; Möller–Trumbore slots
+        self.visits = torch.zeros(5, dtype=torch.int64, device=dev)
 
     def step(self, cur):
         """Record one lockstep step of the live lanes at rows cur."""
@@ -64,16 +71,20 @@ class WalkCount:
         tri = ~node & (leaf < self.n_tri)
         self.node_seen[cur[node].long()] = True
         self.leaf_seen[leaf[~node]] = True
-        self.visits += torch.stack([node.sum(), tri.sum(), (~node & ~tri).sum()])
+        self.visits += torch.stack([
+            node.sum(), tri.sum(), (~node & ~tri).sum(),
+            self.live_children[cur[node].long()].sum(), self.live_slots[leaf[tri]].sum(),
+        ])
 
     def totals(self) -> dict:
-        node_visits, leaf_visits, entry_visits = (int(x) for x in self.visits)
+        node_visits, leaf_visits, entry_visits, slab_tests, mt_slots = (int(x) for x in self.visits)
         leaves = self.leaf_seen.nonzero().flatten()
         return {
             "node_rows": int(self.node_seen.sum()),
             "leaf_rows": int((leaves < self.n_tri).sum()),
             "entry_rows": int((leaves >= self.n_tri).sum()),
             "node_visits": node_visits, "leaf_visits": leaf_visits, "entry_visits": entry_visits,
+            "slab_tests": slab_tests, "mt_slots": mt_slots,
         }
 
 

@@ -44,7 +44,10 @@ nor the JAX package (it asserts so at its end). Phases:
    Miguel proxy (gen://san_miguel: 155 instances, 9.67M instanced
    triangles, generated as bench.py does) at 1280x720, 4 spp (B3/B4), the
    city proc://city?n=610 at 640x360, 1 spp (B5a/B5b), and the large San
-   Miguel proxy at 1280x720, 4 spp (B5c/B5d).
+   Miguel proxy at 1280x720, 4 spp (B5c/B5d); each path's last frame runs
+   under torch.profiler, which gives where its time goes: device busy
+   time, the idle share of the frame, and the device time of the traversal
+   kernels and of the largest other rows.
 
 A gen://san_miguel URI is this script's own: _load generates the scene
 with the port's scene/pbrt_gen.py (its query string gives the generator's
@@ -54,12 +57,6 @@ loader. Scenes are loaded once per URI.
 Every phase raises on failure and the script then exits nonzero. The line
 before the last is a JSON object with one entry per kernel; the last line
 is {"ok": true, "device": {...}}.
-
-`python3 chip_smoke.py --profile [PATH ...]` runs instead only the named
-main paths (flat, unified, stream, unified_stream; all by default) under
-torch.profiler and prints, per path, where a frame's time goes: device
-busy time and the idle share of the frame, and the device time of the
-traversal kernels and of the largest other rows (profile_main).
 """
 
 from __future__ import annotations
@@ -96,7 +93,7 @@ SM_SPP = 4
 SM_TIMED_FRAMES = 4
 CITY_TIMED_FRAMES = 3
 LARGE_TIMED_FRAMES = 3
-PROFILE_FRAMES = 2
+PROFILE_FRAMES = 1
 # traversal gates (the JAX bench's parity gates): prim (and instance) /
 # occlusion mismatches <= max(2, R / 50000), |dt| and |du|, |dv| over
 # common hits <= 1e-5
@@ -210,15 +207,16 @@ def _bound(table, count, active, out_bytes):
     the bytes it must move (each distinct node, leaf and entry row the rays
     visit read once, every lane's inputs read once, its results written
     once) over the memory rate, and its FP32 operations (the live lanes'
-    reciprocals and their counted visits) over the FP32 rate."""
+    reciprocals, a slab test per live child of each visited node row, a
+    Moller-Trumbore per valid slot of each visited leaf row, a transform
+    per instance entry) over the FP32 rate."""
     c = dict(count.totals(), rays=active.shape[0], live=int(active.sum()))
     L = table.leaf_rows.shape[1] // 10
-    arity = table.nodes.shape[1] // 8
     row_bytes = table.nodes.shape[1] * 4
     n_bytes = (c["node_rows"] * row_bytes + c["leaf_rows"] * 10 * L * 4 + c["entry_rows"] * 14 * 4
                + c["rays"] * (RAY_IN_BYTES + out_bytes))
-    ops = (c["live"] * RAY_OPS + c["node_visits"] * arity * SLAB_OPS
-           + c["leaf_visits"] * L * MT_OPS + c["entry_visits"] * ENTRY_OPS)
+    ops = (c["live"] * RAY_OPS + c["slab_tests"] * SLAB_OPS + c["mt_slots"] * MT_OPS
+           + c["entry_visits"] * ENTRY_OPS)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -556,13 +554,74 @@ def phase_image(torch, uri, stream=None, expect=None):
                              f"expected {sorted(expect)} only")
 
 
+# a traversal kernel's name, mangled (...29closest_unified_stream_kernelE...)
+# or not ((anonymous namespace)::closest_unified_stream_kernel(float const*,
+# ...); the group is its launch-count key
+_TRAVERSAL_KERNEL = re.compile(r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream)?)_kernel(?![a-z_])")
+
+
+def _union_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def _profile_frames(torch, backend, view, median_ms, expect):
+    """Where a main path's frame time goes: PROFILE_FRAMES more frames
+    under torch.profiler (device-side events only). Per frame: the device
+    busy time (the union of the events' intervals) and the idle share of
+    the median unprofiled frame, the traversal kernels' device time and
+    launches, and the largest other rows. The profiler slows the host, so
+    busy time is set against unprofiled frames."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_FRAMES):
+            backend.render(*view, False, readback_framebuffer=False)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    rows = {}
+    for e in events:
+        m = _TRAVERSAL_KERNEL.search(e.name)
+        key = m.group(1) if m else e.name[:100]
+        n, us = rows.get(key, (0, 0.0))
+        rows[key] = (n + 1, us + e.time_range.elapsed_us())
+    busy = _union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3 / PROFILE_FRAMES
+    per_frame = {k: (n / PROFILE_FRAMES, us / 1e3 / PROFILE_FRAMES) for k, (n, us) in rows.items()}
+    traversal = {k: per_frame.pop(k, (0, 0.0)) for k in expect}
+    res = {
+        "profiled_frames": PROFILE_FRAMES,
+        "device_events_per_frame": len(events) / PROFILE_FRAMES, "busy_ms_per_frame": busy,
+        "idle_share": 1.0 - busy / median_ms,
+        "traversal_per_frame": {k: {"launches": n, "ms": t} for k, (n, t) in traversal.items()},
+        "traversal_share_of_busy": sum(t for _, t in traversal.values()) / busy,
+        "largest_other_rows_per_frame": [
+            {"name": k, "launches": n, "ms": t}
+            for k, (n, t) in sorted(per_frame.items(), key=lambda kv: -kv[1][1])[:6]],
+    }
+    # at ~76K device events a frame the profiler may miss a few, so the
+    # launch counts per frame come from the counters; here each of the
+    # path's kernels must show up
+    if not all(traversal[k][0] > 0 for k in expect):
+        names = [k for k in per_frame if "at::native" not in k][:10]
+        raise AssertionError(f"the profile saw {traversal}, expected {expect} per frame; "
+                             f"rows outside at::native: {names}")
+    return res
+
+
 def phase_main(torch, uri, W, H, spp, timed_frames, expect):
     """get_backend("cuda") on uri at W x H and spp samples per pixel
-    (set after set_scene, as bench.py does): one warmup and timed_frames
-    timed frames, with every launch count set to 0 just before and read
-    just after. expect maps each count to its launches per frame. Returns
-    {count: (launches in the run, launches per frame)} of the kernels that
-    ran."""
+    (set after set_scene, as bench.py does): one warmup, timed_frames
+    frames timed on the host clock and PROFILE_FRAMES profiled frames
+    (_profile_frames), with every launch count set to 0 just before and
+    read just after. expect maps each count to its launches per frame.
+    Returns {count: (launches in the run, launches per frame)} of the
+    kernels that ran."""
     from chameleonrt_tpu_torch.core.registry import get_backend
     from chameleonrt_tpu_torch.ops import traverse_cuda
 
@@ -587,12 +646,14 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect):
         st = backend.render(pos, d, up, fov, i == 0, readback_framebuffer=(i == n_frames - 1))
         torch.cuda.synchronize()
         stats.append((time.perf_counter() - t0, st))
-    launches = dict(traverse_cuda.LAUNCHES)
     timed = stats[1:]
     ms = [s * 1e3 for s, _ in timed]
     rays = [st.rays_traced for _, st in timed]
     mray_s = [r / s / 1e6 for (s, _), r in zip(timed, rays)]
     peak = torch.cuda.max_memory_allocated()
+    profiled = _profile_frames(torch, backend, (pos, d, up, fov), statistics.median(ms), expect)
+    n_frames += PROFILE_FRAMES
+    launches = dict(traverse_cuda.LAUNCHES)
     res = {
         "scene": uri, "width": W, "height": H, "spp": spp,
         "unique_tris": backend.meta.num_tris, "instances": backend.meta.num_instances,
@@ -604,6 +665,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect):
         "launches": launches, "frames": n_frames,
     }
     log(f"[main] {json.dumps(res)}")
+    log(f"[profile] {uri}: {json.dumps(profiled)}")
     want = {k: expect.get(k, 0) * n_frames for k in launches}
     if launches != want:
         raise AssertionError(f"expected {want} launches over {n_frames} frames, got {launches}")
@@ -632,87 +694,6 @@ def _main_paths():
     }
 
 
-# a traversal kernel's name, mangled (...29closest_unified_stream_kernelE...)
-# or not ((anonymous namespace)::closest_unified_stream_kernel(float const*,
-# ...); the group is its launch-count key
-_TRAVERSAL_KERNEL = re.compile(r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream)?)_kernel(?![a-z_])")
-
-
-def _union_us(intervals):
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
-
-
-def profile_main(torch, path):
-    """Where one main path's frame time goes: get_backend("cuda") as in
-    phase_main, one warmup and PROFILE_FRAMES frames timed on the host
-    clock, then PROFILE_FRAMES frames under torch.profiler. Per frame: the
-    device-side events, the device busy time (the union of their intervals)
-    and the idle share of the unprofiled median frame, the traversal
-    kernels' device time and launches, and the largest other rows. The
-    profiler slows the host, so busy time is set against unprofiled
-    frames."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from chameleonrt_tpu_torch.core.registry import get_backend
-
-    uri, W, H, spp, _, expect = _main_paths()[path]
-    scene = _load(uri)
-    pos, d, up, fov = _view(scene)
-    backend = get_backend("cuda")
-    backend.initialize(W, H)
-    backend.set_scene(scene)
-    backend.samples_per_pixel = spp
-    ms = []
-    for i in range(1 + PROFILE_FRAMES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        backend.render(pos, d, up, fov, i == 0, readback_framebuffer=False)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device-side events only
-        for _ in range(PROFILE_FRAMES):
-            backend.render(pos, d, up, fov, False, readback_framebuffer=False)
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    rows = {}
-    for e in events:
-        m = _TRAVERSAL_KERNEL.search(e.name)
-        key = m.group(1) if m else e.name[:100]
-        n, us = rows.get(key, (0, 0.0))
-        rows[key] = (n + 1, us + e.time_range.elapsed_us())
-    median = statistics.median(ms[1:])
-    busy = _union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3 / PROFILE_FRAMES
-    per_frame = {k: (n / PROFILE_FRAMES, us / 1e3 / PROFILE_FRAMES) for k, (n, us) in rows.items()}
-    traversal = {k: per_frame.pop(k, (0, 0.0)) for k in expect}
-    res = {
-        "path": path, "scene": uri, "width": W, "height": H, "spp": spp,
-        "unprofiled_ms": ms[1:], "median_ms": median, "profiled_frames": PROFILE_FRAMES,
-        "device_events_per_frame": len(events) / PROFILE_FRAMES, "busy_ms_per_frame": busy,
-        "idle_share": 1.0 - busy / median,
-        "traversal_per_frame": {k: {"launches": n, "ms": t} for k, (n, t) in traversal.items()},
-        "traversal_share_of_busy": sum(t for _, t in traversal.values()) / busy,
-        "largest_other_rows_per_frame": [
-            {"name": k, "launches": n, "ms": t}
-            for k, (n, t) in sorted(per_frame.items(), key=lambda kv: -kv[1][1])[:6]],
-    }
-    log(f"[profile] {json.dumps(res)}")
-    # at ~76K device events a frame the profiler may miss a few, so the
-    # launch counts per frame come from the counters (phase_main); here each
-    # of the path's kernels must show up
-    if not all(traversal[k][0] > 0 for k in expect):
-        names = [k for k in per_frame if "at::native" not in k][:10]
-        raise AssertionError(f"the profile of {path} saw {traversal}, expected {expect} per "
-                             f"frame; rows outside at::native: {names}")
-    return res
-
-
 def _foreign_modules():
     """Modules of JAX or of the JAX package that this process imported."""
     return sorted(m for m in sys.modules
@@ -735,12 +716,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_toolchain(torch)
     phase_build()
-    if sys.argv[1:2] == ["--profile"]:
-        for path in sys.argv[2:] or list(_PATHS):
-            profile_main(torch, path)
-        log(f"[done] profiled in {time.perf_counter() - t_start:.1f} s")
-        print(f"nvidia-smi: {smi}")
-        return 0
     kres = {path: phase_kernels(torch, path) for path in _PATHS}
     phase_image(torch, HALL_IMAGE)
     phase_image(torch, INST_IMAGE)

@@ -36,6 +36,7 @@ from chameleonrt_tpu.core import registry as jregistry
 from chameleonrt_tpu.scene import pbrt_gen as jgen
 from chameleonrt_tpu.scene import types as jtypes
 from chameleonrt_tpu.scene.loader import load_scene as jax_load_scene
+from chameleonrt_tpu_torch import _build
 from chameleonrt_tpu_torch import native as pnative
 from chameleonrt_tpu_torch.core import registry as pregistry
 from chameleonrt_tpu_torch.engine import device_scene as tds
@@ -235,6 +236,22 @@ def test_native_library_builds_once_under_concurrent_workers(tmp_path):
     assert os.path.dirname(name) == str(tmp_path)
     assert os.path.basename(name).startswith("libcrt_native_")
     assert sorted(os.listdir(tmp_path)) == sorted([os.path.basename(name), "native.lock"])
+
+
+def test_library_name_hashes_sources_compiler_and_flags(tmp_path):
+    """A library built from the same sources by another compiler, another
+    version of it or other flags gets another name, so it is never loaded
+    in place of this build's."""
+    src = tmp_path / "a.cpp"
+    src.write_text("int f() { return 1; }\n")
+    build = ("/usr/bin/g++", "g++ 13.2", *pnative.CXX_FLAGS)
+    base = _build._digest([str(src)], build)
+    assert _build._digest([str(src)], build) == base
+    for other in (("/usr/bin/clang++", *build[1:]), (build[0], "g++ 14.1", *build[2:]),
+                  (*build, "-march=native"), ()):
+        assert _build._digest([str(src)], other) != base, other
+    src.write_text("int f() { return 2; }\n")
+    assert _build._digest([str(src)], build) != base
 
 
 def _port_sources():

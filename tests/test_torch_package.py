@@ -94,7 +94,7 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(where, tmp_path):
 
 
 def test_chip_smoke_profile_helpers():
-    """The profile mode's busy time (a union of intervals) and its reading
+    """The main paths' profile: busy time (a union of intervals) and its reading
     of traversal kernels' names, mangled or not, as launch-count keys."""
     sys.path.insert(0, ROOT)
     try:

@@ -279,11 +279,19 @@ def test_walk_count_counts_what_the_rays_need(wavefronts):
     assert c1["node_visits"] > int(a.sum())
     assert c1["leaf_visits"] > 0 and c1["entry_visits"] > 0
     assert 0 < c1["entry_rows"] <= table.leaf_rows.shape[0] - table.n_tri_leaves
-    for k in ("node_visits", "leaf_visits", "entry_visits"):
+    for k in ("node_visits", "leaf_visits", "entry_visits", "slab_tests", "mt_slots"):
         assert c2[k] == 2 * c1[k], k
     for k in ("node_rows", "leaf_rows", "entry_rows"):
         assert c2[k] == c1[k], k
     assert none.totals() == {k: 0 for k in c1}
+    # only live children and valid slots are tested: each live child slot
+    # names a distinct row, and some rows and leaves are not full
+    L = table.leaf_rows.shape[1] // 10
+    assert c1["node_visits"] <= c1["slab_tests"] < 4 * c1["node_visits"]
+    assert c1["leaf_visits"] <= c1["mt_slots"] < L * c1["leaf_visits"]
+    live = table.nodes[:, 0:24:6] < 1e30
+    codes = table.nodes.view(torch.int32)[:, 24:28][live]
+    assert codes.unique().numel() == codes.numel() == int(one.live_children.sum())
 
 
 def test_unified_stream_backend_frames_match_jax_tpu_backend(tmp_path, monkeypatch):
