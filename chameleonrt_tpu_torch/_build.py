@@ -153,6 +153,17 @@ def kernels() -> ctypes.CDLL:
     lib.crt_traverse_closest_unified_stream.restype = i
     lib.crt_traverse_any_unified_stream.argtypes = lib.crt_traverse_any_unified.argtypes
     lib.crt_traverse_any_unified_stream.restype = i
+    # the work-queue kernels take one more pointer, the queue's counter, before R
+    lib.crt_traverse_closest_persistent.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p]
+    lib.crt_traverse_closest_persistent.restype = i
+    lib.crt_traverse_any_persistent.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p, i, p]
+    lib.crt_traverse_any_persistent.restype = i
+    lib.crt_traverse_closest_unified_persistent.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, i, p]
+    lib.crt_traverse_closest_unified_persistent.restype = i
+    lib.crt_traverse_any_unified_persistent.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p, p, i, p]
+    lib.crt_traverse_any_unified_persistent.restype = i
+    lib.crt_persistent_blocks.argtypes = [i]
+    lib.crt_persistent_blocks.restype = i
     lib.crt_error_string.argtypes = [i]
     lib.crt_error_string.restype = ctypes.c_char_p
     lib.crt_max_stack.argtypes = []

@@ -1,5 +1,6 @@
 // Device helpers shared by the traversal kernels (traverse_flat.cu: B1, B2;
-// traverse_unified.cu: B3, B4; traverse_stream.cu: B5a, B5b, B5c, B5d).
+// traverse_unified.cu: B3, B4; traverse_stream.cu: B5a, B5b, B5c, B5d;
+// traverse_persistent.cu: B6a, B6b, B6c, B6d).
 //
 // Semantics shared with the plain torch version
 // (chameleonrt_tpu_torch/ops/traverse.py):
@@ -167,7 +168,7 @@ __device__ __forceinline__ bool mt_slot(const float* __restrict__ lrow, int L, i
   return mt_tri(load_tri(lrow, L, j), r, tmax, t_out, u_out, v_out, prim_out);
 }
 
-// Two-level tables (B3, B4, B5c, B5d): an instance-entry row holds the 3x4
+// Two-level tables (B3, B4, B5c, B5d, B6c, B6d): an instance-entry row holds the 3x4
 // world-to-object matrix at cols 0-11 (row-major), the BLAS root row at
 // col 12 and the instance id at col 13 (both bitcast int32).
 constexpr int kEntryCols = 14;

@@ -25,8 +25,9 @@
 // fetches are L2 hits, not HBM traffic. Rays diverge inside a warp, so a
 // warp pays the union of its rays' steps.
 // Later work: warp-coherent packets (one row fetch shared by a warp on
-// the sorted wavefront), FMA contraction, persistent threads pulling rays
-// from an atomic counter, and the stack in shared memory.
+// the sorted wavefront), FMA contraction and the stack in shared memory.
+// Persistent threads pulling rays from an atomic counter are B6a-B6d
+// (traverse_persistent.cu), the same per-lane walk fed from a work queue.
 
 #include "traverse_common.cuh"
 

@@ -1,0 +1,338 @@
+// Work-queue persistent traversal kernels for Hopper (sm_90a): B6a flat
+// closest hit, B6b flat any hit, B6c two-level closest hit, B6d two-level
+// any hit.
+//
+// Replaces the Pallas work-queue kernels of chameleonrt_tpu/ops/traverse_packet.py
+// (_make_persistent_kernel, both `stream` values): B6a = the closest-hit
+// variant reached through _closest_call_persistent / traverse_closest_persistent,
+// B6b = the any-hit variant through _any_call_persistent /
+// traverse_any_persistent, B6c and B6d = the unified variants through
+// _closest_unified_call_persistent / _any_unified_call_persistent. On the TPU
+// K resident slots each walk a packet of sorted rays with one shared stack
+// and pull the next packet id from a queue when theirs retires; stream=True
+// only moves the tables from VMEM to HBM. Here that is persistent threads
+// fed from a global work queue (Aila and Laine, "Understanding the
+// Efficiency of Ray Traversal on GPUs", HPG 2009):
+//   - the grid is as many blocks as the card keeps resident at once
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs,
+//     computed once per kernel), whatever the number of rays;
+//   - a device counter, reset in stream order before each launch, hands out
+//     ray indices; a warp takes kFetch consecutive indices with one atomic
+//     and gives them to its idle lanes by a ballot, in lane order, so
+//     refills follow the path tracer's sorted order;
+//   - each lane walks its own ray, one row per iteration, in B1's per-lane
+//     order (traverse_flat.cu: near-first through the sorting network,
+//     leaves as it meets them, a local-memory stack of `depth` entries), and
+//     takes a new ray as soon as its ray ends.
+// The TPU kernel's phase alternation, deferred leaf FIFO, merged phase,
+// pinned tree top and VMEM gates schedule a lockstep vector unit and are
+// not carried over. Every table sits in global memory behind the L2, so one
+// kernel per variant serves both `stream` values. Results keep the plain
+// version's contract (chameleonrt_tpu_torch/ops/traverse.py) and are written
+// by ray index:
+//   - B6a (t, prim, u, v), B6c (t, prim, inst, u, v): a miss or inactive
+//     lane is (1e20, -1, [-1,] 0, 0), a stack overflow prim = -2, as B1/B3;
+//   - B6b, B6d: occluded & mask; the walk stops at the first
+//     t_min < t < t_max, and an overflow is occluded, as B2/B4.
+// Two-level walks are B3/B4's (traverse_unified.cu): an instance-entry leaf
+// rebuilds the object ray from the world ray, and a step onto a row where
+// in_world holds restores the world ray. A lane's refill resets its world
+// and object rays, its stack and its instance, so a ray that ended inside
+// a BLAS leaves nothing behind.
+// Built with -fmad=false, so t agrees with the plain version bit for bit.
+//
+// What bounds it on the H100: as B1-B4, dependent row fetches (latency, not
+// bytes: a wavefront's distinct rows are a few MB). The queue keeps every
+// lane busy until the queue is empty, where a B1 warp waits for its longest
+// ray; the price is coherence, since a warp's lanes soon hold rays from
+// different parts of the sorted wavefront, and a ballot, an any-vote and
+// the refill each iteration. On an H100 80GB HBM3 at 700 W the price was
+// the larger: B6a-B6d took 0.97-1.37x the time of B1-B4 on the same
+// 921,600-ray wavefronts (chip_smoke.py, phase 3).
+
+#include "traverse_common.cuh"
+
+namespace {
+
+using namespace crt;
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFetch = 32;  // ray indices a warp takes with one atomic
+
+struct Params {
+  const float* nodes;
+  const float* leaf_rows;
+  int n_tri;    // flat: the number of leaves; two-level: n_tri_leaves
+  int tlas_lo;  // two-level only
+  int L, depth;
+  const float* orig;
+  const float* dir;
+  const float* t_min;
+  const float* t_max;
+  const uint8_t* flag;  // closest hit: active; any hit: mask
+  float* t_out;
+  int* prim_out;
+  int* inst_out;
+  float* u_out;
+  float* v_out;
+  uint8_t* occluded;
+  int* counter;
+  int R;
+};
+
+// One lane's walk.
+struct Walk {
+  Ray w;       // the world ray (two-level)
+  Ray r;       // the ray of the current space
+  float tmax;  // closest hit: the best t so far; any hit: t_max
+  float u, v;
+  int prim;    // closest hit: the best prim so far (-2 after an overflow)
+  int inst;    // two-level closest hit: the best prim's instance
+  int space;   // two-level closest hit: the instance whose object space r holds
+  int cur, sp;
+  bool occ;    // any hit
+};
+
+template <bool kAny, bool kUnified>
+__device__ __forceinline__ void start(const Params& p, Walk& s, int i) {
+  s.w = load_ray(p.orig, p.dir, p.t_min, i);
+  s.r = s.w;
+  s.tmax = kAny ? p.t_max[i] : fminf(kTMax, p.t_max[i]);
+  s.u = 0.0f; s.v = 0.0f;
+  s.prim = -1; s.inst = -1; s.space = 0;
+  s.sp = 0;
+  s.occ = false;
+  if (!p.flag[i]) s.cur = kDone;
+  else s.cur = kUnified ? p.tlas_lo : (p.n_tri == 1 ? -1 : 0);  // a one-leaf table starts at leaf 0
+}
+
+__device__ __forceinline__ int pop(Walk& s, const int* stack) {
+  return s.sp > 0 ? stack[--s.sp] : kDone;
+}
+
+// One row of the walk at s.cur (not kDone); ends the walk with s.cur = kDone.
+template <bool kAny, bool kUnified>
+__device__ __forceinline__ void step(const Params& p, Walk& s, int* stack) {
+  const int cur = s.cur;
+  if (cur >= 0) {
+    float keys[kArity];
+    int codes[kArity];
+    node_step(p.nodes, cur, s.r, s.tmax, keys, codes);
+    for (int k = kArity - 1; k >= 1; --k) {
+      if (keys[k] < kBig) {
+        if (s.sp >= p.depth - 1) {  // overflow: closest hit reports -2, any hit occluded
+          if (kAny) s.occ = true;
+          else s.prim = -2;
+          s.cur = kDone;
+          return;
+        }
+        stack[s.sp++] = codes[k];
+      }
+    }
+    s.cur = keys[0] < kBig ? codes[0] : pop(s, stack);
+  } else if (!kUnified || -cur - 1 < p.n_tri) {
+    const float* lrow = p.leaf_rows + (size_t)(-cur - 1) * 10 * p.L;
+    if (kAny) {
+      for (int j = 0; j < p.L; ++j) {
+        float t, u, v;
+        int prim;
+        if (mt_slot(lrow, p.L, j, s.r, s.tmax, &t, &u, &v, &prim)) {
+          s.occ = true;
+          s.cur = kDone;
+          return;
+        }
+      }
+    } else {
+      float lt = s.tmax, lu = 0.0f, lv = 0.0f;
+      int lp = -1;
+      for (int j = 0; j < p.L; ++j) {
+        float t, u, v;
+        int prim;
+        if (mt_slot(lrow, p.L, j, s.r, s.tmax, &t, &u, &v, &prim) && t <= lt) {
+          lt = t; lu = u; lv = v; lp = prim;
+        }
+      }
+      if (lp >= 0) {  // some slot hit, so lt < the best t
+        s.tmax = lt; s.prim = lp; s.u = lu; s.v = lv; s.inst = s.space;
+      }
+    }
+    s.cur = pop(s, stack);
+  } else {  // an instance-entry row: into the instance's object space
+    const float* erow = p.leaf_rows + (size_t)(-cur - 1) * 10 * p.L;
+    float m[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) m[k] = __ldg(erow + k);
+    s.r = enter_instance(m, s.w);
+    s.cur = __float_as_int(__ldg(erow + 12));  // a BLAS row: stay in object space
+    s.space = __float_as_int(__ldg(erow + 13));
+    return;
+  }
+  if (kUnified && in_world(s.cur, p.n_tri, p.tlas_lo)) s.r = s.w;
+}
+
+// The ended walk's result, at its ray's index.
+template <bool kAny, bool kUnified>
+__device__ __forceinline__ void finish(const Params& p, const Walk& s, int i) {
+  if (kAny) {
+    p.occluded[i] = s.occ ? 1 : 0;
+  } else if (kUnified) {
+    const bool miss = s.prim < 0;
+    p.t_out[i] = miss ? kTMax : s.tmax;
+    p.prim_out[i] = s.prim;
+    p.inst_out[i] = miss ? -1 : s.inst;
+    p.u_out[i] = miss ? 0.0f : s.u;
+    p.v_out[i] = miss ? 0.0f : s.v;
+  } else {  // B1's outputs, u and v included
+    p.t_out[i] = s.prim < 0 ? kTMax : s.tmax;
+    p.prim_out[i] = s.prim;
+    p.u_out[i] = s.u;
+    p.v_out[i] = s.v;
+  }
+}
+
+// The persistent loop. Every lane of a warp stays in it until a warp-wide
+// vote finds no lane with a ray after the refill, which happens only once
+// the queue is empty, so every *_sync intrinsic sees all 32 lanes.
+template <bool kAny, bool kUnified>
+__device__ __forceinline__ void persistent(const Params& p) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  int stack[kMaxStack];
+  Walk s;
+  s.cur = kDone;
+  int ray = -1;                 // this lane's ray, -1 while it has none
+  int q_next = 0, q_end = 0;    // the warp's unclaimed indices [q_next, q_end)
+  bool drained = false;         // the counter has passed R
+  while (true) {
+    const unsigned idle = __ballot_sync(kFull, ray < 0);
+    if (idle != 0u && q_next >= q_end && !drained) {  // warp-uniform
+      int base = 0;
+      if (lane == 0) base = atomicAdd(p.counter, kFetch);
+      base = __shfl_sync(kFull, base, 0);
+      q_next = base;
+      q_end = min(base, p.R - kFetch) + kFetch;  // min(base + kFetch, R), without overflow
+      drained = q_end >= p.R;
+    }
+    if (idle != 0u && q_next < q_end) {
+      const int rank = __popc(idle & below);
+      if (ray < 0 && rank < q_end - q_next) {
+        ray = q_next + rank;
+        start<kAny, kUnified>(p, s, ray);
+      }
+      q_next = min(q_next + __popc(idle), q_end);
+    }
+    if (!__any_sync(kFull, ray >= 0)) break;
+    if (ray >= 0) {
+      if (s.cur != kDone) step<kAny, kUnified>(p, s, stack);
+      if (s.cur == kDone) {
+        finish<kAny, kUnified>(p, s, ray);
+        ray = -1;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) closest_persistent_kernel(const Params p) {
+  persistent<false, false>(p);
+}
+
+__global__ void __launch_bounds__(kThreads) any_persistent_kernel(const Params p) {
+  persistent<true, false>(p);
+}
+
+__global__ void __launch_bounds__(kThreads) closest_unified_persistent_kernel(const Params p) {
+  persistent<false, true>(p);
+}
+
+__global__ void __launch_bounds__(kThreads) any_unified_persistent_kernel(const Params p) {
+  persistent<true, true>(p);
+}
+
+// Blocks of kThreads that the current card keeps resident at once running
+// `kernel`: its SMs times the kernel's occupancy. Computed on the first
+// launch of each kernel and kept.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int* cached) {
+  if (*cached > 0) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (err == cudaSuccess && sms * per_sm <= 0) err = cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess) *cached = sms * per_sm;
+  return err;
+}
+
+// Reset the queue in stream order, then launch. Returns the cudaError_t.
+template <typename Kernel>
+int launch(Kernel kernel, int* cached_blocks, const Params& p, void* stream) {
+  if (p.R <= 0) return 0;
+  cudaError_t err = resident_blocks(kernel, cached_blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(p.counter, 0, sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<*cached_blocks, kThreads, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int g_blocks[4] = {0, 0, 0, 0};  // resident blocks of B6a, B6b, B6c, B6d
+
+}  // namespace
+
+extern "C" {
+
+// The grid of B6a, B6b, B6c or B6d (variant 0-3): resident blocks of
+// kThreads threads, 0 before the variant's first launch.
+int crt_persistent_blocks(int variant) {
+  return variant >= 0 && variant < 4 ? g_blocks[variant] : 0;
+}
+
+// Launch B6a on `stream`; counter is one int of device memory for the queue.
+int crt_traverse_closest_persistent(const float* nodes, const float* leaf_rows, int n_leaves,
+                                    int L, int depth, const float* orig, const float* dir,
+                                    const float* t_min, const float* t_max,
+                                    const uint8_t* active, float* t_out, int* prim_out,
+                                    float* u_out, float* v_out, int* counter, int R,
+                                    void* stream) {
+  Params p{nodes, leaf_rows, n_leaves, 0, L, depth, orig, dir, t_min, t_max, active,
+           t_out, prim_out, nullptr, u_out, v_out, nullptr, counter, R};
+  return launch(closest_persistent_kernel, &g_blocks[0], p, stream);
+}
+
+// Launch B6b on `stream`.
+int crt_traverse_any_persistent(const float* nodes, const float* leaf_rows, int n_leaves, int L,
+                                int depth, const float* orig, const float* dir,
+                                const float* t_min, const float* t_max, const uint8_t* mask,
+                                uint8_t* occluded, int* counter, int R, void* stream) {
+  Params p{nodes, leaf_rows, n_leaves, 0, L, depth, orig, dir, t_min, t_max, mask,
+           nullptr, nullptr, nullptr, nullptr, nullptr, occluded, counter, R};
+  return launch(any_persistent_kernel, &g_blocks[1], p, stream);
+}
+
+// Launch B6c on `stream`.
+int crt_traverse_closest_unified_persistent(const float* nodes, const float* leaf_rows,
+                                            int n_tri, int tlas_lo, int L, int depth,
+                                            const float* orig, const float* dir,
+                                            const float* t_min, const float* t_max,
+                                            const uint8_t* active, float* t_out,
+                                            int* prim_out, int* inst_out, float* u_out,
+                                            float* v_out, int* counter, int R, void* stream) {
+  Params p{nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, active,
+           t_out, prim_out, inst_out, u_out, v_out, nullptr, counter, R};
+  return launch(closest_unified_persistent_kernel, &g_blocks[2], p, stream);
+}
+
+// Launch B6d on `stream`.
+int crt_traverse_any_unified_persistent(const float* nodes, const float* leaf_rows, int n_tri,
+                                        int tlas_lo, int L, int depth, const float* orig,
+                                        const float* dir, const float* t_min,
+                                        const float* t_max, const uint8_t* mask,
+                                        uint8_t* occluded, int* counter, int R, void* stream) {
+  Params p{nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, mask,
+           nullptr, nullptr, nullptr, nullptr, nullptr, occluded, counter, R};
+  return launch(any_unified_persistent_kernel, &g_blocks[3], p, stream);
+}
+
+}  // extern "C"

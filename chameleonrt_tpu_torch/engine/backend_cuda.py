@@ -4,7 +4,10 @@ chameleonrt_tpu/engine/backend_tpu.py. A single-instance scene traces its
 one mesh's table (kernels B1 and B2, or B5a and B5b of the streamed tier
 where the table exceeds the card's L2); a multi-instance scene traces one
 two-level TLAS+BLAS table (kernels B3 and B4, or B5c and B5d of the
-streamed tier where that table exceeds the card's L2).
+streamed tier where that table exceeds the card's L2). With the slot-lane
+tier off (slotlane=False, or CHAMELEONRT_SLOTLANE=0 in the environment, as
+for the JAX package) the work-queue kernels trace instead: B6a and B6b
+flat, B6c and B6d two-level.
 
 On device="cpu" it runs the same code with the plain traversal, which is
 how the CPU tests hold it against the JAX `tpu` backend.
@@ -21,15 +24,20 @@ from chameleonrt_tpu_torch.scene.types import Scene
 
 
 class CudaBackend(TorchRenderBackend):
-    def __init__(self, device="cuda", use_kernels: bool = True, stream: Optional[bool] = None):
+    def __init__(self, device="cuda", use_kernels: bool = True, stream: Optional[bool] = None,
+                 slotlane: Optional[bool] = None):
         """use_kernels=False traces with the plain torch traversal on any
         device; the card's parity checks use it. stream picks the tier:
         True the streamed tier (B5a/B5b flat, B5c/B5d two-level), False
         B1/B2 flat and B3/B4 two-level, None (the default) by the gate
-        trace_bvh.streamed_tier on the scene's BVH4 table."""
+        trace_bvh.streamed_tier on the scene's BVH4 table. slotlane=False
+        replaces all of these with the work-queue kernels (B6a/B6b flat,
+        B6c/B6d two-level) and stream is then not read; None (the default)
+        reads CHAMELEONRT_SLOTLANE (trace_bvh.slotlane_enabled)."""
         super().__init__(device=device)
         self.use_kernels = use_kernels
         self.stream = stream
+        self.slotlane = slotlane
 
     @property
     def name(self) -> str:
@@ -41,4 +49,4 @@ class CudaBackend(TorchRenderBackend):
 
     def make_trace_fns(self, meta):
         return make_trace_fns(meta, use_kernels=self.use_kernels, stream=self.stream,
-                              blas=self.flat.blas)
+                              blas=self.flat.blas, slotlane=self.slotlane)

@@ -13,6 +13,10 @@ binary table and a BVH4 table over shared leaf rows, unpadded.
   instances' world boxes into one UnifiedPair, and one launch traces the
   whole two-level scene, through kernels B3 and B4 on the card, or B5c
   and B5d where the two-level table exceeds the card's L2.
+- With the slot-lane tier switched off (slotlane=False, or
+  CHAMELEONRT_SLOTLANE=0 as in the JAX package), every scene goes through
+  the work-queue kernels instead: B6a and B6b flat, B6c and B6d
+  two-level, at any table size.
 
 The kernels' wrappers are in ops/traverse_cuda.py, their plain versions in
 ops/traverse.py.
@@ -20,6 +24,7 @@ ops/traverse.py.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -191,18 +196,24 @@ def compute_instance_aabbs(flat: FlatScene) -> torch.Tensor:
     return flat.blas[0].inst_aabb
 
 
-def _unified_trace_fns(use_kernels: bool, stream: bool):
-    """(trace_closest, trace_any) over the two-level BVH4 table: one
-    traversal for the whole scene, through B3 and B4 on the card, or B5c
-    and B5d of the streamed tier where stream is True; the plain two-level
-    traversal where use_kernels is False."""
+def _route(multi: bool, use_kernels: bool, stream: bool, persistent: bool):
+    """(closest, any) traversal functions: the plain traversal where
+    use_kernels is False; otherwise the kernels' wrappers, flat or
+    two-level, of the work-queue tier (B6a-B6d) where persistent is True,
+    else of the streamed tier (B5a-B5d) where stream is True, else B1-B4."""
     if not use_kernels:
-        closest_fn, any_fn = plain.traverse_closest_unified, plain.traverse_any_unified
-    elif stream:
-        closest_fn = traverse_cuda.traverse_closest_unified_stream
-        any_fn = traverse_cuda.traverse_any_unified_stream
-    else:
-        closest_fn, any_fn = traverse_cuda.traverse_closest_unified, traverse_cuda.traverse_any_unified
+        if multi:
+            return plain.traverse_closest_unified, plain.traverse_any_unified
+        return plain.traverse_closest, plain.traverse_any
+    kind = "_unified" if multi else ""
+    tier = "_persistent" if persistent else "_stream" if stream else ""
+    return (getattr(traverse_cuda, f"traverse_closest{kind}{tier}"),
+            getattr(traverse_cuda, f"traverse_any{kind}{tier}"))
+
+
+def _unified_trace_fns(closest_fn, any_fn):
+    """(trace_closest, trace_any) over the two-level BVH4 table: one
+    traversal for the whole scene through closest_fn and any_fn (_route)."""
 
     def trace_closest(flat: FlatScene, orig, dir, t_min: float, active) -> Hit:
         """Closest hit from t_min; tri is the global triangle id and inst
@@ -247,32 +258,42 @@ def streamed_tier(pbvh, l2_bytes: Optional[int] = None) -> bool:
     return table_bytes(pbvh) > l2_bytes
 
 
+def slotlane_enabled(slotlane: Optional[bool] = None) -> bool:
+    """Whether the slot-lane tier (B1-B5d) traces, the counterpart of the
+    JAX package's engine/trace_bvh.py _slotlane_enabled: slotlane if given,
+    else the environment's CHAMELEONRT_SLOTLANE, read as the JAX package
+    reads it ("0", "false" or "off" switch the tier off; unset keeps it)."""
+    if slotlane is not None:
+        return bool(slotlane)
+    return os.environ.get("CHAMELEONRT_SLOTLANE") not in ("0", "false", "off")
+
+
 def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[bool] = None,
-                   blas=None, l2_bytes: Optional[int] = None):
+                   blas=None, l2_bytes: Optional[int] = None, slotlane: Optional[bool] = None):
     """(trace_closest, trace_any) for the scene, both on BVH4 tables:
     the two-level table of a multi-instance scene, or the one instanced
     mesh's table of a flat scene. use_kernels=False runs the plain
     traversal on any device (the card's parity checks use it); otherwise
-    CUDA tensors go through the kernels: for a flat scene B1 and B2, or B5a
-    and B5b of the streamed tier where stream is True; for a multi-instance
-    scene B3 and B4, or B5c and B5d where stream is True. stream=None
-    decides by streamed_tier on the scene's BVH4 table (blas, the
-    FlatScene's; l2_bytes as there)."""
+    CUDA tensors go through the kernels. With the slot-lane tier on
+    (slotlane_enabled(slotlane); the default), a flat scene goes through
+    B1 and B2, or B5a and B5b of the streamed tier where stream is True; a
+    multi-instance scene through B3 and B4, or B5c and B5d where stream is
+    True; stream=None decides by streamed_tier on the scene's BVH4 table
+    (blas, the FlatScene's; l2_bytes as there). With it off, a flat scene
+    goes through the work-queue kernels B6a and B6b and a multi-instance
+    scene through B6c and B6d, whatever stream says: on the card one
+    kernel serves both of the JAX package's stream values."""
     multi = meta.num_instances > 1
     mesh_id = 0 if multi else meta.inst_mesh[0]
-    if use_kernels and stream is None:
+    persistent = use_kernels and not slotlane_enabled(slotlane)
+    if use_kernels and not persistent and stream is None:
         if blas is None:
             raise ValueError("the streamed tier's gate needs the scene's tables (blas)")
         stream = streamed_tier(blas[mesh_id].any, l2_bytes)
+    closest_fn, any_fn = _route(multi, use_kernels, bool(stream), persistent)
     if multi:
-        return _unified_trace_fns(use_kernels, bool(stream))
+        return _unified_trace_fns(closest_fn, any_fn)
     start = meta.mesh_tri_ranges[mesh_id][0]
-    if not use_kernels:
-        closest_fn, any_fn = plain.traverse_closest, plain.traverse_any
-    elif stream:
-        closest_fn, any_fn = traverse_cuda.traverse_closest_stream, traverse_cuda.traverse_any_stream
-    else:
-        closest_fn, any_fn = traverse_cuda.traverse_closest, traverse_cuda.traverse_any
 
     def _object_rays(flat: FlatScene, orig, dir):
         inv = flat.inst_inv[0]

@@ -3,7 +3,7 @@ in chameleonrt_tpu/ops/traverse.py (traverse_closest / traverse_any, the
 two-level traverse_closest_unified / traverse_any_unified, and
 ray_sort_perm_only).
 
-This is the plain version of kernels B1-B5d (ops/traverse_cuda.py): the
+This is the plain version of kernels B1-B6d (ops/traverse_cuda.py): the
 CPU path, and the version the kernels are held against on the card. Each
 lane follows the same depth-first order as the XLA oracle: at an internal
 row it tests every child, pushes the hit children far-first in

@@ -1,16 +1,23 @@
 """Wrappers of the traversal kernels: B1 (flat closest hit) and B2 (flat any
 hit) in csrc/traverse_flat.cu, B3 (two-level closest hit) and B4
-(two-level any hit) in csrc/traverse_unified.cu, and the streamed tier in
+(two-level any hit) in csrc/traverse_unified.cu, the streamed tier in
 csrc/traverse_stream.cu: B5a (flat closest hit), B5b (flat any hit), B5c
-(two-level closest hit) and B5d (two-level any hit).
+(two-level closest hit) and B5d (two-level any hit), and the work-queue
+persistent kernels in csrc/traverse_persistent.cu: B6a (flat closest
+hit), B6b (flat any hit), B6c (two-level closest hit) and B6d (two-level
+any hit).
 
-They replace the Pallas slot-lane kernels of
+B1-B5d replace the Pallas slot-lane kernels of
 chameleonrt_tpu/ops/traverse_slotlane.py (traverse_closest_slotlane,
 traverse_any_slotlane, traverse_closest_unified_slotlane and
-traverse_any_unified_slotlane; B5a-B5d the same four with stream=True).
-Every kernel sizes its stack as the TPU kernels do (stack_depth). A
-wrapper checks its inputs against what the kernel takes and raises on
-anything else. Then, on CUDA tensors, it allocates the outputs, launches
+traverse_any_unified_slotlane; B5a-B5d the same four with stream=True);
+B6a-B6d the work-queue kernels of chameleonrt_tpu/ops/traverse_packet.py
+(traverse_closest_persistent, traverse_any_persistent,
+traverse_closest_unified_persistent and traverse_any_unified_persistent,
+with either `stream` value). Every kernel sizes its stack as the TPU
+kernels do (stack_depth). A wrapper checks its inputs against what the
+kernel takes and raises on anything else. Then, on CUDA tensors, it
+allocates the outputs (and a work-queue kernel's counter), launches
 the kernel on the current stream without synchronizing, and raises if the
 launch fails; on CPU tensors it runs the plain version in ops/traverse.py
 instead. There is no other fallback.
@@ -31,7 +38,9 @@ from chameleonrt_tpu_torch.ops import traverse as plain
 
 LAUNCHES = {"closest": 0, "any": 0, "closest_unified": 0, "any_unified": 0,
             "closest_stream": 0, "any_stream": 0,
-            "closest_unified_stream": 0, "any_unified_stream": 0}
+            "closest_unified_stream": 0, "any_unified_stream": 0,
+            "closest_persistent": 0, "any_persistent": 0,
+            "closest_unified_persistent": 0, "any_unified_persistent": 0}
 
 
 def stack_depth(table) -> int:
@@ -97,13 +106,22 @@ def _stream(x):
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
+def _queue(entry: str, x) -> list:
+    """The extra argument of a work-queue kernel's C entry (B6a-B6d): one
+    int32 of x's device for the queue's counter, which the entry resets in
+    stream order before its launch. Other entries take none."""
+    if not entry.endswith("_persistent"):
+        return []
+    return [torch.empty((1,), dtype=torch.int32, device=x.device)]
+
+
 def _raise_on(lib, err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {lib.crt_error_string(err).decode()}")
 
 
 def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_max):
-    """A flat closest-hit kernel (B1 or B5a) through its C entry point."""
+    """A flat closest-hit kernel (B1, B5a or B6a) through its C entry point."""
     L, depth = _check(pbvh, orig, dir, t_min, t_max, active)
     if orig.device.type == "cpu":
         return plain.traverse_closest(pbvh, orig, dir, t_min, active, t_max)
@@ -115,11 +133,12 @@ def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_
     v = torch.empty_like(t)
     if R == 0:
         return t, prim, u, v
+    queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves, L, depth,
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-        active.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), R,
-        _stream(orig),
+        active.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+        *[q.data_ptr() for q in queue], R, _stream(orig),
     )
     _raise_on(lib, err, entry)
     LAUNCHES[key] += 1
@@ -127,7 +146,7 @@ def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_
 
 
 def _any(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
-    """A flat any-hit kernel (B2 or B5b) through its C entry point."""
+    """A flat any-hit kernel (B2, B5b or B6b) through its C entry point."""
     L, depth = _check(pbvh, orig, dir, t_min, t_max, mask)
     if orig.device.type == "cpu":
         return plain.traverse_any(pbvh, orig, dir, t_min, t_max, mask)
@@ -136,10 +155,11 @@ def _any(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     occ = torch.empty((R,), dtype=torch.bool, device=orig.device)
     if R == 0:
         return occ
+    queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves, L, depth,
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-        mask.data_ptr(), occ.data_ptr(), R, _stream(orig),
+        mask.data_ptr(), occ.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
     )
     _raise_on(lib, err, entry)
     LAUNCHES[key] += 1
@@ -176,7 +196,7 @@ def traverse_any_stream(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
 
 
 def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
-    """A two-level closest-hit kernel (B3 or B5c) through its C entry point."""
+    """A two-level closest-hit kernel (B3, B5c or B6c) through its C entry point."""
     L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, active)
     if orig.device.type == "cpu":
         return plain.traverse_closest_unified(ubvh, orig, dir, t_min, active, t_max)
@@ -189,11 +209,12 @@ def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, a
     v = torch.empty_like(t)
     if R == 0:
         return t, prim, inst, u, v
+    queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, L,
         depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         active.data_ptr(), t.data_ptr(), prim.data_ptr(), inst.data_ptr(), u.data_ptr(),
-        v.data_ptr(), R, _stream(orig),
+        v.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
     )
     _raise_on(lib, err, entry)
     LAUNCHES[key] += 1
@@ -201,7 +222,7 @@ def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, a
 
 
 def _any_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
-    """A two-level any-hit kernel (B4 or B5d) through its C entry point."""
+    """A two-level any-hit kernel (B4, B5d or B6d) through its C entry point."""
     L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, mask)
     if orig.device.type == "cpu":
         return plain.traverse_any_unified(ubvh, orig, dir, t_min, t_max, mask)
@@ -210,10 +231,11 @@ def _any_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, t_max
     occ = torch.empty((R,), dtype=torch.bool, device=orig.device)
     if R == 0:
         return occ
+    queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, L,
         depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-        mask.data_ptr(), occ.data_ptr(), R, _stream(orig),
+        mask.data_ptr(), occ.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
     )
     _raise_on(lib, err, entry)
     LAUNCHES[key] += 1
@@ -248,4 +270,44 @@ def traverse_any_unified_stream(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask)
     per packet. Returns (R,) bool occluded & mask; its plain version is
     plain.traverse_any_unified, with which it agrees lane for lane."""
     return _any_unified("crt_traverse_any_unified_stream", "any_unified_stream",
+                        ubvh, orig, dir, t_min, t_max, mask)
+
+
+def traverse_closest_persistent(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
+    """B6a: flat closest hit by persistent threads fed from a work queue.
+    Returns (t, prim, u, v), as plain.traverse_closest, with which it
+    agrees lane for lane (each lane walks one ray in B1's order). Replaces
+    chameleonrt_tpu/ops/traverse_packet.py traverse_closest_persistent
+    (pl.pallas_call of _closest_call_persistent, traverse_packet.py:2029),
+    with stream False or True: on the card both are this kernel."""
+    return _closest("crt_traverse_closest_persistent", "closest_persistent",
+                    pbvh, orig, dir, t_min, active, t_max)
+
+
+def traverse_any_persistent(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
+    """B6b: flat any hit from the work queue. Returns (R,) bool occluded &
+    mask, as plain.traverse_any. Replaces traverse_packet.py
+    traverse_any_persistent (pl.pallas_call of _any_call_persistent,
+    traverse_packet.py:2110), either `stream` value."""
+    return _any("crt_traverse_any_persistent", "any_persistent",
+                pbvh, orig, dir, t_min, t_max, mask)
+
+
+def traverse_closest_unified_persistent(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
+    """B6c: two-level closest hit from the work queue. Returns (t, prim,
+    inst, u, v), as plain.traverse_closest_unified. Replaces
+    traverse_packet.py traverse_closest_unified_persistent (pl.pallas_call
+    of _closest_unified_call_persistent, traverse_packet.py:1785), either
+    `stream` value."""
+    return _closest_unified("crt_traverse_closest_unified_persistent", "closest_unified_persistent",
+                            ubvh, orig, dir, t_min, active, t_max)
+
+
+def traverse_any_unified_persistent(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
+    """B6d: two-level any hit from the work queue. Returns (R,) bool
+    occluded & mask, as plain.traverse_any_unified. Replaces
+    traverse_packet.py traverse_any_unified_persistent (pl.pallas_call of
+    _any_unified_call_persistent, traverse_packet.py:1849), either
+    `stream` value."""
+    return _any_unified("crt_traverse_any_unified_persistent", "any_unified_persistent",
                         ubvh, orig, dir, t_min, t_max, mask)

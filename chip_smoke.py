@@ -31,20 +31,34 @@ nor the JAX package (it asserts so at its end). Phases:
      must route to them, any hit at both t_max factors on both wavefronts,
      with B3/B4 timed on the same rays; and B5d on the 10 masked shadow-ray
      wavefronts of one 1-spp 1280x720 frame of it;
+   - B6a-B6d (the work-queue kernels that trace every scene with the
+     slot-lane tier off, whose plain versions are B1-B4's) on every
+     wavefront above: B6a/B6b on the flat and city wavefronts, B6c/B6d on
+     the two-level ones, each against the plain result already computed
+     for the tier's kernel on the same rays and timed beside it, with its
+     outputs (and its queue's counter) allocated as sentinels that must
+     not survive, and again on the first 777 rays alone (fewer than one
+     SM holds, not a multiple of 32); and B6b / B6d on the shadow-ray
+     wavefronts of one hall / San Miguel frame;
    each kernel's least time on its main-path primary wavefront (bound_ms)
    comes from the distinct rows and the operations that wavefront's rays
-   need, counted by the plain walk (ops/traverse.py WalkCount);
+   need, counted by the plain walk (ops/traverse.py WalkCount); B6a-B6d
+   compute the same functions on the same rays as B1-B4 and share their
+   bounds;
 4. images through the kernels against images through the plain traversal
-   (textured hall, proc://instances?nx=6&ny=6&subdiv=3 and, with
-   stream=True, proc://city?n=60 and proc://instances?nx=6&ny=6&subdiv=3;
+   (textured hall, proc://instances?nx=6&ny=6&subdiv=3, with stream=True
+   proc://city?n=60 and proc://instances?nx=6&ny=6&subdiv=3, and with
+   slotlane=False the textured hall and proc://instances?nx=6&ny=6&subdiv=3;
    128x72, 2 frames each): 8-bit mean abs difference < 1;
 5. the main paths, each with the kernels' launch counts set to 0 just
    before it and read just after: get_backend("cuda") rendering
    proc://hall?subdiv=4&textured=1 at 1280x720, 1 spp (B1/B2), the San
    Miguel proxy (gen://san_miguel: 155 instances, 9.67M instanced
    triangles, generated as bench.py does) at 1280x720, 4 spp (B3/B4), the
-   city proc://city?n=610 at 640x360, 1 spp (B5a/B5b), and the large San
-   Miguel proxy at 1280x720, 4 spp (B5c/B5d); each path's last frame runs
+   city proc://city?n=610 at 640x360, 1 spp (B5a/B5b), the large San
+   Miguel proxy at 1280x720, 4 spp (B5c/B5d), and with
+   get_backend("cuda", slotlane=False) the hall (B6a/B6b) and the San
+   Miguel proxy (B6c/B6d) at the same sizes; each path's last frame runs
    under torch.profiler, which gives where its time goes: device busy
    time, the idle share of the frame, and the device time of the traversal
    kernels and of the largest other rows.
@@ -61,6 +75,7 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -127,6 +142,15 @@ RAY_OPS = 3
 # bytes per ray: in orig, dir, t_min, t_max, the mask; out t, prim, u, v
 # (closest hit, plus inst on a two-level table) or the occluded flag
 RAY_IN_BYTES = 12 + 12 + 4 + 4 + 1
+# the work-queue kernels' small wavefront: fewer rays than one SM holds
+# (at 7 resident blocks of 128, B6c's occupancy, 896 threads) and not a
+# multiple of 32, so the queue's empty and ragged ends run
+SMALL_R = 777
+# what _sentinel_outputs fills fresh outputs with: NaN (floats), this
+# (integers: no prim or instance reaches it, and a queue counter left there
+# hands out no ray) and this byte (bool flags)
+INT_SENTINEL = 1 << 30
+BOOL_SENTINEL = 0xA5
 
 
 def log(msg: str) -> None:
@@ -300,9 +324,18 @@ _PATHS = {
                ("B5b", "traverse_any_stream", "traverse_any")),
     "unified_stream": (("B5c", "traverse_closest_unified_stream", "traverse_closest_unified"),
                        ("B5d", "traverse_any_unified_stream", "traverse_any_unified")),
+    "persistent": (("B6a", "traverse_closest_persistent", "traverse_closest"),
+                   ("B6b", "traverse_any_persistent", "traverse_any")),
+    "unified_persistent": (("B6c", "traverse_closest_unified_persistent", "traverse_closest_unified"),
+                           ("B6d", "traverse_any_unified_persistent", "traverse_any_unified")),
 }
 SAME_RAYS = {"stream": "flat", "unified_stream": "unified"}
-TWO_LEVEL = ("unified", "unified_stream")
+TWO_LEVEL = ("unified", "unified_stream", "unified_persistent")
+# the slot-lane tiers, whose wavefronts phase 3 builds, and the work-queue
+# path that traces the same scenes with the slot-lane tier off
+TIERS = ("flat", "unified", "stream", "unified_stream")
+QUEUE = {"flat": "persistent", "stream": "persistent",
+         "unified": "unified_persistent", "unified_stream": "unified_persistent"}
 
 
 def _kernel_pair(path: str, closest: bool):
@@ -312,6 +345,92 @@ def _kernel_pair(path: str, closest: bool):
 
     label, kernel, plain = _PATHS[path][0 if closest else 1]
     return label, getattr(traverse_cuda, kernel), getattr(traverse, plain)
+
+
+def _closest_agreement(k, p, unified):
+    """A closest-hit kernel's result k against the plain result p on the
+    same R rays: prim (and instance) mismatches, the largest |dt| and
+    |du|, |dv| over common hits, and whether they pass the gates."""
+    R = k[0].shape[0]
+    tk, pk, uk, vk = k[0], k[1], k[-2], k[-1]
+    tp, pp, up, vp = p[0], p[1], p[-2], p[-1]
+    mism_lanes = pk != pp
+    if unified:
+        mism_lanes |= k[2] != p[2]
+    common = (pk >= 0) & (pp >= 0)
+    mism = int(mism_lanes.sum())
+    dt = float((tk - tp)[common].abs().max()) if bool(common.any()) else 0.0
+    duv = float((uk - up).abs().maximum((vk - vp).abs())[common].max()) if bool(common.any()) else 0.0
+    return {"prim_mismatch": mism, "max_dt_common": dt, "max_duv_common": duv,
+            "ok": mism <= max(2, R // 50000) and dt <= DT_TOL and duv <= UV_TOL}
+
+
+def _any_agreement(ok_k, ok_p):
+    """An any-hit kernel's flags against the plain flags on the same rays."""
+    mism = int((ok_k != ok_p).sum())
+    return {"occ_mismatch": mism, "max_abs_err": float((ok_k.float() - ok_p.float()).abs().max()),
+            "ok": mism <= max(2, ok_k.shape[0] // 50000)}
+
+
+@contextlib.contextmanager
+def _sentinel_outputs(torch):
+    """Within it torch.empty and torch.empty_like fill what they allocate:
+    NaN in a float tensor, INT_SENTINEL in an integer one, the byte
+    BOOL_SENTINEL in a bool one. A kernel's wrapper allocates its outputs,
+    and a work-queue kernel's counter, with them, so a lane that the kernel
+    never writes keeps its sentinel, and a counter that is not reset before
+    the launch hands out no ray."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def fill(x):
+        if x.dtype == torch.bool:
+            x.view(torch.uint8).fill_(BOOL_SENTINEL)
+        elif x.dtype.is_floating_point:
+            x.fill_(float("nan"))
+        else:
+            x.fill_(INT_SENTINEL)
+        return x
+
+    torch.empty = lambda *a, **k: fill(empty(*a, **k))
+    torch.empty_like = lambda *a, **k: fill(empty_like(*a, **k))
+    try:
+        yield
+    finally:
+        torch.empty, torch.empty_like = empty, empty_like
+
+
+def _check_queue(torch, path, closest, args, ref):
+    """The work-queue kernel that traces path's scenes with the slot-lane
+    tier off (QUEUE: B6a-B6d) on the rays of one of phase 3's checks
+    (args, as the tier's kernel took them), against ref, the plain result
+    already computed on those rays: its outputs start as sentinels
+    (_sentinel_outputs), of which none may survive, and it must pass the
+    tier kernel's gates; the same on the first SMALL_R rays alone (each
+    lane of the plain walk is independent, so ref's first lanes are their
+    plain result); then its time, median of KERNEL_REPS."""
+    unified = path in TWO_LEVEL
+    name, kernel, _ = _kernel_pair(QUEUE[path], closest)
+
+    def check(call_args, want):
+        with _sentinel_outputs(torch):
+            got = kernel(*call_args)
+        torch.cuda.synchronize()
+        if closest:
+            left = (any(bool(torch.isnan(x).any()) for x in (got[0], got[-2], got[-1]))
+                    or any(bool((x == INT_SENTINEL).any()) for x in got[1:-2]))
+            agree = _closest_agreement(got, want, unified)
+        else:
+            left = bool((got.view(torch.uint8) > 1).any())
+            agree = {"ok": False} if left else _any_agreement(got, want)
+        return {**agree, "sentinels_left": left, "ok": agree["ok"] and not left}
+
+    res = {"kernel": name, **check(args, ref)}
+    small_args = (args[0],) + tuple(a[:SMALL_R] for a in args[1:])
+    res["small"] = check(small_args, tuple(x[:SMALL_R] for x in ref) if closest else ref[:SMALL_R])
+    res["small"]["rays"] = SMALL_R
+    res["ok"] = res["ok"] and res["small"]["ok"]
+    res["ms"] = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
+    return res
 
 
 def _check_closest(torch, table, path, orig, dirs, t_min, active, label, plain_reps, bound=False):
@@ -326,39 +445,30 @@ def _check_closest(torch, table, path, orig, dirs, t_min, active, label, plain_r
     name, kernel, plain = _kernel_pair(path, closest=True)
     R = orig.shape[0]
     t_max = torch.full((R,), T_MAX, dtype=torch.float32, device="cuda")
-    k = kernel(table, orig, dirs, t_min, active, t_max)
+    args = (table, orig, dirs, t_min, active, t_max)
+    k = kernel(*args)
     torch.cuda.synchronize()
     count = WalkCount(table) if bound else None
-    p = plain(table, orig, dirs, t_min, active, t_max, count=count)
-    tk, pk, uk, vk = k[0], k[1], k[-2], k[-1]
-    tp, pp, up, vp = p[0], p[1], p[-2], p[-1]
-    mism_lanes = pk != pp
-    if unified:
-        mism_lanes |= k[2] != p[2]
-    common = (pk >= 0) & (pp >= 0)
-    mism = int(mism_lanes.sum())
-    dt = float((tk - tp)[common].abs().max()) if bool(common.any()) else 0.0
-    duv = float(torch.maximum((uk - up).abs(), (vk - vp).abs())[common].max()) if bool(common.any()) else 0.0
-    ok = mism <= max(2, R // 50000) and dt <= DT_TOL and duv <= UV_TOL
+    p = plain(*args, count=count)
+    pk = k[1]
     res = {"rays": R, "active": int(active.sum()), "hits": int((pk >= 0).sum()),
-           "overflows": int((pk == -2).sum()), "prim_mismatch": mism, "max_dt_common": dt,
-           "max_duv_common": duv, "ok": ok}
+           "overflows": int((pk == -2).sum()), **_closest_agreement(k, p, unified)}
     if unified:
         res["instances_hit"] = int(torch.unique(k[2][pk >= 0]).numel())
     if bound:
         res.update(_bound(table, count, active, 20 if unified else 16))
-    res["ms"] = _median_ms(torch, lambda: kernel(table, orig, dirs, t_min, active, t_max), KERNEL_REPS)
+    res["ms"] = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
     if path in SAME_RAYS:
         other = _kernel_pair(SAME_RAYS[path], closest=True)[1]
-        res[f"{SAME_RAYS[path]}_ms"] = _median_ms(
-            torch, lambda: other(table, orig, dirs, t_min, active, t_max), KERNEL_REPS)
-    res["plain_ms"] = _median_ms(torch, lambda: plain(table, orig, dirs, t_min, active, t_max),
-                                 plain_reps, warmup=False)
+        res[f"{SAME_RAYS[path]}_ms"] = _median_ms(torch, lambda: other(*args), KERNEL_REPS)
+    res["queue"] = _check_queue(torch, path, True, args, p)
+    res["plain_ms"] = _median_ms(torch, lambda: plain(*args), plain_reps, warmup=False)
     res["plain_reps"] = plain_reps
     log(f"[kernels] {name} closest {label}: {json.dumps(res)}")
-    if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version on {label}: {res}")
-    return res, tp, pp, (p[2] if unified else None)
+    if not res["ok"] or not res["queue"]["ok"]:
+        raise AssertionError(f"{name} or {res['queue']['kernel']} disagrees with its plain version "
+                             f"on {label}: {res}")
+    return res, p[0], p[1], (p[2] if unified else None)
 
 
 def _check_any(torch, table, path, orig, dirs, t_closest, active, label, factor, plain_reps,
@@ -376,33 +486,33 @@ def _check_any(torch, table, path, orig, dirs, t_closest, active, label, factor,
     R = orig.shape[0]
     t_max = torch.where(t_closest < 1e19, t_closest * factor, torch.full_like(t_closest, 100.0))
     t_min = torch.full((R,), EPSILON, dtype=torch.float32, device="cuda")
-    ok_k = kernel(table, orig, dirs, t_min, t_max, active)
+    args = (table, orig, dirs, t_min, t_max, active)
+    ok_k = kernel(*args)
     torch.cuda.synchronize()
     count = WalkCount(table) if bound else None
-    ok_p = plain(table, orig, dirs, t_min, t_max, active, count=count)
-    mism = int((ok_k != ok_p).sum())
-    ok = mism <= max(2, R // 50000)
-    res = {"rays": R, "t_max_factor": factor, "occluded": int(ok_k.sum()), "occ_mismatch": mism,
-           "max_abs_err": float((ok_k.float() - ok_p.float()).abs().max()), "ok": ok}
+    ok_p = plain(*args, count=count)
+    res = {"rays": R, "t_max_factor": factor, "occluded": int(ok_k.sum()),
+           **_any_agreement(ok_k, ok_p)}
     if bound:
         res.update(_bound(table, count, active, 1))
-    res["ms"] = _median_ms(torch, lambda: kernel(table, orig, dirs, t_min, t_max, active), KERNEL_REPS)
+    res["ms"] = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
     if path in SAME_RAYS:
         other = _kernel_pair(SAME_RAYS[path], closest=False)[1]
-        res[f"{SAME_RAYS[path]}_ms"] = _median_ms(
-            torch, lambda: other(table, orig, dirs, t_min, t_max, active), KERNEL_REPS)
-    res["plain_ms"] = _median_ms(torch, lambda: plain(table, orig, dirs, t_min, t_max, active),
-                                 plain_reps, warmup=False)
+        res[f"{SAME_RAYS[path]}_ms"] = _median_ms(torch, lambda: other(*args), KERNEL_REPS)
+    res["queue"] = _check_queue(torch, path, False, args, ok_p)
+    res["plain_ms"] = _median_ms(torch, lambda: plain(*args), plain_reps, warmup=False)
     res["plain_reps"] = plain_reps
     log(f"[kernels] {name} any {label}: {json.dumps(res)}")
-    if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version on {label}: {res}")
+    if not res["ok"] or not res["queue"]["ok"]:
+        raise AssertionError(f"{name} or {res['queue']['kernel']} disagrees with its plain version "
+                             f"on {label}: {res}")
     return res
 
 
 # launch-count key of each path's any-hit kernel
 _ANY_COUNT = {"flat": "any", "unified": "any_unified", "stream": "any_stream",
-              "unified_stream": "any_unified_stream"}
+              "unified_stream": "any_unified_stream", "persistent": "any_persistent",
+              "unified_persistent": "any_unified_persistent"}
 
 
 def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
@@ -412,14 +522,16 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
     captured through the backend (on the scene's tables, already built)
     and traced again by the plain version. Requires zero mismatches, some
     occluded rays, and 10 launches of the path's any-hit kernel, so on a
-    streamed path the gate must have picked it."""
+    streamed path the gate must have picked it. A work-queue path
+    (QUEUE's values) renders with the slot-lane tier off, the others with
+    it on."""
     from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
     from chameleonrt_tpu_torch.engine.trace_bvh import make_trace_fns
     from chameleonrt_tpu_torch.ops import traverse_cuda
 
     name = _kernel_pair(path, closest=False)[0]
     count = _ANY_COUNT[path]
-    b = CudaBackend()
+    b = CudaBackend(slotlane=path not in QUEUE.values())
     b.prepare_scene = lambda _scene: tables
     b.initialize(W, H)
     b.set_scene(scene)
@@ -457,12 +569,17 @@ def phase_kernels(torch, path: str):
     """The closest- and any-hit kernels of one path against their plain
     versions on two scenes, with kernel and plain times and, on the main
     path's primary wavefront, the kernels' least times; then the any-hit
-    kernel on one main-path frame's shadow rays. Returns {"closest":
-    (primary, bounce), "any": (primary, bounce), "any_all": [...],
-    "shadow": ...} at the main path's shape. A streamed path checks any hit
-    at both t_max factors on both wavefronts, times the unstreamed kernels
-    beside its own, and asserts that the gate routes its main-path scene to
-    the streamed tier; the unified path asserts that it does not."""
+    kernel on one main-path frame's shadow rays. Every check also holds
+    the work-queue kernel of the path's scenes (QUEUE) on the same rays
+    (_check_queue); on the flat and unified paths the work-queue any-hit
+    kernel also traces the shadow rays of one main-path frame. Returns
+    {"closest": (primary, bounce), "any": (primary, bounce), "any_all":
+    [...], "shadow": ..., "queue_all": {"closest": [...], "any": [...]},
+    ["queue_shadow": ...]}: the first at the main path's shape, queue_all
+    over every scene. A streamed path checks any hit at both t_max factors
+    on both wavefronts, times the unstreamed kernels beside its own, and
+    asserts that the gate routes its main-path scene to the streamed tier;
+    the unified path asserts that it does not."""
     from chameleonrt_tpu_torch.engine.trace_bvh import streamed_tier, table_bytes
     from chameleonrt_tpu_torch.ops.math import EPSILON
 
@@ -481,6 +598,7 @@ def phase_kernels(torch, path: str):
     stream = path in SAME_RAYS
     factors = ((1.001, 0.999), (1.001, 0.999)) if stream else ((1.001,), (0.999,))
     out = {}
+    queue_all = {"closest": [], "any": []}
     for label, uri, W, H, reps in cases:
         main_case = uri == cases[-1][1]
         scene, flat, meta = _scene_tables(torch, uri)
@@ -515,16 +633,34 @@ def phase_kernels(torch, path: str):
         a2 = [_check_any(torch, table, path, bo, bd, bt, bact, f"{label} bounce", f, reps)
               for f in factors[1]]
         out = {"closest": (r1, r3), "any": (a1[0], a2[-1]), "any_all": a1 + a2}
+        queue_all["closest"] += [r1["queue"], r3["queue"]]
+        queue_all["any"] += [a["queue"] for a in a1 + a2]
+    out["queue_all"] = queue_all
     # the last case is the main path's scene: its tables serve the shadow check
     W, H = (CITY_W, CITY_H) if path == "stream" else (MAIN_W, MAIN_H)
     out["shadow"] = _check_any_shadow(torch, scene, (flat, meta), path, W, H)
+    if path in ("flat", "unified"):
+        out["queue_shadow"] = _check_any_shadow(torch, scene, (flat, meta), QUEUE[path], W, H)
     return out
 
 
-def phase_image(torch, uri, stream=None, expect=None):
+def _queue_grids(torch):
+    """The work-queue kernels' grids as their first launches sized them:
+    resident blocks of 128 threads on the card, by label."""
+    from chameleonrt_tpu_torch import _build
+
+    lib = _build.kernels()
+    grids = {label: lib.crt_persistent_blocks(i) for i, label in enumerate(("B6a", "B6b", "B6c", "B6d"))}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[kernels] work-queue grids (blocks of 128 threads, {sms} SMs): {json.dumps(grids)}")
+    return grids
+
+
+def phase_image(torch, uri, stream=None, expect=None, slotlane=True):
     """Two 128x72 frames through the kernels against two through the plain
-    traversal. stream=True forces the streamed tier; expect, if given, is
-    the set of launch counts that must have moved (and no other)."""
+    traversal. stream=True forces the streamed tier, slotlane=False the
+    work-queue kernels; expect, if given, is the set of launch counts that
+    must have moved (and no other)."""
     import numpy as np
 
     from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
@@ -535,7 +671,7 @@ def phase_image(torch, uri, stream=None, expect=None):
     imgs = {}
     before = dict(traverse_cuda.LAUNCHES)
     for use_kernels in (True, False):
-        b = CudaBackend(use_kernels=use_kernels, stream=stream)
+        b = CudaBackend(use_kernels=use_kernels, stream=stream, slotlane=slotlane)
         b.initialize(128, 72)
         b.set_scene(scene)
         for i in range(2):
@@ -544,20 +680,21 @@ def phase_image(torch, uri, stream=None, expect=None):
     diff = np.abs(imgs[True] - imgs[False])
     mad = float(diff.mean())
     launched = {k: n - before[k] for k, n in traverse_cuda.LAUNCHES.items() if n != before[k]}
-    log(f"[image] {uri} 128x72 x2 frames{', stream=True' if stream else ''}, kernels vs plain "
+    mode = (", stream=True" if stream else "") + ("" if slotlane else ", slotlane=False")
+    log(f"[image] {uri} 128x72 x2 frames{mode}, kernels vs plain "
         f"traversal: 8-bit mean abs diff {mad:.6f} (gate < 1.0), max {float(diff.max())}, "
         f"image mean {float(imgs[True].mean()):.3f}, launches {launched}")
     if not mad < 1.0 or not imgs[True].max() > 0:
         raise AssertionError(f"kernel image of {uri} differs from the plain image or is black: MAD {mad}")
     if expect is not None and set(launched) != set(expect):
-        raise AssertionError(f"{uri}{' with stream=True' if stream else ''} launched {launched}, "
-                             f"expected {sorted(expect)} only")
+        raise AssertionError(f"{uri}{mode} launched {launched}, expected {sorted(expect)} only")
 
 
 # a traversal kernel's name, mangled (...29closest_unified_stream_kernelE...)
 # or not ((anonymous namespace)::closest_unified_stream_kernel(float const*,
 # ...); the group is its launch-count key
-_TRAVERSAL_KERNEL = re.compile(r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream)?)_kernel(?![a-z_])")
+_TRAVERSAL_KERNEL = re.compile(
+    r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent)?)_kernel(?![a-z_])")
 
 
 def _union_us(intervals):
@@ -614,10 +751,10 @@ def _profile_frames(torch, backend, view, median_ms, expect):
     return res
 
 
-def phase_main(torch, uri, W, H, spp, timed_frames, expect):
-    """get_backend("cuda") on uri at W x H and spp samples per pixel
-    (set after set_scene, as bench.py does): one warmup, timed_frames
-    frames timed on the host clock and PROFILE_FRAMES profiled frames
+def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True):
+    """get_backend("cuda", slotlane=slotlane) on uri at W x H and spp
+    samples per pixel (set after set_scene, as bench.py does): one warmup,
+    timed_frames frames timed on the host clock and PROFILE_FRAMES profiled frames
     (_profile_frames), with every launch count set to 0 just before and
     read just after. expect maps each count to its launches per frame.
     Returns {count: (launches in the run, launches per frame)} of the
@@ -632,7 +769,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect):
     allocated_before = torch.cuda.memory_allocated()
     for k in traverse_cuda.LAUNCHES:
         traverse_cuda.LAUNCHES[k] = 0
-    backend = get_backend("cuda")
+    backend = get_backend("cuda", slotlane=slotlane)
     backend.initialize(W, H)
     t0 = time.perf_counter()
     backend.set_scene(scene)
@@ -655,7 +792,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect):
     n_frames += PROFILE_FRAMES
     launches = dict(traverse_cuda.LAUNCHES)
     res = {
-        "scene": uri, "width": W, "height": H, "spp": spp,
+        "scene": uri, "width": W, "height": H, "spp": spp, "slotlane": slotlane,
         "unique_tris": backend.meta.num_tris, "instances": backend.meta.num_instances,
         "instanced_tris": scene.total_tris(),
         "set_scene_s": set_scene_s, "warmup_ms": stats[0][0] * 1e3,
@@ -681,7 +818,8 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect):
 
 def _main_paths():
     """Each main path: (scene, width, height, spp, timed frames, launches
-    per frame by launch-count key)."""
+    per frame by launch-count key); the work-queue paths (QUEUE's values)
+    run with the slot-lane tier off."""
     return {
         "flat": (HALL_SCENE, MAIN_W, MAIN_H, 1, HALL_TIMED_FRAMES, {"closest": 5, "any": 10}),
         "unified": (SAN_MIGUEL, MAIN_W, MAIN_H, SM_SPP, SM_TIMED_FRAMES,
@@ -691,6 +829,11 @@ def _main_paths():
         "unified_stream": (SAN_MIGUEL_LARGE, MAIN_W, MAIN_H, SM_SPP, LARGE_TIMED_FRAMES,
                            {"closest_unified_stream": 5 * SM_SPP,
                             "any_unified_stream": 10 * SM_SPP}),
+        "persistent": (HALL_SCENE, MAIN_W, MAIN_H, 1, HALL_TIMED_FRAMES,
+                       {"closest_persistent": 5, "any_persistent": 10}),
+        "unified_persistent": (SAN_MIGUEL, MAIN_W, MAIN_H, SM_SPP, SM_TIMED_FRAMES,
+                               {"closest_unified_persistent": 5 * SM_SPP,
+                                "any_unified_persistent": 10 * SM_SPP}),
     }
 
 
@@ -716,16 +859,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_toolchain(torch)
     phase_build()
-    kres = {path: phase_kernels(torch, path) for path in _PATHS}
+    kres = {path: phase_kernels(torch, path) for path in TIERS}
+    grids = _queue_grids(torch)
     phase_image(torch, HALL_IMAGE)
     phase_image(torch, INST_IMAGE)
     phase_image(torch, CITY_PARITY, stream=True, expect={"closest_stream", "any_stream"})
     phase_image(torch, INST_IMAGE, stream=True,
                 expect={"closest_unified_stream", "any_unified_stream"})
+    phase_image(torch, HALL_IMAGE, slotlane=False, expect={"closest_persistent", "any_persistent"})
+    phase_image(torch, INST_IMAGE, slotlane=False,
+                expect={"closest_unified_persistent", "any_unified_persistent"})
     _TABLES.clear()  # the main paths build their own tables; peak memory is theirs
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {path: phase_main(torch, *args) for path, args in _main_paths().items()}
+    launches = {path: phase_main(torch, *args, slotlane=path not in QUEUE.values())
+                for path, args in _main_paths().items()}
     foreign = _foreign_modules()
     if foreign:
         raise AssertionError(f"the port imported JAX or the JAX package: {foreign}")
@@ -768,6 +916,51 @@ def main() -> int:
             other = SAME_RAYS[path]
             entry[f"{other}_kernel_ms"] = primary[f"{other}_ms"]
             entry[f"{other}_kernel_bounce_ms"] = bounce[f"{other}_ms"]
+        kernels.append(entry)
+    # the work-queue kernels ran on the wavefronts of two tiers each: the
+    # first tier's main-path wavefronts give the entry's times and bound
+    # (the same function on the same rays as that tier's kernel), the
+    # second's go under "<tier>_wavefronts"; each carries the tier kernels'
+    # times on the same rays
+    packet = "chameleonrt_tpu/ops/traverse_packet.py"
+    for name, qpath, key, tiers, replaces in (
+        ("B6a flat closest hit, work queue", "persistent", "closest", ("flat", "stream"),
+         f"{packet}:2029 (_closest_call_persistent, stream False and True)"),
+        ("B6b flat any hit, work queue", "persistent", "any", ("flat", "stream"),
+         f"{packet}:2110 (_any_call_persistent, stream False and True)"),
+        ("B6c two-level closest hit, work queue", "unified_persistent", "closest",
+         ("unified", "unified_stream"),
+         f"{packet}:1785 (_closest_unified_call_persistent, stream False and True)"),
+        ("B6d two-level any hit, work queue", "unified_persistent", "any",
+         ("unified", "unified_stream"),
+         f"{packet}:1849 (_any_unified_call_persistent, stream False and True)"),
+    ):
+        err_key = "max_dt_common" if key == "closest" else "max_abs_err"
+        errs = [r[err_key] for tier in tiers for q in kres[tier]["queue_all"][key] for r in (q, q["small"])]
+        if key == "any":
+            errs.append(float(kres[tiers[0]]["queue_shadow"]["occ_mismatch"] > 0))
+        count = f"{key}_{qpath}"
+        entry = {
+            "name": name, "route": "cuda", "source": "chameleonrt_tpu_torch/csrc/traverse_persistent.cu",
+            "replaces": replaces, "launches": launches[qpath][count][0],
+            "launches_per_frame": launches[qpath][count][1], "max_abs_err": max(errs),
+            "resident_blocks": grids[name.split()[0]],
+        }
+        for tier in tiers:
+            primary, bounce = kres[tier][key]
+            times = {"ms": primary["queue"]["ms"], "plain_ms": primary["plain_ms"],
+                     "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"],
+                     "library_ms": None, "bounce_ms": bounce["queue"]["ms"],
+                     "bounce_plain_ms": bounce["plain_ms"],
+                     f"{tier}_kernel_ms": primary["ms"], f"{tier}_kernel_bounce_ms": bounce["ms"]}
+            if tier in SAME_RAYS:
+                other = SAME_RAYS[tier]
+                times[f"{other}_kernel_ms"] = primary[f"{other}_ms"]
+                times[f"{other}_kernel_bounce_ms"] = bounce[f"{other}_ms"]
+            if tier == tiers[0]:
+                entry.update(times)
+            else:
+                entry[f"{tier}_wavefronts"] = times
         kernels.append(entry)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
