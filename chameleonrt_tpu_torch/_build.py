@@ -134,35 +134,33 @@ def kernel_library_path() -> str:
 
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
-    """The traversal kernels' library, compiled and loaded on first call."""
+    """The traversal kernels' library, compiled and loaded on first call.
+    Every entry of B1-B6d takes the node rows' arity (2, 4 or 8) before
+    the leaf size; B7a/B7b take binary rows only."""
     lib = ctypes.CDLL(kernel_library_path())
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.crt_traverse_closest.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_closest.restype = i
-    lib.crt_traverse_any.argtypes = [p, p, i, i, i, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_any.restype = i
-    lib.crt_traverse_closest_unified.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_closest_unified.restype = i
-    lib.crt_traverse_any_unified.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_any_unified.restype = i
-    lib.crt_traverse_closest_stream.argtypes = lib.crt_traverse_closest.argtypes
-    lib.crt_traverse_closest_stream.restype = i
-    lib.crt_traverse_any_stream.argtypes = lib.crt_traverse_any.argtypes
-    lib.crt_traverse_any_stream.restype = i
-    lib.crt_traverse_closest_unified_stream.argtypes = lib.crt_traverse_closest_unified.argtypes
-    lib.crt_traverse_closest_unified_stream.restype = i
-    lib.crt_traverse_any_unified_stream.argtypes = lib.crt_traverse_any_unified.argtypes
-    lib.crt_traverse_any_unified_stream.restype = i
+    flat_closest = [p, p, i, i, i, i, p, p, p, p, p, p, p, p, p, i, p]
+    flat_any = [p, p, i, i, i, i, p, p, p, p, p, p, i, p]
+    unified_closest = [p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p]
+    unified_any = [p, p, i, i, i, i, i, p, p, p, p, p, p, i, p]
+    for tier in ("", "_stream"):
+        getattr(lib, f"crt_traverse_closest{tier}").argtypes = flat_closest
+        getattr(lib, f"crt_traverse_any{tier}").argtypes = flat_any
+        getattr(lib, f"crt_traverse_closest_unified{tier}").argtypes = unified_closest
+        getattr(lib, f"crt_traverse_any_unified{tier}").argtypes = unified_any
     # the work-queue kernels take one more pointer, the queue's counter, before R
-    lib.crt_traverse_closest_persistent.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_closest_persistent.restype = i
-    lib.crt_traverse_any_persistent.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_any_persistent.restype = i
-    lib.crt_traverse_closest_unified_persistent.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_closest_unified_persistent.restype = i
-    lib.crt_traverse_any_unified_persistent.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_any_unified_persistent.restype = i
-    lib.crt_persistent_blocks.argtypes = [i]
+    lib.crt_traverse_closest_persistent.argtypes = flat_closest[:-2] + [p, i, p]
+    lib.crt_traverse_any_persistent.argtypes = flat_any[:-2] + [p, i, p]
+    lib.crt_traverse_closest_unified_persistent.argtypes = unified_closest[:-2] + [p, i, p]
+    lib.crt_traverse_any_unified_persistent.argtypes = unified_any[:-2] + [p, i, p]
+    # the grid-packet kernels: B1's and B2's arguments without the arity
+    lib.crt_traverse_closest_packet.argtypes = flat_closest[:3] + flat_closest[4:]
+    lib.crt_traverse_any_packet.argtypes = flat_any[:3] + flat_any[4:]
+    for kind in ("closest", "any"):
+        for tier in ("", "_unified", "_stream", "_unified_stream", "_persistent",
+                     "_unified_persistent", "_packet"):
+            getattr(lib, f"crt_traverse_{kind}{tier}").restype = i
+    lib.crt_persistent_blocks.argtypes = [i, i]
     lib.crt_persistent_blocks.restype = i
     lib.crt_error_string.argtypes = [i]
     lib.crt_error_string.restype = ctypes.c_char_p
@@ -176,4 +174,3 @@ def kernels() -> ctypes.CDLL:
             f"the wrappers expect {MAX_STACK} and {MAX_LEAF}"
         )
     return lib
-

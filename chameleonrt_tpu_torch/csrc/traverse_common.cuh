@@ -1,17 +1,22 @@
 // Device helpers shared by the traversal kernels (traverse_flat.cu: B1, B2;
 // traverse_unified.cu: B3, B4; traverse_stream.cu: B5a, B5b, B5c, B5d;
-// traverse_persistent.cu: B6a, B6b, B6c, B6d).
+// traverse_persistent.cu: B6a, B6b, B6c, B6d; traverse_packet.cu: B7a,
+// B7b, on binary rows only).
 //
 // Semantics shared with the plain torch version
 // (chameleonrt_tpu_torch/ops/traverse.py):
-//   - node rows (n, 32) f32: child c's box at [6c, 6c+6), child codes at
-//     [24, 28) (bitcast int32; code < 0 is leaf -(code+1)); empty slots
-//     have lo = hi = 1e30 and never pass the slab test;
+//   - node rows (n, 8A) f32 for an arity A of 2 (the binary table), 4
+//     (BVH4) or 8 (BVH8): child c's box at [6c, 6c+6), child codes at
+//     [6A, 7A) (bitcast int32; code < 0 is leaf -(code+1)); empty wide
+//     slots have lo = hi = 1e30 and never pass the slab test. Every helper
+//     that reads a row takes A as a template parameter, and each kernel is
+//     instantiated for the three arities; its C entry takes the arity and
+//     switches on it (CRT_BY_ARITY);
 //   - leaf rows (n_leaves, 10L) f32, component-major v0 e1 e2 prim;
-//   - hit children are sorted by entry distance with the Bose-Nelson
-//     network (strict >), the nearest is visited next and the others are
-//     pushed far-first; a push onto a full stack (depth - 1 entries) is an
-//     overflow;
+//   - hit children are sorted by entry distance with the plain version's
+//     sorting network for A (_SORT_NETS, strict >), the nearest is visited
+//     next and the others are pushed far-first; a push onto a full stack
+//     (depth - 1 entries) is an overflow;
 //   - Moller-Trumbore with det eps 1e-9 and barycentric band 4e-6.
 // Every file is built with -fmad=false so every product and sum rounds as
 // in the plain version.
@@ -24,8 +29,6 @@
 
 namespace crt {
 
-constexpr int kArity = 4;
-constexpr int kRow = 8 * kArity;  // floats per node row
 constexpr int kMaxStack = 64;     // _build.MAX_STACK
 constexpr int kMaxLeaf = 16;      // _build.MAX_LEAF
 constexpr int kThreads = 128;
@@ -57,8 +60,17 @@ __device__ __forceinline__ void cswap(K* k, C* c, int i, int j) {
   }
 }
 
+// Floats per node row of arity A.
+template <int A>
+__host__ __device__ constexpr int row_floats() {
+  static_assert(A == 2 || A == 4 || A == 8, "node rows are binary, BVH4 or BVH8");
+  return 8 * A;
+}
+
 // One node row into registers, 16 bytes a load.
+template <int A>
 __device__ __forceinline__ void load_row(const float* __restrict__ nodes, int cur, float* row) {
+  constexpr int kRow = row_floats<A>();
   const float4* row4 = reinterpret_cast<const float4*>(nodes + (size_t)cur * kRow);
 #pragma unroll
   for (int q = 0; q < kRow / 4; ++q) {
@@ -67,46 +79,78 @@ __device__ __forceinline__ void load_row(const float* __restrict__ nodes, int cu
   }
 }
 
-// Slab test of the four children of a row already in registers or shared
+// Slab test of child c of a row already in registers or shared memory
+// against one ray: its entry distance, kBig on a miss.
+__device__ __forceinline__ float slab_child(const float* row, int c, const Ray& r, float tmax) {
+  const float* b = row + 6 * c;
+  float tx0 = (b[0] - r.ox) * r.ix, tx1 = (b[3] - r.ox) * r.ix;
+  float ty0 = (b[1] - r.oy) * r.iy, ty1 = (b[4] - r.oy) * r.iy;
+  float tz0 = (b[2] - r.oz) * r.iz, tz1 = (b[5] - r.oz) * r.iz;
+  float entry = fmaxf(fmaxf(near_of(tx0, tx1), near_of(ty0, ty1)),
+                      fmaxf(near_of(tz0, tz1), r.tmin));
+  float exit_ = fminf(fminf(far_of(tx0, tx1), far_of(ty0, ty1)),
+                      fminf(far_of(tz0, tz1), tmax));
+  return (entry <= exit_) ? entry : kBig;
+}
+
+// Slab test of the A children of a row already in registers or shared
 // memory against one ray: keys[c] = entry distance of child c, kBig on a
 // miss; codes[c] its child code. Unsorted.
+template <int A>
 __device__ __forceinline__ void slab_children(const float* row, const Ray& r, float tmax,
                                               float* keys, int* codes) {
 #pragma unroll
-  for (int c = 0; c < kArity; ++c) {
-    const float* b = row + 6 * c;
-    float tx0 = (b[0] - r.ox) * r.ix, tx1 = (b[3] - r.ox) * r.ix;
-    float ty0 = (b[1] - r.oy) * r.iy, ty1 = (b[4] - r.oy) * r.iy;
-    float tz0 = (b[2] - r.oz) * r.iz, tz1 = (b[5] - r.oz) * r.iz;
-    float entry = fmaxf(fmaxf(near_of(tx0, tx1), near_of(ty0, ty1)),
-                        fmaxf(near_of(tz0, tz1), r.tmin));
-    float exit_ = fminf(fminf(far_of(tx0, tx1), far_of(ty0, ty1)),
-                        fminf(far_of(tz0, tz1), tmax));
-    keys[c] = (entry <= exit_) ? entry : kBig;
-    codes[c] = __float_as_int(row[6 * kArity + c]);
+  for (int c = 0; c < A; ++c) {
+    keys[c] = slab_child(row, c, r, tmax);
+    codes[c] = __float_as_int(row[6 * A + c]);
   }
 }
 
-// The plain version's Bose-Nelson network (_SORT_NETS[4]): (keys, codes)
-// ascending by key.
-template <typename K, typename C>
+// The plain version's sorting network for arity A (ops/traverse.py
+// _SORT_NETS: one compare-exchange for 2, Bose-Nelson for 4, Batcher's
+// odd-even merge for 8), each compare-exchange swapping on strict >, so
+// ties keep the plain walk's order: (keys, codes) ascending by key.
+template <int A, typename K, typename C>
 __device__ __forceinline__ void sort_children(K* keys, C* codes) {
-  cswap(keys, codes, 0, 1);
-  cswap(keys, codes, 2, 3);
-  cswap(keys, codes, 0, 2);
-  cswap(keys, codes, 1, 3);
-  cswap(keys, codes, 1, 2);
+  if constexpr (A == 2) {
+    cswap(keys, codes, 0, 1);
+  } else if constexpr (A == 4) {
+    cswap(keys, codes, 0, 1);
+    cswap(keys, codes, 2, 3);
+    cswap(keys, codes, 0, 2);
+    cswap(keys, codes, 1, 3);
+    cswap(keys, codes, 1, 2);
+  } else {
+    static_assert(A == 8, "node rows are binary, BVH4 or BVH8");
+    cswap(keys, codes, 0, 1); cswap(keys, codes, 2, 3);
+    cswap(keys, codes, 4, 5); cswap(keys, codes, 6, 7);
+    cswap(keys, codes, 0, 2); cswap(keys, codes, 1, 3);
+    cswap(keys, codes, 4, 6); cswap(keys, codes, 5, 7);
+    cswap(keys, codes, 1, 2); cswap(keys, codes, 5, 6);
+    cswap(keys, codes, 0, 4); cswap(keys, codes, 1, 5);
+    cswap(keys, codes, 2, 6); cswap(keys, codes, 3, 7);
+    cswap(keys, codes, 2, 4); cswap(keys, codes, 3, 5);
+    cswap(keys, codes, 1, 2); cswap(keys, codes, 3, 4); cswap(keys, codes, 5, 6);
+  }
 }
 
-// One internal row: keys[c] = entry distance of hit child c (kBig on a
-// miss), codes[c] its child code, both sorted ascending by key.
+// One internal row of arity A: keys[c] = entry distance of hit child c
+// (kBig on a miss), codes[c] its child code, both sorted ascending by key.
+template <int A>
 __device__ __forceinline__ void node_step(const float* __restrict__ nodes, int cur,
                                           const Ray& r, float tmax, float* keys,
                                           int* codes) {
-  float row[kRow];
-  load_row(nodes, cur, row);
-  slab_children(row, r, tmax, keys, codes);
-  sort_children(keys, codes);
+  float row[row_floats<A>()];
+  load_row<A>(nodes, cur, row);
+  slab_children<A>(row, r, tmax, keys, codes);
+  sort_children<A>(keys, codes);
+}
+
+// Order-preserving map of a float onto unsigned bits, for a warp min of
+// entry distances (__reduce_min_sync takes integers).
+__device__ __forceinline__ unsigned ordered(float x) {
+  unsigned u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
 // One triangle slot of a leaf row: v0, e1, e2 and the prim id.
@@ -197,6 +241,19 @@ __device__ __forceinline__ Ray enter_instance(const float* m, const Ray& w) {
 __device__ __forceinline__ bool in_world(int cur, int n_tri, int tlas_lo) {
   return cur >= tlas_lo || (cur < 0 && -cur - 1 >= n_tri);
 }
+
+// The C entries' switch onto a kernel's three instantiations: runs the
+// statement given (a launch, or a return) with the constant A set to
+// arity (2, 4 or 8), then returns cudaGetLastError(); any other arity
+// returns cudaErrorInvalidValue and launches nothing.
+#define CRT_BY_ARITY(arity, ...)                                  \
+  switch (arity) {                                                \
+    case 2: { constexpr int A = 2; __VA_ARGS__; } break;          \
+    case 4: { constexpr int A = 4; __VA_ARGS__; } break;          \
+    case 8: { constexpr int A = 8; __VA_ARGS__; } break;          \
+    default: return static_cast<int>(cudaErrorInvalidValue);      \
+  }                                                               \
+  return static_cast<int>(cudaGetLastError())
 
 __device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,
                                         const float* t_min, int i) {

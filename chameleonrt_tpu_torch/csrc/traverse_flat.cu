@@ -11,7 +11,10 @@
 // chameleonrt_tpu/ops/traverse.py:traverse_closest/traverse_any and of the
 // plain torch version chameleonrt_tpu_torch/ops/traverse.py, which the
 // kernels are held against. The row layouts and the rules shared with the
-// plain version are in traverse_common.cuh. Here:
+// plain version are in traverse_common.cuh; each kernel is a template on
+// the node rows' arity A (2, 4 or 8), as the Pallas kernel takes any arity
+// of its sorting networks (traverse_slotlane.py:994), and its C entry
+// switches on the arity. Here:
 //   - B1 keeps a hit on t < best (ties inside a leaf go to the highest
 //     slot); on a stack overflow it reports prim = -2, t = 1e20;
 //   - B2 stops at the first t_min < t < t_max; an overflow is occluded;
@@ -19,7 +22,8 @@
 // Built with -fmad=false, so t agrees with the plain version bit for bit.
 //
 // What bounds it on the H100: dependent row fetches. Each step of a ray
-// waits on one 128-byte node row or one 160-byte leaf row whose address
+// waits on one node row (64, 128 or 256 bytes at A = 2, 4, 8) or one
+// 160-byte leaf row whose address
 // came from the previous fetch, so the kernel is latency bound; the hall's
 // tables (224K triangles, a few MB) stay resident in the 50 MB L2, so the
 // fetches are L2 hits, not HBM traffic. Rays diverge inside a warp, so a
@@ -35,6 +39,7 @@ namespace {
 
 using namespace crt;
 
+template <int A>
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
                int n_leaves, int L, int depth, const float* __restrict__ orig,
@@ -55,10 +60,10 @@ closest_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_r
     int cur = n_leaves == 1 ? -1 : 0;  // a one-leaf table starts at leaf 0
     while (cur != kDone) {
       if (cur >= 0) {
-        float keys[kArity];
-        int codes[kArity];
-        node_step(nodes, cur, r, best, keys, codes);
-        for (int k = kArity - 1; k >= 1; --k) {
+        float keys[A];
+        int codes[A];
+        node_step<A>(nodes, cur, r, best, keys, codes);
+        for (int k = A - 1; k >= 1; --k) {
           if (keys[k] < kBig) {
             if (sp >= depth - 1) { overflow = true; break; }
             stack[sp++] = codes[k];
@@ -91,6 +96,7 @@ closest_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_r
   v_out[i] = best_v;
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads)
 any_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
            int n_leaves, int L, int depth, const float* __restrict__ orig,
@@ -108,10 +114,10 @@ any_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
     int cur = n_leaves == 1 ? -1 : 0;
     while (cur != kDone && !occ) {
       if (cur >= 0) {
-        float keys[kArity];
-        int codes[kArity];
-        node_step(nodes, cur, r, tmax, keys, codes);
-        for (int k = kArity - 1; k >= 1 && !occ; --k) {
+        float keys[A];
+        int codes[A];
+        node_step<A>(nodes, cur, r, tmax, keys, codes);
+        for (int k = A - 1; k >= 1 && !occ; --k) {
           if (keys[k] < kBig) {
             if (sp >= depth - 1) occ = true;  // overflow reports occluded
             else stack[sp++] = codes[k];
@@ -141,29 +147,32 @@ extern "C" {
 int crt_max_stack() { return kMaxStack; }
 int crt_max_leaf() { return kMaxLeaf; }
 
-// Launch B1 on `stream`. Returns the cudaError_t of the launch.
-int crt_traverse_closest(const float* nodes, const float* leaf_rows, int n_leaves, int L,
-                         int depth, const float* orig, const float* dir, const float* t_min,
-                         const float* t_max, const uint8_t* active, float* t_out,
-                         int* prim_out, float* u_out, float* v_out, int R, void* stream) {
+// Launch B1 on `stream` over node rows of `arity` children. Returns the
+// cudaError_t of the launch.
+int crt_traverse_closest(const float* nodes, const float* leaf_rows, int n_leaves, int arity,
+                         int L, int depth, const float* orig, const float* dir,
+                         const float* t_min, const float* t_max, const uint8_t* active,
+                         float* t_out, int* prim_out, float* u_out, float* v_out, int R,
+                         void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
-  closest_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CRT_BY_ARITY(arity, closest_kernel<A><<<grid, kThreads, 0, s>>>(
       nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, active, t_out,
-      prim_out, u_out, v_out, R);
-  return static_cast<int>(cudaGetLastError());
+      prim_out, u_out, v_out, R));
 }
 
-// Launch B2 on `stream`. Returns the cudaError_t of the launch.
-int crt_traverse_any(const float* nodes, const float* leaf_rows, int n_leaves, int L,
+// Launch B2 on `stream` over node rows of `arity` children. Returns the
+// cudaError_t of the launch.
+int crt_traverse_any(const float* nodes, const float* leaf_rows, int n_leaves, int arity, int L,
                      int depth, const float* orig, const float* dir, const float* t_min,
                      const float* t_max, const uint8_t* mask, uint8_t* occluded, int R,
                      void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
-  any_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, mask, occluded, R);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CRT_BY_ARITY(arity, any_kernel<A><<<grid, kThreads, 0, s>>>(
+      nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, mask, occluded, R));
 }
 
 const char* crt_error_string(int err) {

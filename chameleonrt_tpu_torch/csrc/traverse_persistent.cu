@@ -39,6 +39,10 @@
 // in_world holds restores the world ray. A lane's refill resets its world
 // and object rays, its stack and its instance, so a ray that ended inside
 // a BLAS leaves nothing behind.
+// Like B1-B5d, each kernel is a template on the node rows' arity A (2, 4
+// or 8; the Pallas kernels take 2, 4 or 8, traverse_packet.py:2340-2345),
+// its C entry switches on the arity, and each instantiation sizes its own
+// grid.
 // Built with -fmad=false, so t agrees with the plain version bit for bit.
 //
 // What bounds it on the H100: as B1-B4, dependent row fetches (latency, not
@@ -111,14 +115,14 @@ __device__ __forceinline__ int pop(Walk& s, const int* stack) {
 }
 
 // One row of the walk at s.cur (not kDone); ends the walk with s.cur = kDone.
-template <bool kAny, bool kUnified>
+template <bool kAny, bool kUnified, int A>
 __device__ __forceinline__ void step(const Params& p, Walk& s, int* stack) {
   const int cur = s.cur;
   if (cur >= 0) {
-    float keys[kArity];
-    int codes[kArity];
-    node_step(p.nodes, cur, s.r, s.tmax, keys, codes);
-    for (int k = kArity - 1; k >= 1; --k) {
+    float keys[A];
+    int codes[A];
+    node_step<A>(p.nodes, cur, s.r, s.tmax, keys, codes);
+    for (int k = A - 1; k >= 1; --k) {
       if (keys[k] < kBig) {
         if (s.sp >= p.depth - 1) {  // overflow: closest hit reports -2, any hit occluded
           if (kAny) s.occ = true;
@@ -193,7 +197,7 @@ __device__ __forceinline__ void finish(const Params& p, const Walk& s, int i) {
 // The persistent loop. Every lane of a warp stays in it until a warp-wide
 // vote finds no lane with a ray after the refill, which happens only once
 // the queue is empty, so every *_sync intrinsic sees all 32 lanes.
-template <bool kAny, bool kUnified>
+template <bool kAny, bool kUnified, int A>
 __device__ __forceinline__ void persistent(const Params& p) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
@@ -223,7 +227,7 @@ __device__ __forceinline__ void persistent(const Params& p) {
     }
     if (!__any_sync(kFull, ray >= 0)) break;
     if (ray >= 0) {
-      if (s.cur != kDone) step<kAny, kUnified>(p, s, stack);
+      if (s.cur != kDone) step<kAny, kUnified, A>(p, s, stack);
       if (s.cur == kDone) {
         finish<kAny, kUnified>(p, s, ray);
         ray = -1;
@@ -232,25 +236,29 @@ __device__ __forceinline__ void persistent(const Params& p) {
   }
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads) closest_persistent_kernel(const Params p) {
-  persistent<false, false>(p);
+  persistent<false, false, A>(p);
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads) any_persistent_kernel(const Params p) {
-  persistent<true, false>(p);
+  persistent<true, false, A>(p);
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads) closest_unified_persistent_kernel(const Params p) {
-  persistent<false, true>(p);
+  persistent<false, true, A>(p);
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads) any_unified_persistent_kernel(const Params p) {
-  persistent<true, true>(p);
+  persistent<true, true, A>(p);
 }
 
 // Blocks of kThreads that the current card keeps resident at once running
 // `kernel`: its SMs times the kernel's occupancy. Computed on the first
-// launch of each kernel and kept.
+// launch of each instantiation and kept.
 template <typename Kernel>
 cudaError_t resident_blocks(Kernel kernel, int* cached) {
   if (*cached > 0) return cudaSuccess;
@@ -277,43 +285,53 @@ int launch(Kernel kernel, int* cached_blocks, const Params& p, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int g_blocks[4] = {0, 0, 0, 0};  // resident blocks of B6a, B6b, B6c, B6d
+// resident blocks of B6a, B6b, B6c, B6d (first index) at arity 2, 4, 8
+// (second index, arity_slot)
+int g_blocks[4][3] = {};
+
+constexpr int arity_slot(int arity) { return arity == 2 ? 0 : arity == 4 ? 1 : 2; }
 
 }  // namespace
 
 extern "C" {
 
-// The grid of B6a, B6b, B6c or B6d (variant 0-3): resident blocks of
-// kThreads threads, 0 before the variant's first launch.
-int crt_persistent_blocks(int variant) {
-  return variant >= 0 && variant < 4 ? g_blocks[variant] : 0;
+// The grid of B6a, B6b, B6c or B6d (variant 0-3) at `arity` (2, 4 or 8):
+// resident blocks of kThreads threads, 0 before that instantiation's first
+// launch or for any other variant or arity.
+int crt_persistent_blocks(int variant, int arity) {
+  if (variant < 0 || variant >= 4 || (arity != 2 && arity != 4 && arity != 8)) return 0;
+  return g_blocks[variant][arity_slot(arity)];
 }
 
-// Launch B6a on `stream`; counter is one int of device memory for the queue.
+// Launch B6a on `stream` over node rows of `arity` children; counter is
+// one int of device memory for the queue.
 int crt_traverse_closest_persistent(const float* nodes, const float* leaf_rows, int n_leaves,
-                                    int L, int depth, const float* orig, const float* dir,
-                                    const float* t_min, const float* t_max,
+                                    int arity, int L, int depth, const float* orig,
+                                    const float* dir, const float* t_min, const float* t_max,
                                     const uint8_t* active, float* t_out, int* prim_out,
                                     float* u_out, float* v_out, int* counter, int R,
                                     void* stream) {
   Params p{nodes, leaf_rows, n_leaves, 0, L, depth, orig, dir, t_min, t_max, active,
            t_out, prim_out, nullptr, u_out, v_out, nullptr, counter, R};
-  return launch(closest_persistent_kernel, &g_blocks[0], p, stream);
+  CRT_BY_ARITY(arity, return launch(closest_persistent_kernel<A>,
+                                    &g_blocks[0][arity_slot(A)], p, stream));
 }
 
-// Launch B6b on `stream`.
-int crt_traverse_any_persistent(const float* nodes, const float* leaf_rows, int n_leaves, int L,
-                                int depth, const float* orig, const float* dir,
-                                const float* t_min, const float* t_max, const uint8_t* mask,
-                                uint8_t* occluded, int* counter, int R, void* stream) {
+// Launch B6b on `stream` over node rows of `arity` children.
+int crt_traverse_any_persistent(const float* nodes, const float* leaf_rows, int n_leaves,
+                                int arity, int L, int depth, const float* orig,
+                                const float* dir, const float* t_min, const float* t_max,
+                                const uint8_t* mask, uint8_t* occluded, int* counter, int R,
+                                void* stream) {
   Params p{nodes, leaf_rows, n_leaves, 0, L, depth, orig, dir, t_min, t_max, mask,
            nullptr, nullptr, nullptr, nullptr, nullptr, occluded, counter, R};
-  return launch(any_persistent_kernel, &g_blocks[1], p, stream);
+  CRT_BY_ARITY(arity, return launch(any_persistent_kernel<A>,
+                                    &g_blocks[1][arity_slot(A)], p, stream));
 }
 
-// Launch B6c on `stream`.
+// Launch B6c on `stream` over node rows of `arity` children.
 int crt_traverse_closest_unified_persistent(const float* nodes, const float* leaf_rows,
-                                            int n_tri, int tlas_lo, int L, int depth,
+                                            int n_tri, int tlas_lo, int arity, int L, int depth,
                                             const float* orig, const float* dir,
                                             const float* t_min, const float* t_max,
                                             const uint8_t* active, float* t_out,
@@ -321,18 +339,21 @@ int crt_traverse_closest_unified_persistent(const float* nodes, const float* lea
                                             float* v_out, int* counter, int R, void* stream) {
   Params p{nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, active,
            t_out, prim_out, inst_out, u_out, v_out, nullptr, counter, R};
-  return launch(closest_unified_persistent_kernel, &g_blocks[2], p, stream);
+  CRT_BY_ARITY(arity, return launch(closest_unified_persistent_kernel<A>,
+                                    &g_blocks[2][arity_slot(A)], p, stream));
 }
 
-// Launch B6d on `stream`.
+// Launch B6d on `stream` over node rows of `arity` children.
 int crt_traverse_any_unified_persistent(const float* nodes, const float* leaf_rows, int n_tri,
-                                        int tlas_lo, int L, int depth, const float* orig,
-                                        const float* dir, const float* t_min,
-                                        const float* t_max, const uint8_t* mask,
-                                        uint8_t* occluded, int* counter, int R, void* stream) {
+                                        int tlas_lo, int arity, int L, int depth,
+                                        const float* orig, const float* dir,
+                                        const float* t_min, const float* t_max,
+                                        const uint8_t* mask, uint8_t* occluded, int* counter,
+                                        int R, void* stream) {
   Params p{nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, mask,
            nullptr, nullptr, nullptr, nullptr, nullptr, occluded, counter, R};
-  return launch(any_unified_persistent_kernel, &g_blocks[3], p, stream);
+  CRT_BY_ARITY(arity, return launch(any_unified_persistent_kernel<A>,
+                                    &g_blocks[3][arity_slot(A)], p, stream));
 }
 
 }  // extern "C"

@@ -13,12 +13,15 @@
 // packet: rays [32p, 32p + 32) of the sorted wavefront, the TPU's packet
 // membership at S = 32 (_pack_sl).
 //
-// A step of the packet:
-//   - node: lane k loads float k of the 128-byte row (one coalesced load
-//     for the warp) into the warp's row slot in shared memory; each lane
-//     in the step's mask slab-tests the four children with its own ray and
-//     its own cap (its best t in B5a, its t_max in B5b); __ballot_sync
-//     gives each child's lane mask and a warp min its packet entry key.
+// Each kernel is a template on the node rows' arity A (2, 4 or 8), as the
+// Pallas kernel takes any arity of its sorting networks, and its C entry
+// switches on the arity. A step of the packet:
+//   - node: lane k loads float k of the 8A-float row (one coalesced load
+//     for the warp; two at A = 8) into the warp's row slot in shared
+//     memory; each lane in the step's mask slab-tests the A children with
+//     its own ray and its own cap (its best t in B5a, its t_max in B5b);
+//     __ballot_sync gives each child's lane mask and a warp min its packet
+//     entry key.
 //     The children are ordered by that key, as _reduce_min_sl orders them;
 //     the packet descends into the nearest with its mask and pushes the
 //     others far-first, each with its own mask, onto the warp's stack in
@@ -95,7 +98,11 @@ constexpr int kWarp = 32;
 constexpr int kWarps = kThreads / kWarp;
 constexpr unsigned kAll = 0xFFFFFFFFu;
 constexpr unsigned kNoKey = 0xFFFFFFFFu;
-constexpr int kSlot = 10 * kMaxLeaf;  // floats of the widest leaf row
+// floats of a warp's row slot: the widest leaf row or node row of arity A
+template <int A>
+__host__ __device__ constexpr int slot_floats() {
+  return 10 * kMaxLeaf > row_floats<A>() ? 10 * kMaxLeaf : row_floats<A>();
+}
 
 // A subtree the packet has still to visit: its child code and the lanes
 // that enter it.
@@ -104,36 +111,33 @@ struct Entry {
   unsigned mask;
 };
 
-// Order-preserving map of a float onto unsigned bits.
-__device__ __forceinline__ unsigned ordered(float x) {
-  unsigned u = __float_as_uint(x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// One node step of the packet: row cur into the warp's slot, each lane in
-// mask slab-tests the children with its own cap, and kids[0, n) are the
-// children some lane hits, nearest packet entry first. Returns n.
+// One node step of the packet: row cur of arity A into the warp's slot,
+// each lane in mask slab-tests the children with its own cap, and
+// kids[0, n) are the children some lane hits, nearest packet entry first.
+// Returns n.
+template <int A>
 __device__ __forceinline__ int packet_children(const float* __restrict__ nodes, int cur,
                                                unsigned mask, const Ray& r, float cap,
                                                int lane, float* slot, Entry* kids) {
+  constexpr int kRow = row_floats<A>();
   __syncwarp();
-  slot[lane] = __ldg(nodes + (size_t)cur * kRow + lane);
+  for (int q = lane; q < kRow; q += kWarp) slot[q] = __ldg(nodes + (size_t)cur * kRow + q);
   __syncwarp();
-  float keys[kArity];
-  int codes[kArity];
-  slab_children(slot, r, cap, keys, codes);
+  float keys[A];
+  int codes[A];
+  slab_children<A>(slot, r, cap, keys, codes);
   const bool in = (mask >> lane) & 1u;
-  unsigned pkey[kArity];
+  unsigned pkey[A];
   int n = 0;
 #pragma unroll
-  for (int c = 0; c < kArity; ++c) {
+  for (int c = 0; c < A; ++c) {
     const bool hit = in && keys[c] < kBig;
     kids[c].code = codes[c];
     kids[c].mask = __ballot_sync(kAll, hit);
     pkey[c] = __reduce_min_sync(kAll, hit ? ordered(keys[c]) : kNoKey);
     n += kids[c].mask != 0u;
   }
-  sort_children(pkey, kids);
+  sort_children<A>(pkey, kids);
   return n;
 }
 
@@ -155,6 +159,7 @@ __device__ __forceinline__ void load_leaf(const float* __restrict__ leaf_rows, i
   __syncwarp();
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads)
 closest_stream_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
                       int n_leaves, int L, int depth, const float* __restrict__ orig,
@@ -163,7 +168,7 @@ closest_stream_kernel(const float* __restrict__ nodes, const float* __restrict__
                       float* __restrict__ t_out, int* __restrict__ prim_out,
                       float* __restrict__ u_out, float* __restrict__ v_out, int R) {
   __shared__ Entry s_stack[kWarps][kMaxStack];
-  __shared__ float s_slot[kWarps][kSlot];
+  __shared__ float s_slot[kWarps][slot_floats<A>()];
   const int lane = threadIdx.x % kWarp;
   Entry* stack = s_stack[threadIdx.x / kWarp];
   float* slot = s_slot[threadIdx.x / kWarp];
@@ -182,8 +187,8 @@ closest_stream_kernel(const float* __restrict__ nodes, const float* __restrict__
     cur.mask &= ~ended;
     if (cur.mask != 0u) {
       if (cur.code >= 0) {
-        Entry kids[kArity];
-        const int n = packet_children(nodes, cur.code, cur.mask, r, best, lane, slot, kids);
+        Entry kids[A];
+        const int n = packet_children<A>(nodes, cur.code, cur.mask, r, best, lane, slot, kids);
         for (int k = n - 1; k >= 1; --k) {
           if (sp >= depth - 1) {
             ended |= kids[k].mask;
@@ -224,6 +229,7 @@ closest_stream_kernel(const float* __restrict__ nodes, const float* __restrict__
   }
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads)
 any_stream_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
                   int n_leaves, int L, int depth, const float* __restrict__ orig,
@@ -231,7 +237,7 @@ any_stream_kernel(const float* __restrict__ nodes, const float* __restrict__ lea
                   const float* __restrict__ t_max, const uint8_t* __restrict__ mask,
                   uint8_t* __restrict__ occluded, int R) {
   __shared__ Entry s_stack[kWarps][kMaxStack];
-  __shared__ float s_slot[kWarps][kSlot];
+  __shared__ float s_slot[kWarps][slot_floats<A>()];
   const int lane = threadIdx.x % kWarp;
   Entry* stack = s_stack[threadIdx.x / kWarp];
   float* slot = s_slot[threadIdx.x / kWarp];
@@ -251,8 +257,8 @@ any_stream_kernel(const float* __restrict__ nodes, const float* __restrict__ lea
     cur.mask &= ~occ;
     if (cur.mask != 0u) {
       if (cur.code >= 0) {
-        Entry kids[kArity];
-        const int n = packet_children(nodes, cur.code, cur.mask, r, tmax, lane, slot, kids);
+        Entry kids[A];
+        const int n = packet_children<A>(nodes, cur.code, cur.mask, r, tmax, lane, slot, kids);
         for (int k = n - 1; k >= 1; --k) {
           if (sp >= depth - 1) {
             occ |= kids[k].mask;  // an overflow reports occluded
@@ -282,6 +288,7 @@ any_stream_kernel(const float* __restrict__ nodes, const float* __restrict__ lea
   if (i < R) occluded[i] = ((occ >> lane) & 1u) ? 1 : 0;
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads)
 closest_unified_stream_kernel(const float* __restrict__ nodes,
                               const float* __restrict__ leaf_rows, int n_tri, int tlas_lo,
@@ -292,7 +299,7 @@ closest_unified_stream_kernel(const float* __restrict__ nodes,
                               int* __restrict__ prim_out, int* __restrict__ inst_out,
                               float* __restrict__ u_out, float* __restrict__ v_out, int R) {
   __shared__ Entry s_stack[kWarps][kMaxStack];
-  __shared__ float s_slot[kWarps][kSlot];
+  __shared__ float s_slot[kWarps][slot_floats<A>()];
   const int lane = threadIdx.x % kWarp;
   Entry* stack = s_stack[threadIdx.x / kWarp];
   float* slot = s_slot[threadIdx.x / kWarp];
@@ -313,8 +320,8 @@ closest_unified_stream_kernel(const float* __restrict__ nodes,
     cur.mask &= ~ended;
     if (cur.mask != 0u) {
       if (cur.code >= 0) {
-        Entry kids[kArity];
-        const int n = packet_children(nodes, cur.code, cur.mask, r, best, lane, slot, kids);
+        Entry kids[A];
+        const int n = packet_children<A>(nodes, cur.code, cur.mask, r, best, lane, slot, kids);
         for (int k = n - 1; k >= 1; --k) {
           if (sp >= depth - 1) {
             ended |= kids[k].mask;
@@ -368,6 +375,7 @@ closest_unified_stream_kernel(const float* __restrict__ nodes,
   }
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads)
 any_unified_stream_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
                           int n_tri, int tlas_lo, int L, int depth,
@@ -376,7 +384,7 @@ any_unified_stream_kernel(const float* __restrict__ nodes, const float* __restri
                           const uint8_t* __restrict__ mask, uint8_t* __restrict__ occluded,
                           int R) {
   __shared__ Entry s_stack[kWarps][kMaxStack];
-  __shared__ float s_slot[kWarps][kSlot];
+  __shared__ float s_slot[kWarps][slot_floats<A>()];
   const int lane = threadIdx.x % kWarp;
   Entry* stack = s_stack[threadIdx.x / kWarp];
   float* slot = s_slot[threadIdx.x / kWarp];
@@ -397,8 +405,8 @@ any_unified_stream_kernel(const float* __restrict__ nodes, const float* __restri
     cur.mask &= ~occ;
     if (cur.mask != 0u) {
       if (cur.code >= 0) {
-        Entry kids[kArity];
-        const int n = packet_children(nodes, cur.code, cur.mask, r, tmax, lane, slot, kids);
+        Entry kids[A];
+        const int n = packet_children<A>(nodes, cur.code, cur.mask, r, tmax, lane, slot, kids);
         for (int k = n - 1; k >= 1; --k) {
           if (sp >= depth - 1) {
             occ |= kids[k].mask;  // an overflow reports occluded
@@ -442,58 +450,63 @@ any_unified_stream_kernel(const float* __restrict__ nodes, const float* __restri
 
 extern "C" {
 
-// Launch B5a on `stream`. Returns the cudaError_t of the launch.
-int crt_traverse_closest_stream(const float* nodes, const float* leaf_rows, int n_leaves, int L,
-                                int depth, const float* orig, const float* dir,
+// Launch B5a on `stream` over node rows of `arity` children. Returns the
+// cudaError_t of the launch.
+int crt_traverse_closest_stream(const float* nodes, const float* leaf_rows, int n_leaves,
+                                int arity, int L, int depth, const float* orig, const float* dir,
                                 const float* t_min, const float* t_max, const uint8_t* active,
                                 float* t_out, int* prim_out, float* u_out, float* v_out, int R,
                                 void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
-  closest_stream_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CRT_BY_ARITY(arity, closest_stream_kernel<A><<<grid, kThreads, 0, s>>>(
       nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, active, t_out,
-      prim_out, u_out, v_out, R);
-  return static_cast<int>(cudaGetLastError());
+      prim_out, u_out, v_out, R));
 }
 
-// Launch B5b on `stream`. Returns the cudaError_t of the launch.
-int crt_traverse_any_stream(const float* nodes, const float* leaf_rows, int n_leaves, int L,
-                            int depth, const float* orig, const float* dir, const float* t_min,
-                            const float* t_max, const uint8_t* mask, uint8_t* occluded, int R,
-                            void* stream) {
+// Launch B5b on `stream` over node rows of `arity` children. Returns the
+// cudaError_t of the launch.
+int crt_traverse_any_stream(const float* nodes, const float* leaf_rows, int n_leaves, int arity,
+                            int L, int depth, const float* orig, const float* dir,
+                            const float* t_min, const float* t_max, const uint8_t* mask,
+                            uint8_t* occluded, int R, void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
-  any_stream_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, mask, occluded, R);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CRT_BY_ARITY(arity, any_stream_kernel<A><<<grid, kThreads, 0, s>>>(
+      nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, mask, occluded, R));
 }
 
-// Launch B5c on `stream`. Returns the cudaError_t of the launch.
+// Launch B5c on `stream` over node rows of `arity` children. Returns the
+// cudaError_t of the launch.
 int crt_traverse_closest_unified_stream(const float* nodes, const float* leaf_rows, int n_tri,
-                                        int tlas_lo, int L, int depth, const float* orig,
-                                        const float* dir, const float* t_min,
-                                        const float* t_max, const uint8_t* active,
-                                        float* t_out, int* prim_out, int* inst_out,
-                                        float* u_out, float* v_out, int R, void* stream) {
+                                        int tlas_lo, int arity, int L, int depth,
+                                        const float* orig, const float* dir,
+                                        const float* t_min, const float* t_max,
+                                        const uint8_t* active, float* t_out, int* prim_out,
+                                        int* inst_out, float* u_out, float* v_out, int R,
+                                        void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
-  closest_unified_stream_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CRT_BY_ARITY(arity, closest_unified_stream_kernel<A><<<grid, kThreads, 0, s>>>(
       nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, active, t_out,
-      prim_out, inst_out, u_out, v_out, R);
-  return static_cast<int>(cudaGetLastError());
+      prim_out, inst_out, u_out, v_out, R));
 }
 
-// Launch B5d on `stream`. Returns the cudaError_t of the launch.
+// Launch B5d on `stream` over node rows of `arity` children. Returns the
+// cudaError_t of the launch.
 int crt_traverse_any_unified_stream(const float* nodes, const float* leaf_rows, int n_tri,
-                                    int tlas_lo, int L, int depth, const float* orig,
-                                    const float* dir, const float* t_min, const float* t_max,
-                                    const uint8_t* mask, uint8_t* occluded, int R,
-                                    void* stream) {
+                                    int tlas_lo, int arity, int L, int depth,
+                                    const float* orig, const float* dir, const float* t_min,
+                                    const float* t_max, const uint8_t* mask, uint8_t* occluded,
+                                    int R, void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
-  any_unified_stream_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, mask, occluded, R);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CRT_BY_ARITY(arity, any_unified_stream_kernel<A><<<grid, kThreads, 0, s>>>(
+      nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, mask, occluded, R));
 }
 
 }  // extern "C"

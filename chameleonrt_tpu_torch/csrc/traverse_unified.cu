@@ -24,7 +24,9 @@
 // entry leaf, the world ray comes back: the stack is LIFO, so an
 // instance's BLAS entries all pop before the TLAS entries beneath them.
 // Rules shared with the flat kernels, and the instance-entry transform and
-// world-space test shared with B5c/B5d, are in traverse_common.cuh. Here:
+// world-space test shared with B5c/B5d, are in traverse_common.cuh. As
+// there, each kernel is a template on the node rows' arity A (2, 4 or 8)
+// and its C entry switches on the arity. Here:
 //   - B3 keeps a hit on t < best (ties inside a leaf go to the highest
 //     slot) with the instance of the current object space; a stack
 //     overflow reports prim = -2;
@@ -58,6 +60,7 @@ __device__ __forceinline__ Ray enter_instance_row(const float* __restrict__ erow
   return enter_instance(m, w);
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads)
 closest_unified_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
                        int n_tri, int tlas_lo, int L, int depth,
@@ -81,10 +84,10 @@ closest_unified_kernel(const float* __restrict__ nodes, const float* __restrict_
     int cur = tlas_lo;
     while (cur != kDone) {
       if (cur >= 0) {
-        float keys[kArity];
-        int codes[kArity];
-        node_step(nodes, cur, r, best, keys, codes);
-        for (int k = kArity - 1; k >= 1; --k) {
+        float keys[A];
+        int codes[A];
+        node_step<A>(nodes, cur, r, best, keys, codes);
+        for (int k = A - 1; k >= 1; --k) {
           if (keys[k] < kBig) {
             if (sp >= depth - 1) { overflow = true; break; }
             stack[sp++] = codes[k];
@@ -126,6 +129,7 @@ closest_unified_kernel(const float* __restrict__ nodes, const float* __restrict_
   v_out[i] = miss ? 0.0f : best_v;
 }
 
+template <int A>
 __global__ void __launch_bounds__(kThreads)
 any_unified_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
                    int n_tri, int tlas_lo, int L, int depth,
@@ -144,10 +148,10 @@ any_unified_kernel(const float* __restrict__ nodes, const float* __restrict__ le
     int cur = tlas_lo;
     while (cur != kDone) {
       if (cur >= 0) {
-        float keys[kArity];
-        int codes[kArity];
-        node_step(nodes, cur, r, tmax, keys, codes);
-        for (int k = kArity - 1; k >= 1 && !occ; --k) {
+        float keys[A];
+        int codes[A];
+        node_step<A>(nodes, cur, r, tmax, keys, codes);
+        for (int k = A - 1; k >= 1 && !occ; --k) {
           if (keys[k] < kBig) {
             if (sp >= depth - 1) occ = true;  // overflow reports occluded
             else stack[sp++] = codes[k];
@@ -180,31 +184,33 @@ any_unified_kernel(const float* __restrict__ nodes, const float* __restrict__ le
 
 extern "C" {
 
-// Launch B3 on `stream`. Returns the cudaError_t of the launch.
+// Launch B3 on `stream` over node rows of `arity` children. Returns the
+// cudaError_t of the launch.
 int crt_traverse_closest_unified(const float* nodes, const float* leaf_rows, int n_tri,
-                                 int tlas_lo, int L, int depth, const float* orig,
+                                 int tlas_lo, int arity, int L, int depth, const float* orig,
                                  const float* dir, const float* t_min, const float* t_max,
                                  const uint8_t* active, float* t_out, int* prim_out,
                                  int* inst_out, float* u_out, float* v_out, int R,
                                  void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
-  closest_unified_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CRT_BY_ARITY(arity, closest_unified_kernel<A><<<grid, kThreads, 0, s>>>(
       nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, active, t_out,
-      prim_out, inst_out, u_out, v_out, R);
-  return static_cast<int>(cudaGetLastError());
+      prim_out, inst_out, u_out, v_out, R));
 }
 
-// Launch B4 on `stream`. Returns the cudaError_t of the launch.
+// Launch B4 on `stream` over node rows of `arity` children. Returns the
+// cudaError_t of the launch.
 int crt_traverse_any_unified(const float* nodes, const float* leaf_rows, int n_tri,
-                             int tlas_lo, int L, int depth, const float* orig,
+                             int tlas_lo, int arity, int L, int depth, const float* orig,
                              const float* dir, const float* t_min, const float* t_max,
                              const uint8_t* mask, uint8_t* occluded, int R, void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
-  any_unified_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, mask, occluded, R);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CRT_BY_ARITY(arity, any_unified_kernel<A><<<grid, kThreads, 0, s>>>(
+      nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, mask, occluded, R));
 }
 
 }  // extern "C"

@@ -3,10 +3,11 @@ chameleonrt_tpu/engine/trace_bvh.py.
 
 Each mesh gets one native binned-SAH build (native/bvhbuilder.cpp,
 compiled at first use by chameleonrt_tpu_torch/native.py), which emits a
-binary table and a BVH4 table over shared leaf rows, unpadded.
+binary table and a wide table (BVH4, or BVH8 under
+CHAMELEONRT_WIDE_ARITY=8) over shared leaf rows, unpadded.
 
 - A single-instance (flat) scene keeps one BlasPair per mesh: rays move
-  into the instance's object space and traverse the BVH4 table, through
+  into the instance's object space and traverse the wide table, through
   kernels B1 and B2 on the card, or B5a and B5b where the table exceeds
   the card's L2 (streamed_tier).
 - A multi-instance scene fuses every mesh's BLAS and a TLAS over the
@@ -17,6 +18,16 @@ binary table and a BVH4 table over shared leaf rows, unpadded.
   CHAMELEONRT_SLOTLANE=0 as in the JAX package), every scene goes through
   the work-queue kernels instead: B6a and B6b flat, B6c and B6d
   two-level, at any table size.
+- With grid_packet=True a flat scene traces both hit kinds on its binary
+  table through the grid-packet kernels B7a and B7b.
+
+The table switches are read as the JAX package's engine/trace_bvh.py reads
+them, with its error messages: CHAMELEONRT_CLOSEST_ARITY=2 traces closest
+hit on the binary table (closest_arity), CHAMELEONRT_WIDE_ARITY (4 or 8)
+and CHAMELEONRT_LEAF_SIZE (2-12) shape the builds (wide_arity,
+native_leaf_size), and CHAMELEONRT_PACKET=0 turns the kernels off
+(kernels_enabled). Kernels B1-B6d take binary, BVH4 and BVH8 rows, B7a
+and B7b binary rows only.
 
 The kernels' wrappers are in ops/traverse_cuda.py, their plain versions in
 ops/traverse.py.
@@ -45,16 +56,52 @@ from chameleonrt_tpu_torch.ops import traverse_cuda
 from chameleonrt_tpu_torch.ops.intersect import T_MAX, Hit
 from chameleonrt_tpu_torch.ops.math import EPSILON, transform_point, transform_vector
 
-LEAF_SIZE = 4  # triangles per leaf row (the JAX package's default)
-WIDE_ARITY = 4  # children per wide row
+def closest_arity() -> int:
+    """Children per row of the table that closest hit traces: 2 (the
+    binary table) where CHAMELEONRT_CLOSEST_ARITY is "2", else the wide
+    arity, as the JAX package's _closest_table chooses."""
+    if os.environ.get("CHAMELEONRT_CLOSEST_ARITY") == "2":
+        return 2
+    return wide_arity()
 
 
-def _native_build(v0, e1, e2, leaf_size: int = LEAF_SIZE):
-    """One native SAH build: (nodes2, nodes4, leaf_rows, depth2, stack4).
-    Raises if the native builder is unavailable."""
+def wide_arity() -> int:
+    """Children per wide row of the native builds: CHAMELEONRT_WIDE_ARITY,
+    4 (the default) or 8, as the JAX package's _wide_arity reads it."""
+    try:
+        w = int(os.environ.get("CHAMELEONRT_WIDE_ARITY", "4"))
+    except ValueError:
+        raise ValueError("CHAMELEONRT_WIDE_ARITY must be an integer") from None
+    if w not in (4, 8):
+        raise ValueError("CHAMELEONRT_WIDE_ARITY must be 4 or 8")
+    return w
+
+
+def native_leaf_size() -> int:
+    """Triangles per leaf row of the native BLAS builds:
+    CHAMELEONRT_LEAF_SIZE, 4 (the default) or any of 2-12, as the JAX
+    package's _native_leaf_size reads it."""
+    try:
+        s = int(os.environ.get("CHAMELEONRT_LEAF_SIZE", "4"))
+    except ValueError:
+        raise ValueError("CHAMELEONRT_LEAF_SIZE must be an integer") from None
+    if not 2 <= s <= 12:
+        raise ValueError("CHAMELEONRT_LEAF_SIZE must be in [2, 12]")
+    return s
+
+
+def kernels_enabled() -> bool:
+    """False where CHAMELEONRT_PACKET is "0", "false" or "off", which in
+    the JAX package turns every Pallas kernel off; unset keeps them."""
+    return os.environ.get("CHAMELEONRT_PACKET") not in ("0", "false", "off")
+
+
+def _native_build(v0, e1, e2, leaf_size: int, arity: int):
+    """One native SAH build: (nodes2, nodes_wide, leaf_rows, depth2,
+    stack_wide). Raises if the native builder is unavailable."""
     if native.get_lib() is None:
         raise RuntimeError("the native SAH builder (native/) is unavailable: no C++ compiler")
-    res = native.build_bvh_pair_native(v0, e1, e2, leaf_size, wide_arity=WIDE_ARITY)
+    res = native.build_bvh_pair_native(v0, e1, e2, leaf_size, wide_arity=arity)
     if res is None:
         raise RuntimeError(f"native SAH build of {len(v0)} triangles returned no tables")
     return res
@@ -63,15 +110,17 @@ def _native_build(v0, e1, e2, leaf_size: int = LEAF_SIZE):
 def build_blas_set(flat: FlatScene, meta: SceneMeta) -> Tuple:
     """The scene's BVH tables: (UnifiedPair,) for a multi-instance scene,
     otherwise one BlasPair per mesh with leaf prim ids local to the mesh's
-    range. Raises if the native SAH builder is unavailable."""
+    range. Leaf size and wide arity come from native_leaf_size and
+    wide_arity. Raises if the native SAH builder is unavailable."""
     if meta.num_instances > 1:
         return (build_unified_set(flat, meta),)
     v0, e1, e2 = host_triangles(flat)
     dev = flat.shade_rows.device
+    L, arity = native_leaf_size(), wide_arity()
     blas = []
     for start, count in meta.mesh_tri_ranges:
         sl = slice(start, start + count)
-        nodes2, nodes4, leaf_rows, depth2, stack4 = _native_build(v0[sl], e1[sl], e2[sl])
+        nodes2, nodes4, leaf_rows, depth2, stack4 = _native_build(v0[sl], e1[sl], e2[sl], L, arity)
         leaf = torch.as_tensor(leaf_rows, device=dev)
         blas.append(
             BlasPair(
@@ -128,18 +177,20 @@ def build_unified_set(flat: FlatScene, meta: SceneMeta) -> UnifiedPair:
     from row tlas_lo) and one leaf table (every triangle leaf, then one
     instance-entry row per instance), with every child code rebased into
     the fused numbering; unpadded. The stack bound is the TLAS's plus the
-    deepest BLAS's plus 2. Raises if the native builder is unavailable."""
+    deepest BLAS's plus 2. Leaf size and wide arity as in build_blas_set;
+    the TLAS keeps one instance to a leaf. Raises if the native builder is
+    unavailable."""
     v0, e1, e2 = host_triangles(flat)
     inst_inv = flat.inst_inv.cpu().numpy()
     dev = flat.shade_rows.device
-    L = LEAF_SIZE
+    L, wide = native_leaf_size(), wide_arity()
     I = meta.num_instances
 
-    # per mesh: (nodes2, nodes4, leaf rows with global prim ids, depth2, stack4)
+    # per mesh: (nodes2, nodes_wide, leaf rows with global prim ids, depth2, stack_wide)
     parts = []
     for start, count in meta.mesh_tri_ranges:
         sl = slice(start, start + count)
-        nodes2, nodes4, leaf_rows, depth2, stack4 = _native_build(v0[sl], e1[sl], e2[sl])
+        nodes2, nodes4, leaf_rows, depth2, stack4 = _native_build(v0[sl], e1[sl], e2[sl], L, wide)
         leaf_rows = leaf_rows.copy()
         ids = leaf_rows[:, 9 * L : 10 * L].view(np.int32)
         ids[ids >= 0] += start
@@ -156,13 +207,14 @@ def build_unified_set(flat: FlatScene, meta: SceneMeta) -> UnifiedPair:
     ent[:, 13] = np.arange(I, dtype=np.int32).view(np.float32)
 
     tnodes2, tnodes4, tleaf, tdepth2, tstack4 = _native_build(
-        inst_aabb[:, 0:3], inst_aabb[:, 3:6] - inst_aabb[:, 0:3], np.zeros((I, 3), np.float32), 1
+        inst_aabb[:, 0:3], inst_aabb[:, 3:6] - inst_aabb[:, 0:3], np.zeros((I, 3), np.float32), 1,
+        wide,
     )
     tleaf_inst = tleaf[:, 9].view(np.int32)  # TLAS leaf -> instance id
 
     out = {}
     for arity, sel, tnodes, tstack in ((2, 0, tnodes2.copy(), tdepth2),
-                                       (WIDE_ARITY, 1, tnodes4.copy(), tstack4)):
+                                       (wide, 1, tnodes4.copy(), tstack4)):
         tables, node_off, off = [], [], 0
         for mi, part in enumerate(parts):
             tbl = part[sel].copy()
@@ -184,7 +236,7 @@ def build_unified_set(flat: FlatScene, meta: SceneMeta) -> UnifiedPair:
             stack_bound=int(tstack) + int(blas_depth) + 2,
         )
     return UnifiedPair(
-        closest=out[2], any=out[WIDE_ARITY], inst_aabb=torch.as_tensor(inst_aabb, device=dev)
+        closest=out[2], any=out[wide], inst_aabb=torch.as_tensor(inst_aabb, device=dev)
     )
 
 
@@ -196,24 +248,28 @@ def compute_instance_aabbs(flat: FlatScene) -> torch.Tensor:
     return flat.blas[0].inst_aabb
 
 
-def _route(multi: bool, use_kernels: bool, stream: bool, persistent: bool):
+def _route(multi: bool, use_kernels: bool, stream: bool, persistent: bool, grid_packet: bool):
     """(closest, any) traversal functions: the plain traversal where
-    use_kernels is False; otherwise the kernels' wrappers, flat or
-    two-level, of the work-queue tier (B6a-B6d) where persistent is True,
-    else of the streamed tier (B5a-B5d) where stream is True, else B1-B4."""
+    use_kernels is False; otherwise the kernels' wrappers: the grid-packet
+    kernels (B7a, B7b) where grid_packet is True, else flat or two-level of
+    the work-queue tier (B6a-B6d) where persistent is True, else of the
+    streamed tier (B5a-B5d) where stream is True, else B1-B4."""
     if not use_kernels:
         if multi:
             return plain.traverse_closest_unified, plain.traverse_any_unified
         return plain.traverse_closest, plain.traverse_any
     kind = "_unified" if multi else ""
-    tier = "_persistent" if persistent else "_stream" if stream else ""
+    tier = ("_packet" if grid_packet else "_persistent" if persistent
+            else "_stream" if stream else "")
     return (getattr(traverse_cuda, f"traverse_closest{kind}{tier}"),
             getattr(traverse_cuda, f"traverse_any{kind}{tier}"))
 
 
-def _unified_trace_fns(closest_fn, any_fn):
-    """(trace_closest, trace_any) over the two-level BVH4 table: one
-    traversal for the whole scene through closest_fn and any_fn (_route)."""
+def _unified_trace_fns(closest_fn, any_fn, closest_table: str):
+    """(trace_closest, trace_any) over the two-level tables: one traversal
+    for the whole scene through closest_fn and any_fn (_route), closest hit
+    on the UnifiedPair's closest_table ("closest" or "any"), any hit on its
+    wide table."""
 
     def trace_closest(flat: FlatScene, orig, dir, t_min: float, active) -> Hit:
         """Closest hit from t_min; tri is the global triangle id and inst
@@ -223,7 +279,8 @@ def _unified_trace_fns(closest_fn, any_fn):
         tmin = torch.full((R,), t_min, dtype=torch.float32, device=orig.device)
         tmax = torch.full((R,), T_MAX, dtype=torch.float32, device=orig.device)
         t, prim, inst, u, v = closest_fn(
-            flat.blas[0].any, orig.contiguous(), dir.contiguous(), tmin, active, tmax
+            getattr(flat.blas[0], closest_table), orig.contiguous(), dir.contiguous(), tmin,
+            active, tmax
         )
         return Hit(t=t, tri=prim, inst=inst, u=u, v=v)
 
@@ -247,8 +304,8 @@ def table_bytes(pbvh) -> int:
 def streamed_tier(pbvh, l2_bytes: Optional[int] = None) -> bool:
     """The streamed tier's gate, the counterpart of the JAX package's
     slotlane_eligible / slotlane_stream_eligible (ops/traverse_slotlane.py):
-    True where the BVH4 node and leaf rows (of a flat PackedBvh or a
-    two-level UnifiedBvh) exceed the L2 of the table's device, so that most
+    True where the node and leaf rows (of a flat PackedBvh or a two-level
+    UnifiedBvh) exceed the L2 of the table's device, so that most
     row fetches go to HBM. l2_bytes, if given, stands for the L2's size; a
     table on the CPU has none and stays in the B1-B4 tier."""
     if l2_bytes is None:
@@ -269,30 +326,45 @@ def slotlane_enabled(slotlane: Optional[bool] = None) -> bool:
 
 
 def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[bool] = None,
-                   blas=None, l2_bytes: Optional[int] = None, slotlane: Optional[bool] = None):
-    """(trace_closest, trace_any) for the scene, both on BVH4 tables:
-    the two-level table of a multi-instance scene, or the one instanced
-    mesh's table of a flat scene. use_kernels=False runs the plain
+                   blas=None, l2_bytes: Optional[int] = None, slotlane: Optional[bool] = None,
+                   grid_packet: bool = False):
+    """(trace_closest, trace_any) for the scene: the two-level tables of a
+    multi-instance scene, or the one instanced mesh's tables of a flat
+    scene. Any hit traces the wide table; closest hit traces the binary
+    table where closest_arity() is 2, else the wide one, as the JAX
+    package's _closest_table chooses. use_kernels=False runs the plain
     traversal on any device (the card's parity checks use it); otherwise
     CUDA tensors go through the kernels. With the slot-lane tier on
     (slotlane_enabled(slotlane); the default), a flat scene goes through
     B1 and B2, or B5a and B5b of the streamed tier where stream is True; a
     multi-instance scene through B3 and B4, or B5c and B5d where stream is
-    True; stream=None decides by streamed_tier on the scene's BVH4 table
+    True; stream=None decides by streamed_tier on the scene's wide table
     (blas, the FlatScene's; l2_bytes as there). With it off, a flat scene
     goes through the work-queue kernels B6a and B6b and a multi-instance
     scene through B6c and B6d, whatever stream says: on the card one
-    kernel serves both of the JAX package's stream values."""
+    kernel serves both of the JAX package's stream values.
+
+    grid_packet=True stands for the JAX engine's route past both failed
+    persistent VMEM gates (its trace_bvh.py:680-688, :871-879): a flat
+    scene traces both hit kinds on its binary table, through B7a and B7b
+    (the plain traversal where use_kernels is False), whatever stream,
+    slotlane and closest_arity say. The JAX package has no two-level grid
+    kernel, so a multi-instance scene raises ValueError."""
     multi = meta.num_instances > 1
+    if grid_packet and multi:
+        raise ValueError("grid_packet traces flat scenes only: there is no two-level grid-packet "
+                         f"kernel, and this scene has {meta.num_instances} instances")
     mesh_id = 0 if multi else meta.inst_mesh[0]
-    persistent = use_kernels and not slotlane_enabled(slotlane)
-    if use_kernels and not persistent and stream is None:
+    persistent = use_kernels and not grid_packet and not slotlane_enabled(slotlane)
+    if use_kernels and not (persistent or grid_packet) and stream is None:
         if blas is None:
             raise ValueError("the streamed tier's gate needs the scene's tables (blas)")
         stream = streamed_tier(blas[mesh_id].any, l2_bytes)
-    closest_fn, any_fn = _route(multi, use_kernels, bool(stream), persistent)
+    closest_fn, any_fn = _route(multi, use_kernels, bool(stream), persistent, grid_packet)
+    closest_table = "closest" if grid_packet or closest_arity() == 2 else "any"
     if multi:
-        return _unified_trace_fns(closest_fn, any_fn)
+        return _unified_trace_fns(closest_fn, any_fn, closest_table)
+    any_table = "closest" if grid_packet else "any"
     start = meta.mesh_tri_ranges[mesh_id][0]
 
     def _object_rays(flat: FlatScene, orig, dir):
@@ -310,7 +382,8 @@ def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[b
         o, d = _object_rays(flat, orig, dir)
         tmin = torch.full((R,), t_min, dtype=torch.float32, device=orig.device)
         tmax = torch.full((R,), T_MAX, dtype=torch.float32, device=orig.device)
-        t, prim, u, v = closest_fn(flat.blas[mesh_id].any, o, d, tmin, active, tmax)
+        t, prim, u, v = closest_fn(getattr(flat.blas[mesh_id], closest_table), o, d, tmin, active,
+                                   tmax)
         found = prim >= 0
         zero = torch.zeros_like(u)
         return Hit(
@@ -326,6 +399,7 @@ def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[b
         R = orig.shape[0]
         o, d = _object_rays(flat, orig, dir)
         tmin = torch.full((R,), EPSILON, dtype=torch.float32, device=orig.device)
-        return any_fn(flat.blas[mesh_id].any, o, d, tmin, t_max.contiguous(), mask.contiguous())
+        return any_fn(getattr(flat.blas[mesh_id], any_table), o, d, tmin, t_max.contiguous(),
+                      mask.contiguous())
 
     return trace_closest, trace_any

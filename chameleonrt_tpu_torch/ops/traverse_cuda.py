@@ -5,7 +5,8 @@ csrc/traverse_stream.cu: B5a (flat closest hit), B5b (flat any hit), B5c
 (two-level closest hit) and B5d (two-level any hit), and the work-queue
 persistent kernels in csrc/traverse_persistent.cu: B6a (flat closest
 hit), B6b (flat any hit), B6c (two-level closest hit) and B6d (two-level
-any hit).
+any hit), and the grid-packet kernels in csrc/traverse_packet.cu: B7a
+(flat closest hit) and B7b (flat any hit) on binary rows.
 
 B1-B5d replace the Pallas slot-lane kernels of
 chameleonrt_tpu/ops/traverse_slotlane.py (traverse_closest_slotlane,
@@ -14,8 +15,11 @@ traverse_any_unified_slotlane; B5a-B5d the same four with stream=True);
 B6a-B6d the work-queue kernels of chameleonrt_tpu/ops/traverse_packet.py
 (traverse_closest_persistent, traverse_any_persistent,
 traverse_closest_unified_persistent and traverse_any_unified_persistent,
-with either `stream` value). Every kernel sizes its stack as the TPU
-kernels do (stack_depth). A wrapper checks its inputs against what the
+with either `stream` value); B7a/B7b the grid-packet kernels of
+traverse_packet.py (traverse_closest_packet, traverse_any_packet). B1-B6d
+take node rows of arity 2, 4 or 8 (16, 32 or 64 floats), as the TPU
+kernels do, B7a/B7b binary rows only. Every kernel sizes its stack as the
+TPU kernels do (stack_depth). A wrapper checks its inputs against what the
 kernel takes and raises on anything else. Then, on CUDA tensors, it
 allocates the outputs (and a work-queue kernel's counter), launches
 the kernel on the current stream without synchronizing, and raises if the
@@ -40,7 +44,10 @@ LAUNCHES = {"closest": 0, "any": 0, "closest_unified": 0, "any_unified": 0,
             "closest_stream": 0, "any_stream": 0,
             "closest_unified_stream": 0, "any_unified_stream": 0,
             "closest_persistent": 0, "any_persistent": 0,
-            "closest_unified_persistent": 0, "any_unified_persistent": 0}
+            "closest_unified_persistent": 0, "any_unified_persistent": 0,
+            "closest_packet": 0, "any_packet": 0}
+# floats per node row the kernels take: binary, BVH4 and BVH8 (B1-B6d)
+ROW_FLOATS = (16, 32, 64)
 
 
 def stack_depth(table) -> int:
@@ -54,9 +61,11 @@ def stack_depth(table) -> int:
     return max(2, int(bound) + 1)
 
 
-def _check(table, orig, dir, t_min, t_max, flag):
-    """Validate everything the kernels take; raise on anything else.
-    Returns (leaf size, stack depth)."""
+def _check(table, orig, dir, t_min, t_max, flag, widths=ROW_FLOATS):
+    """Validate everything the kernels take; raise on anything else:
+    node rows of a width in widths (a width of 8A floats is arity A), and a
+    stack depth up to the kernels' MAX_STACK. Returns (arity, leaf size,
+    stack depth)."""
     R = orig.shape[0]
     want = [
         ("nodes", table.nodes, torch.float32, None),
@@ -77,8 +86,9 @@ def _check(table, orig, dir, t_min, t_max, flag):
             raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if table.nodes.dim() != 2 or table.nodes.shape[1] != 32:
-        raise ValueError(f"the kernels take BVH4 rows of 32 floats, got {tuple(table.nodes.shape)}")
+    if table.nodes.dim() != 2 or table.nodes.shape[1] not in widths:
+        raise ValueError(f"the kernels take node rows of {' or '.join(map(str, widths))} floats, "
+                         f"got {tuple(table.nodes.shape)}")
     L = table.leaf_size
     if table.leaf_rows.dim() != 2 or table.leaf_rows.shape[1] != 10 * L or not 1 <= L <= _build.MAX_LEAF:
         raise ValueError(f"leaf rows of shape {tuple(table.leaf_rows.shape)} are not supported")
@@ -87,19 +97,27 @@ def _check(table, orig, dir, t_min, t_max, flag):
         raise ValueError(f"stack depth {depth} exceeds the kernel's {_build.MAX_STACK}")
     if table.nodes.data_ptr() % 16:
         raise ValueError("node rows must be 16-byte aligned")
-    return L, depth
+    return table.nodes.shape[1] // 8, L, depth
 
 
 def _check_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, flag):
     """_check for a two-level table, plus the bounds of its sections."""
-    L, depth = _check(ubvh, orig, dir, t_min, t_max, flag)
+    arity, L, depth = _check(ubvh, orig, dir, t_min, t_max, flag)
     if 10 * L < 14:
         raise ValueError(f"leaf rows of {10 * L} floats cannot hold an instance-entry row (14)")
     if not 0 <= ubvh.tlas_lo < ubvh.nodes.shape[0]:
         raise ValueError(f"tlas_lo {ubvh.tlas_lo} is outside the {ubvh.nodes.shape[0]} node rows")
     if not 0 <= ubvh.n_tri_leaves < ubvh.leaf_rows.shape[0]:
         raise ValueError(f"n_tri_leaves {ubvh.n_tri_leaves} leaves no instance-entry rows")
-    return L, depth
+    return arity, L, depth
+
+
+def _check_packet(pbvh: PackedBvh, orig, dir, t_min, t_max, flag):
+    """_check for the grid-packet kernels (B7a, B7b): a flat table of binary
+    rows only. Returns (arity, leaf size, stack depth)."""
+    if not isinstance(pbvh, PackedBvh):
+        raise ValueError(f"the grid-packet kernels take a flat PackedBvh, got {type(pbvh).__name__}")
+    return _check(pbvh, orig, dir, t_min, t_max, flag, widths=(16,))
 
 
 def _stream(x):
@@ -120,9 +138,16 @@ def _raise_on(lib, err: int, name: str):
         raise RuntimeError(f"{name} launch failed: {lib.crt_error_string(err).decode()}")
 
 
+def _arity_arg(entry: str, arity: int) -> list:
+    """The arity argument of a C entry: B1-B6d take one before the leaf
+    size, the grid-packet kernels (binary rows only) none."""
+    return [] if entry.endswith("_packet") else [arity]
+
+
 def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_max):
-    """A flat closest-hit kernel (B1, B5a or B6a) through its C entry point."""
-    L, depth = _check(pbvh, orig, dir, t_min, t_max, active)
+    """A flat closest-hit kernel (B1, B5a, B6a or B7a) through its C entry point."""
+    check = _check_packet if entry.endswith("_packet") else _check
+    arity, L, depth = check(pbvh, orig, dir, t_min, t_max, active)
     if orig.device.type == "cpu":
         return plain.traverse_closest(pbvh, orig, dir, t_min, active, t_max)
     lib = _build.kernels()
@@ -135,7 +160,8 @@ def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_
         return t, prim, u, v
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
-        pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves, L, depth,
+        pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves,
+        *_arity_arg(entry, arity), L, depth,
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         active.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
         *[q.data_ptr() for q in queue], R, _stream(orig),
@@ -146,8 +172,9 @@ def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_
 
 
 def _any(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
-    """A flat any-hit kernel (B2, B5b or B6b) through its C entry point."""
-    L, depth = _check(pbvh, orig, dir, t_min, t_max, mask)
+    """A flat any-hit kernel (B2, B5b, B6b or B7b) through its C entry point."""
+    check = _check_packet if entry.endswith("_packet") else _check
+    arity, L, depth = check(pbvh, orig, dir, t_min, t_max, mask)
     if orig.device.type == "cpu":
         return plain.traverse_any(pbvh, orig, dir, t_min, t_max, mask)
     lib = _build.kernels()
@@ -157,7 +184,8 @@ def _any(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
         return occ
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
-        pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves, L, depth,
+        pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves,
+        *_arity_arg(entry, arity), L, depth,
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         mask.data_ptr(), occ.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
     )
@@ -197,7 +225,7 @@ def traverse_any_stream(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
 
 def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
     """A two-level closest-hit kernel (B3, B5c or B6c) through its C entry point."""
-    L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, active)
+    arity, L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, active)
     if orig.device.type == "cpu":
         return plain.traverse_closest_unified(ubvh, orig, dir, t_min, active, t_max)
     lib = _build.kernels()
@@ -211,8 +239,8 @@ def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, a
         return t, prim, inst, u, v
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
-        ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, L,
-        depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+        ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, arity,
+        L, depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         active.data_ptr(), t.data_ptr(), prim.data_ptr(), inst.data_ptr(), u.data_ptr(),
         v.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
     )
@@ -223,7 +251,7 @@ def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, a
 
 def _any_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
     """A two-level any-hit kernel (B4, B5d or B6d) through its C entry point."""
-    L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, mask)
+    arity, L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, mask)
     if orig.device.type == "cpu":
         return plain.traverse_any_unified(ubvh, orig, dir, t_min, t_max, mask)
     lib = _build.kernels()
@@ -233,8 +261,8 @@ def _any_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, t_max
         return occ
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
-        ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, L,
-        depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+        ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, arity,
+        L, depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         mask.data_ptr(), occ.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
     )
     _raise_on(lib, err, entry)
@@ -311,3 +339,31 @@ def traverse_any_unified_persistent(ubvh: UnifiedBvh, orig, dir, t_min, t_max, m
     `stream` value."""
     return _any_unified("crt_traverse_any_unified_persistent", "any_unified_persistent",
                         ubvh, orig, dir, t_min, t_max, mask)
+
+
+def traverse_closest_packet(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
+    """B7a: grid-packet closest hit over binary rows, one warp per packet
+    of 32 consecutive sorted rays with one shared stack, descending first
+    into the child of smaller packet-minimum entry t. Returns (t, prim, u,
+    v); a miss or inactive lane is (1e20, -1, 0, 0). Replaces
+    chameleonrt_tpu/ops/traverse_packet.py traverse_closest_packet
+    (pl.pallas_call of _closest_call, traverse_packet.py:627). Its plain
+    version is plain.traverse_closest on the same binary table: a prim may
+    differ on an exact tie in t, since the packet visits in another order,
+    and a lane may find a nearer hit in a leaf whose box its own slab test
+    rejects by rounding, since every lane tests every leaf the packet
+    visits."""
+    return _closest("crt_traverse_closest_packet", "closest_packet",
+                    pbvh, orig, dir, t_min, active, t_max)
+
+
+def traverse_any_packet(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
+    """B7b: grid-packet any hit over binary rows; the packet stops once
+    every lane is occluded, and masked lanes count as occluded for that
+    test. Returns (R,) bool occluded & mask, as plain.traverse_any on the
+    same binary table; like B7a it tests every leaf the packet visits with
+    every lane that is not yet occluded, so a lane may find an occluder
+    that its own walk culls by rounding at a box face. Replaces
+    traverse_packet.py traverse_any_packet (pl.pallas_call of _any_call,
+    traverse_packet.py:660)."""
+    return _any("crt_traverse_any_packet", "any_packet", pbvh, orig, dir, t_min, t_max, mask)

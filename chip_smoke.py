@@ -7,7 +7,8 @@ nor the JAX package (it asserts so at its end). Phases:
 
 1. device and toolchain: the card's name and power limit (nvidia-smi),
    torch, CUDA and nvcc versions;
-2. build: the traversal kernels (csrc/*.cu, one nvcc each, in parallel);
+2. build: the traversal kernels (csrc/*.cu, one nvcc each, in parallel),
+   with ptxas's registers and spills for each kernel and arity;
 3. kernels against their plain torch versions on the card, each with
    kernel and plain times on a sorted primary wavefront and a
    diffuse-bounce wavefront from its hit points:
@@ -40,6 +41,19 @@ nor the JAX package (it asserts so at its end). Phases:
      not survive, and again on the first 777 rays alone (fewer than one
      SM holds, not a multiple of 32); and B6b / B6d on the shadow-ray
      wavefronts of one hall / San Miguel frame;
+   - B7a/B7b (the grid-packet kernels, binary rows only, whose plain
+     versions are B1/B2's on the same binary table) on the hall's binary
+     table: proc://hall?subdiv=2 at 320x180 and the textured hall at
+     1280x720, any hit at both t_max factors on both wavefronts, with B1
+     timed on the same rays on the binary table and on the BVH4 table; and
+     B7b on the 10 masked shadow-ray wavefronts of one 1280x720 hall frame
+     with grid_packet=True;
+   - B1-B6d at every arity they take (2, 4 and 8 children a row) on the
+     primary wavefronts of the parity scenes at 320x180: B1/B2 and B6a/B6b
+     on proc://hall?subdiv=2, B5a/B5b (forced) on proc://city?n=60, B3/B4,
+     B5c/B5d (forced) and B6c/B6d on proc://instances?nx=4&ny=4&subdiv=2,
+     each against the plain version on the same table; and the stack that
+     each main-path scene's BVH8 table needs, against the kernels' 64;
    each kernel's least time on its main-path primary wavefront (bound_ms)
    comes from the distinct rows and the operations that wavefront's rays
    need, counted by the plain walk (ops/traverse.py WalkCount); B6a-B6d
@@ -47,9 +61,13 @@ nor the JAX package (it asserts so at its end). Phases:
    bounds;
 4. images through the kernels against images through the plain traversal
    (textured hall, proc://instances?nx=6&ny=6&subdiv=3, with stream=True
-   proc://city?n=60 and proc://instances?nx=6&ny=6&subdiv=3, and with
-   slotlane=False the textured hall and proc://instances?nx=6&ny=6&subdiv=3;
-   128x72, 2 frames each): 8-bit mean abs difference < 1;
+   proc://city?n=60 and proc://instances?nx=6&ny=6&subdiv=3, with
+   slotlane=False the textured hall and proc://instances?nx=6&ny=6&subdiv=3,
+   with grid_packet=True the textured hall, and the textured hall and
+   proc://instances?nx=6&ny=6&subdiv=3 under each of the table switches
+   CHAMELEONRT_CLOSEST_ARITY=2, CHAMELEONRT_WIDE_ARITY=8 and
+   CHAMELEONRT_LEAF_SIZE=8; 128x72, 2 frames each): 8-bit mean abs
+   difference < 1;
 5. the main paths, each with the kernels' launch counts set to 0 just
    before it and read just after: get_backend("cuda") rendering
    proc://hall?subdiv=4&textured=1 at 1280x720, 1 spp (B1/B2), the San
@@ -58,7 +76,9 @@ nor the JAX package (it asserts so at its end). Phases:
    city proc://city?n=610 at 640x360, 1 spp (B5a/B5b), the large San
    Miguel proxy at 1280x720, 4 spp (B5c/B5d), and with
    get_backend("cuda", slotlane=False) the hall (B6a/B6b) and the San
-   Miguel proxy (B6c/B6d) at the same sizes; each path's last frame runs
+   Miguel proxy (B6c/B6d) at the same sizes, and with
+   get_backend("cuda", grid_packet=True) the hall on its binary table
+   (B7a/B7b) at 1280x720, 1 spp; each path's last frame runs
    under torch.profiler, which gives where its time goes: device busy
    time, the idle share of the frame, and the device time of the traversal
    kernels and of the largest other rows.
@@ -110,8 +130,8 @@ CITY_TIMED_FRAMES = 3
 LARGE_TIMED_FRAMES = 3
 PROFILE_FRAMES = 1
 # traversal gates (the JAX bench's parity gates): prim (and instance) /
-# occlusion mismatches <= max(2, R / 50000), |dt| and |du|, |dv| over
-# common hits <= 1e-5
+# occlusion mismatches <= max(2, R / 50000), |dt| over common hits and
+# |du|, |dv| over hits on the same triangle <= 1e-5
 DT_TOL = 1e-5
 UV_TOL = 1e-5
 # timings: median of this many CUDA-event timed calls after one warmup (for
@@ -123,6 +143,7 @@ PLAIN_REPS = 5
 PLAIN_REPS_SAN_MIGUEL = 3
 PLAIN_REPS_CITY = 3
 PLAIN_REPS_LARGE = 1
+PLAIN_REPS_PACKET = 3
 # a kernel's least time (bound_ms): the larger of the bytes it must move
 # over the card's memory rate and its FP32 operations over the card's rate
 # outside the tensor cores (H100 SXM data sheet, dense, at 700 W)
@@ -174,7 +195,39 @@ def phase_toolchain(torch):
     return smi
 
 
+# a kernel instantiation in ptxas's log: its launch-count key and, for a
+# template on the node rows' arity, the arity
+# (_ZN12_GLOBAL__N_114closest_kernelILi8EEEv..., ..._packet_kernelEPKf...)
+_PTXAS_KERNEL = re.compile(
+    r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent|_packet)?)_kernel(?:ILi(\d)E)?")
+
+
+def _ptxas_table(log_text):
+    """{(launch-count key, arity or None): {"registers", "spill_stores",
+    "spill_loads", "stack_frame"}} from nvcc's ptxas -v output."""
+    out, key = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = _PTXAS_KERNEL.search(m.group(1))
+            key = (k.group(1), int(k.group(2)) if k.group(2) else None) if k else None
+            if key:
+                out[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[key].update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
+    """Build and load the kernels. Returns (seconds, _ptxas_table)."""
     from chameleonrt_tpu_torch import _build
 
     t0 = time.perf_counter()
@@ -182,10 +235,14 @@ def phase_build():
     secs = time.perf_counter() - t0
     log(f"[build] traversal kernels built and loaded in {secs:.2f} s")
     with open(_build.kernel_library_path()[: -len(".so")] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"[build] ptxas: {line.strip()}")
-    return secs
+        text = f.read()
+    for line in text.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"[build] ptxas: {line.strip()}")
+    ptxas = _ptxas_table(text)
+    log(f"[build] per kernel and arity: "
+        f"{json.dumps({f'{k}@{a}': v for (k, a), v in sorted(ptxas.items(), key=str)})}")
+    return secs, ptxas
 
 
 _SCENES = {}
@@ -213,17 +270,34 @@ def _load(uri):
     return _SCENES[uri]
 
 
-def _scene_tables(torch, uri):
+@contextlib.contextmanager
+def _env(**values):
+    """The environment with values set, as a user sets the JAX engine's
+    table switches (CHAMELEONRT_WIDE_ARITY="8", ...), restored on exit."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _scene_tables(torch, uri, wide=4):
     """(scene, FlatScene with its tables on the card, SceneMeta), built once
-    per URI."""
+    per URI and wide arity (CHAMELEONRT_WIDE_ARITY during the build)."""
     from chameleonrt_tpu_torch.engine.device_scene import build_device_scene
     from chameleonrt_tpu_torch.engine.trace_bvh import build_blas_set
 
-    if uri not in _TABLES:
+    if (uri, wide) not in _TABLES:
         scene = _load(uri)
         flat, meta = build_device_scene(scene, torch.device("cuda"))
-        _TABLES[uri] = (scene, flat._replace(blas=build_blas_set(flat, meta)), meta)
-    return _TABLES[uri]
+        with _env(CHAMELEONRT_WIDE_ARITY=str(wide)):
+            _TABLES[uri, wide] = (scene, flat._replace(blas=build_blas_set(flat, meta)), meta)
+    return _TABLES[uri, wide]
 
 
 def _bound(table, count, active, out_bytes):
@@ -328,6 +402,8 @@ _PATHS = {
                    ("B6b", "traverse_any_persistent", "traverse_any")),
     "unified_persistent": (("B6c", "traverse_closest_unified_persistent", "traverse_closest_unified"),
                            ("B6d", "traverse_any_unified_persistent", "traverse_any_unified")),
+    "grid_packet": (("B7a", "traverse_closest_packet", "traverse_closest"),
+                    ("B7b", "traverse_any_packet", "traverse_any")),
 }
 SAME_RAYS = {"stream": "flat", "unified_stream": "unified"}
 TWO_LEVEL = ("unified", "unified_stream", "unified_persistent")
@@ -349,8 +425,9 @@ def _kernel_pair(path: str, closest: bool):
 
 def _closest_agreement(k, p, unified):
     """A closest-hit kernel's result k against the plain result p on the
-    same R rays: prim (and instance) mismatches, the largest |dt| and
-    |du|, |dv| over common hits, and whether they pass the gates."""
+    same R rays: prim (and instance) mismatches, the largest |dt| over
+    common hits and |du|, |dv| over hits on the same triangle, and whether
+    they pass the gates."""
     R = k[0].shape[0]
     tk, pk, uk, vk = k[0], k[1], k[-2], k[-1]
     tp, pp, up, vp = p[0], p[1], p[-2], p[-1]
@@ -360,8 +437,20 @@ def _closest_agreement(k, p, unified):
     common = (pk >= 0) & (pp >= 0)
     mism = int(mism_lanes.sum())
     dt = float((tk - tp)[common].abs().max()) if bool(common.any()) else 0.0
-    duv = float((uk - up).abs().maximum((vk - vp).abs())[common].max()) if bool(common.any()) else 0.0
+    # u, v are compared where both hit the same triangle: on another one
+    # (a counted mismatch) they are another triangle's coordinates
+    same = common & ~mism_lanes
+    duv = float((uk - up).abs().maximum((vk - vp).abs())[same].max()) if bool(same.any()) else 0.0
+    # the mismatches by kind: a hit that only the kernel (or only the plain
+    # walk) reports, two hits on other prims at the same t (a tie), and
+    # two at different t, the kernel's or the plain walk's the nearer
+    both = mism_lanes & common
     return {"prim_mismatch": mism, "max_dt_common": dt, "max_duv_common": duv,
+            "kernel_only_hits": int(((pk >= 0) & (pp < 0)).sum()),
+            "plain_only_hits": int(((pk < 0) & (pp >= 0)).sum()),
+            "tied_t_mismatch": int((both & (tk == tp)).sum()),
+            "kernel_nearer": int((both & (tk < tp)).sum()),
+            "plain_nearer": int((both & (tk > tp)).sum()),
             "ok": mism <= max(2, R // 50000) and dt <= DT_TOL and duv <= UV_TOL}
 
 
@@ -433,10 +522,31 @@ def _check_queue(torch, path, closest, args, ref):
     return res
 
 
-def _check_closest(torch, table, path, orig, dirs, t_min, active, label, plain_reps, bound=False):
+def _time_also(torch, res, path, closest, args, also):
+    """Time other kernels on the same rays into res: also maps a result key
+    to (kernel wrapper, table); None gives a streamed path's unstreamed
+    kernel on the same table (SAME_RAYS, e.g. flat_ms)."""
+    if also is None:
+        also = {}
+        if path in SAME_RAYS:
+            also[f"{SAME_RAYS[path]}_ms"] = (_kernel_pair(SAME_RAYS[path], closest)[1], args[0])
+    for key, (other, table) in also.items():
+        res[key] = _median_ms(torch, lambda: other(table, *args[1:]), KERNEL_REPS)
+
+
+def _raise_unless_ok(res, name, label):
+    queue = res.get("queue", {"ok": True, "kernel": "-"})
+    if not res["ok"] or not queue["ok"]:
+        raise AssertionError(f"{name} or {queue['kernel']} disagrees with its plain version "
+                             f"on {label}: {res}")
+
+
+def _check_closest(torch, table, path, orig, dirs, t_min, active, label, plain_reps, bound=False,
+                   also=None):
     """Kernel against plain closest hit; returns (result, t, prim, inst)
-    of the plain version (inst None in a flat scene). On a streamed path
-    the unstreamed kernel is timed on the same rays too (e.g. flat_ms).
+    of the plain version (inst None in a flat scene). Other kernels are
+    timed on the same rays (_time_also). A path whose scenes a work-queue
+    kernel also traces (QUEUE) checks that kernel on the same rays.
     bound: count the plain walk and give the kernel's least time."""
     from chameleonrt_tpu_torch.ops.intersect import T_MAX
     from chameleonrt_tpu_torch.ops.traverse import WalkCount
@@ -458,27 +568,23 @@ def _check_closest(torch, table, path, orig, dirs, t_min, active, label, plain_r
     if bound:
         res.update(_bound(table, count, active, 20 if unified else 16))
     res["ms"] = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
-    if path in SAME_RAYS:
-        other = _kernel_pair(SAME_RAYS[path], closest=True)[1]
-        res[f"{SAME_RAYS[path]}_ms"] = _median_ms(torch, lambda: other(*args), KERNEL_REPS)
-    res["queue"] = _check_queue(torch, path, True, args, p)
+    _time_also(torch, res, path, True, args, also)
+    if path in QUEUE:
+        res["queue"] = _check_queue(torch, path, True, args, p)
     res["plain_ms"] = _median_ms(torch, lambda: plain(*args), plain_reps, warmup=False)
     res["plain_reps"] = plain_reps
     log(f"[kernels] {name} closest {label}: {json.dumps(res)}")
-    if not res["ok"] or not res["queue"]["ok"]:
-        raise AssertionError(f"{name} or {res['queue']['kernel']} disagrees with its plain version "
-                             f"on {label}: {res}")
+    _raise_unless_ok(res, name, label)
     return res, p[0], p[1], (p[2] if unified else None)
 
 
 def _check_any(torch, table, path, orig, dirs, t_closest, active, label, factor, plain_reps,
-               bound=False):
+               bound=False, also=None):
     """t_max = factor * the closest hit (100 on a miss). factor 1.001 is the
     JAX bench's gate: a hitting ray is occluded, mostly by that very
     triangle, and stops early. factor 0.999 stops just short of it, so a ray
-    walks every box in front of its hit and is rarely occluded. On a
-    streamed path the unstreamed kernel is timed on the same rays too.
-    bound as in _check_closest."""
+    walks every box in front of its hit and is rarely occluded. bound,
+    also and the work-queue kernel as in _check_closest."""
     from chameleonrt_tpu_torch.ops.math import EPSILON
     from chameleonrt_tpu_torch.ops.traverse import WalkCount
 
@@ -496,23 +602,20 @@ def _check_any(torch, table, path, orig, dirs, t_closest, active, label, factor,
     if bound:
         res.update(_bound(table, count, active, 1))
     res["ms"] = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
-    if path in SAME_RAYS:
-        other = _kernel_pair(SAME_RAYS[path], closest=False)[1]
-        res[f"{SAME_RAYS[path]}_ms"] = _median_ms(torch, lambda: other(*args), KERNEL_REPS)
-    res["queue"] = _check_queue(torch, path, False, args, ok_p)
+    _time_also(torch, res, path, False, args, also)
+    if path in QUEUE:
+        res["queue"] = _check_queue(torch, path, False, args, ok_p)
     res["plain_ms"] = _median_ms(torch, lambda: plain(*args), plain_reps, warmup=False)
     res["plain_reps"] = plain_reps
     log(f"[kernels] {name} any {label}: {json.dumps(res)}")
-    if not res["ok"] or not res["queue"]["ok"]:
-        raise AssertionError(f"{name} or {res['queue']['kernel']} disagrees with its plain version "
-                             f"on {label}: {res}")
+    _raise_unless_ok(res, name, label)
     return res
 
 
 # launch-count key of each path's any-hit kernel
 _ANY_COUNT = {"flat": "any", "unified": "any_unified", "stream": "any_stream",
               "unified_stream": "any_unified_stream", "persistent": "any_persistent",
-              "unified_persistent": "any_unified_persistent"}
+              "unified_persistent": "any_unified_persistent", "grid_packet": "any_packet"}
 
 
 def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
@@ -524,14 +627,16 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
     occluded rays, and 10 launches of the path's any-hit kernel, so on a
     streamed path the gate must have picked it. A work-queue path
     (QUEUE's values) renders with the slot-lane tier off, the others with
-    it on."""
+    it on; the grid-packet path renders with grid_packet=True, and its
+    plain version traces the same binary table."""
     from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
     from chameleonrt_tpu_torch.engine.trace_bvh import make_trace_fns
     from chameleonrt_tpu_torch.ops import traverse_cuda
 
     name = _kernel_pair(path, closest=False)[0]
     count = _ANY_COUNT[path]
-    b = CudaBackend(slotlane=path not in QUEUE.values())
+    grid_packet = path == "grid_packet"
+    b = CudaBackend(slotlane=path not in QUEUE.values(), grid_packet=grid_packet)
     b.prepare_scene = lambda _scene: tables
     b.initialize(W, H)
     b.set_scene(scene)
@@ -549,7 +654,7 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
     before = traverse_cuda.LAUNCHES[count]
     b.render(pos, d, up, fov, True, readback_framebuffer=False)
     launched = traverse_cuda.LAUNCHES[count] - before
-    _, plain_any = make_trace_fns(b.meta, use_kernels=False)
+    _, plain_any = make_trace_fns(b.meta, use_kernels=False, grid_packet=grid_packet)
     per_call = []
     for orig, dirs, t_max, mask, occ in calls:
         occ_p = plain_any(b.flat, orig, dirs, t_max, mask)
@@ -644,23 +749,161 @@ def phase_kernels(torch, path: str):
     return out
 
 
+def phase_packet(torch):
+    """The grid-packet kernels B7a/B7b against their plain versions on the
+    hall's binary table (flat.blas[0].closest): the parity hall at 320x180
+    and the main-path hall at 1280x720, closest hit and any hit at both
+    t_max factors on the primary and the bounce wavefront, with B1 timed on
+    the same rays on the binary table (flat_binary_ms) and on the BVH4 table
+    (flat_ms), and the kernels' least times on the main-path primary
+    wavefront; then B7b on the shadow rays of one grid_packet=True frame.
+    Returns phase_kernels' form: {"closest": (primary, bounce), "any":
+    (primary, bounce), "any_all": [...], "shadow": ...}."""
+    from chameleonrt_tpu_torch.ops import traverse_cuda
+    from chameleonrt_tpu_torch.ops.math import EPSILON
+
+    cases = (("parity hall subdiv=2 320x180", HALL_PARITY, 320, 180, PLAIN_REPS),
+             ("main-path hall 1280x720", HALL_SCENE, MAIN_W, MAIN_H, PLAIN_REPS_PACKET))
+    out = {}
+    for label, uri, W, H, reps in cases:
+        main_case = uri == HALL_SCENE
+        scene, flat, meta = _scene_tables(torch, uri)
+        table = flat.blas[0].closest
+        log(f"[kernels] {label}: binary table {tuple(table.nodes.shape)} nodes, "
+            f"{tuple(table.leaf_rows.shape)} leaf rows, max_depth {table.max_depth}")
+        also = {
+            True: {"flat_binary_ms": (traverse_cuda.traverse_closest, table),
+                   "flat_ms": (traverse_cuda.traverse_closest, flat.blas[0].any)},
+            False: {"flat_binary_ms": (traverse_cuda.traverse_any, table),
+                    "flat_ms": (traverse_cuda.traverse_any, flat.blas[0].any)},
+        }
+        orig, dirs, active = _primary_wavefront(torch, scene, W, H)
+        R = orig.shape[0]
+        zeros = torch.zeros((R,), dtype=torch.float32, device="cuda")
+        r1, t, prim, _ = _check_closest(torch, table, "grid_packet", orig, dirs, zeros, active,
+                                        f"{label} primary", reps, bound=main_case, also=also[True])
+        a1 = [_check_any(torch, table, "grid_packet", orig, dirs, t, active, f"{label} primary", f,
+                         reps, bound=main_case and f == 1.001, also=also[False])
+              for f in (1.001, 0.999)]
+        bo, bd, bact = _bounce_wavefront(torch, flat, orig, dirs, t, prim, None)
+        eps = torch.full((R,), EPSILON, dtype=torch.float32, device="cuda")
+        r3, bt, _, _ = _check_closest(torch, table, "grid_packet", bo, bd, eps, bact,
+                                      f"{label} bounce", reps, also=also[True])
+        a2 = [_check_any(torch, table, "grid_packet", bo, bd, bt, bact, f"{label} bounce", f, reps,
+                         also=also[False])
+              for f in (1.001, 0.999)]
+        out = {"closest": (r1, r3), "any": (a1[0], a2[-1]), "any_all": a1 + a2}
+    out["shadow"] = _check_any_shadow(torch, scene, (flat, meta), "grid_packet", MAIN_W, MAIN_H)
+    return out
+
+
+# B1-B6d at each arity: (label, scene, paths whose kernels trace it);
+# the streamed paths are forced onto these tables, which fit the L2
+ARITY_CASES = (
+    ("parity hall subdiv=2 320x180", HALL_PARITY, ("flat", "persistent")),
+    ("parity city n=60 320x180", CITY_PARITY, ("stream",)),
+    ("parity instances nx=4 ny=4 320x180", INST_PARITY,
+     ("unified", "unified_stream", "unified_persistent")),
+)
+ARITIES = (2, 4, 8)
+
+
+def phase_arities(torch):
+    """B1-B6d at every arity they take: on the primary wavefront of each
+    ARITY_CASES scene at 320x180, the binary table (A = 2), the BVH4 table
+    (A = 4) and the BVH8 table (A = 8, built with CHAMELEONRT_WIDE_ARITY=8),
+    each path's closest-hit kernel against the plain closest hit on the
+    same table, and its any-hit kernel against the plain any hit at t_max
+    = 1.001 x that hit, under the gates of phase 3. Returns {label: {arity:
+    {"max_abs_err", "mismatch", "ms"}}}: the worst |dt| (closest hit) or
+    flag difference (any hit) over the scenes of the kernel."""
+    from chameleonrt_tpu_torch.ops.intersect import T_MAX
+    from chameleonrt_tpu_torch.ops.math import EPSILON
+
+    out = {}
+    for label, uri, paths in ARITY_CASES:
+        for arity in ARITIES:
+            scene, flat, _ = _scene_tables(torch, uri, wide=8 if arity == 8 else 4)
+            table = flat.blas[0].closest if arity == 2 else flat.blas[0].any
+            if table.nodes.shape[1] != 8 * arity:
+                raise AssertionError(f"{uri}: expected rows of {8 * arity} floats, got {tuple(table.nodes.shape)}")
+            orig, dirs, active = _primary_wavefront(torch, scene, 320, 180)
+            R = orig.shape[0]
+            t_min = torch.zeros((R,), dtype=torch.float32, device="cuda")
+            c_args = (table, orig, dirs, t_min, active, torch.full((R,), T_MAX, device="cuda"))
+            _, _, plain_c = _kernel_pair(paths[0], True)
+            p = plain_c(*c_args)
+            t_max = torch.where(p[0] < 1e19, p[0] * 1.001, torch.full_like(p[0], 100.0))
+            a_args = (table, orig, dirs, torch.full((R,), EPSILON, device="cuda"), t_max, active)
+            _, _, plain_a = _kernel_pair(paths[0], False)
+            occ_p = plain_a(*a_args)
+            line = {"rays": R, "rows": tuple(table.nodes.shape), "stack": table.stack_bound
+                    if hasattr(table, "stack_bound") else table.max_depth}
+            for path in paths:
+                for closest, args in ((True, c_args), (False, a_args)):
+                    name, kernel, _ = _kernel_pair(path, closest)
+                    got = kernel(*args)
+                    torch.cuda.synchronize()
+                    if closest:
+                        agree = _closest_agreement(got, p, path in TWO_LEVEL)
+                        err, mism = agree["max_dt_common"], agree["prim_mismatch"]
+                    else:
+                        agree = _any_agreement(got, occ_p)
+                        err, mism = agree["max_abs_err"], agree["occ_mismatch"]
+                    ms = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
+                    line[name] = {"max_abs_err": err, "mismatch": mism, "ms": ms}
+                    prev = out.setdefault(name, {}).get(arity)
+                    out[name][arity] = {
+                        "max_abs_err": max(err, prev["max_abs_err"]) if prev else err,
+                        "mismatch": mism + (prev["mismatch"] if prev else 0),
+                        "ms": {**(prev["ms"] if prev else {}), label: ms}}
+                    if not agree["ok"]:
+                        raise AssertionError(f"{name} at arity {arity} disagrees with its plain "
+                                             f"version on {label}: {agree}")
+            log(f"[arity] {label} A={arity}: {json.dumps(line)}")
+    return out
+
+
+def _bvh8_stacks(torch):
+    """The stack each main-path scene's BVH8 table (CHAMELEONRT_WIDE_ARITY=8)
+    needs: the certified bound + 1, against the kernels' MAX_STACK, above
+    which B1-B6d refuse the table. Returns {scene: (need, fits)}."""
+    from chameleonrt_tpu_torch import _build
+    from chameleonrt_tpu_torch.ops.traverse_cuda import stack_depth
+
+    out = {}
+    for uri in (HALL_SCENE, SAN_MIGUEL, CITY_SCENE, SAN_MIGUEL_LARGE):
+        table = _scene_tables(torch, uri, wide=8)[1].blas[0].any
+        need = stack_depth(table)
+        out[uri] = (need, need <= _build.MAX_STACK)
+        del _TABLES[uri, 8]
+    log(f"[arity] BVH8 stack needs (certified bound + 1) against MAX_STACK {_build.MAX_STACK}: "
+        f"{json.dumps(out)}")
+    return out
+
+
 def _queue_grids(torch):
     """The work-queue kernels' grids as their first launches sized them:
-    resident blocks of 128 threads on the card, by label."""
+    resident blocks of 128 threads on the card, by label and arity (0 for
+    an instantiation that never launched)."""
     from chameleonrt_tpu_torch import _build
 
     lib = _build.kernels()
-    grids = {label: lib.crt_persistent_blocks(i) for i, label in enumerate(("B6a", "B6b", "B6c", "B6d"))}
+    grids = {label: {a: lib.crt_persistent_blocks(i, a) for a in ARITIES}
+             for i, label in enumerate(("B6a", "B6b", "B6c", "B6d"))}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"[kernels] work-queue grids (blocks of 128 threads, {sms} SMs): {json.dumps(grids)}")
+    log(f"[kernels] work-queue grids (blocks of 128 threads, {sms} SMs) by arity: {json.dumps(grids)}")
     return grids
 
 
-def phase_image(torch, uri, stream=None, expect=None, slotlane=True):
+def phase_image(torch, uri, stream=None, expect=None, slotlane=True, grid_packet=False, tables=None):
     """Two 128x72 frames through the kernels against two through the plain
-    traversal. stream=True forces the streamed tier, slotlane=False the
-    work-queue kernels; expect, if given, is the set of launch counts that
-    must have moved (and no other)."""
+    traversal, under the environment as it stands (phase 4 sets the table
+    switches around some calls). stream=True forces the streamed tier,
+    slotlane=False the work-queue kernels, grid_packet=True the grid-packet
+    kernels; expect, if given, is the set of launch counts that must have
+    moved (and no other); tables, if given, the (closest, any, leaf) row
+    widths in floats that the kernels' backend must have built."""
     import numpy as np
 
     from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
@@ -671,30 +914,43 @@ def phase_image(torch, uri, stream=None, expect=None, slotlane=True):
     imgs = {}
     before = dict(traverse_cuda.LAUNCHES)
     for use_kernels in (True, False):
-        b = CudaBackend(use_kernels=use_kernels, stream=stream, slotlane=slotlane)
+        b = CudaBackend(use_kernels=use_kernels, stream=stream, slotlane=slotlane,
+                        grid_packet=grid_packet)
         b.initialize(128, 72)
         b.set_scene(scene)
         for i in range(2):
             b.render(pos, d, up, fov, i == 0, readback_framebuffer=(i == 1))
         imgs[use_kernels] = b.img[..., :3].astype(np.float32)
+        if use_kernels:
+            pair = b.flat.blas[0]
+            widths = (pair.closest.nodes.shape[1], pair.any.nodes.shape[1],
+                      pair.any.leaf_rows.shape[1])
     diff = np.abs(imgs[True] - imgs[False])
     mad = float(diff.mean())
     launched = {k: n - before[k] for k, n in traverse_cuda.LAUNCHES.items() if n != before[k]}
-    mode = (", stream=True" if stream else "") + ("" if slotlane else ", slotlane=False")
+    switches = {k: v for k, v in os.environ.items()
+                if k in ("CHAMELEONRT_CLOSEST_ARITY", "CHAMELEONRT_WIDE_ARITY", "CHAMELEONRT_LEAF_SIZE")}
+    mode = ((", stream=True" if stream else "") + ("" if slotlane else ", slotlane=False")
+            + (", grid_packet=True" if grid_packet else "")
+            + "".join(f", {k}={v}" for k, v in sorted(switches.items())))
     log(f"[image] {uri} 128x72 x2 frames{mode}, kernels vs plain "
         f"traversal: 8-bit mean abs diff {mad:.6f} (gate < 1.0), max {float(diff.max())}, "
-        f"image mean {float(imgs[True].mean()):.3f}, launches {launched}")
+        f"image mean {float(imgs[True].mean()):.3f}, launches {launched}, "
+        f"row widths (closest, any, leaf) {widths}")
     if not mad < 1.0 or not imgs[True].max() > 0:
         raise AssertionError(f"kernel image of {uri} differs from the plain image or is black: MAD {mad}")
     if expect is not None and set(launched) != set(expect):
         raise AssertionError(f"{uri}{mode} launched {launched}, expected {sorted(expect)} only")
+    if tables is not None and widths != tuple(tables):
+        raise AssertionError(f"{uri}{mode} built rows of {widths} floats, expected {tables}")
+    return mad
 
 
 # a traversal kernel's name, mangled (...29closest_unified_stream_kernelE...)
 # or not ((anonymous namespace)::closest_unified_stream_kernel(float const*,
 # ...); the group is its launch-count key
 _TRAVERSAL_KERNEL = re.compile(
-    r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent)?)_kernel(?![a-z_])")
+    r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent|_packet)?)_kernel(?![a-z_])")
 
 
 def _union_us(intervals):
@@ -751,8 +1007,9 @@ def _profile_frames(torch, backend, view, median_ms, expect):
     return res
 
 
-def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True):
-    """get_backend("cuda", slotlane=slotlane) on uri at W x H and spp
+def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_packet=False):
+    """get_backend("cuda", slotlane=slotlane, grid_packet=grid_packet) on
+    uri at W x H and spp
     samples per pixel (set after set_scene, as bench.py does): one warmup,
     timed_frames frames timed on the host clock and PROFILE_FRAMES profiled frames
     (_profile_frames), with every launch count set to 0 just before and
@@ -769,7 +1026,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True):
     allocated_before = torch.cuda.memory_allocated()
     for k in traverse_cuda.LAUNCHES:
         traverse_cuda.LAUNCHES[k] = 0
-    backend = get_backend("cuda", slotlane=slotlane)
+    backend = get_backend("cuda", slotlane=slotlane, grid_packet=grid_packet)
     backend.initialize(W, H)
     t0 = time.perf_counter()
     backend.set_scene(scene)
@@ -793,6 +1050,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True):
     launches = dict(traverse_cuda.LAUNCHES)
     res = {
         "scene": uri, "width": W, "height": H, "spp": spp, "slotlane": slotlane,
+        "grid_packet": grid_packet,
         "unique_tris": backend.meta.num_tris, "instances": backend.meta.num_instances,
         "instanced_tris": scene.total_tris(),
         "set_scene_s": set_scene_s, "warmup_ms": stats[0][0] * 1e3,
@@ -819,7 +1077,8 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True):
 def _main_paths():
     """Each main path: (scene, width, height, spp, timed frames, launches
     per frame by launch-count key); the work-queue paths (QUEUE's values)
-    run with the slot-lane tier off."""
+    run with the slot-lane tier off, the grid_packet path with
+    grid_packet=True."""
     return {
         "flat": (HALL_SCENE, MAIN_W, MAIN_H, 1, HALL_TIMED_FRAMES, {"closest": 5, "any": 10}),
         "unified": (SAN_MIGUEL, MAIN_W, MAIN_H, SM_SPP, SM_TIMED_FRAMES,
@@ -834,6 +1093,8 @@ def _main_paths():
         "unified_persistent": (SAN_MIGUEL, MAIN_W, MAIN_H, SM_SPP, SM_TIMED_FRAMES,
                                {"closest_unified_persistent": 5 * SM_SPP,
                                 "any_unified_persistent": 10 * SM_SPP}),
+        "grid_packet": (HALL_SCENE, MAIN_W, MAIN_H, 1, HALL_TIMED_FRAMES,
+                        {"closest_packet": 5, "any_packet": 10}),
     }
 
 
@@ -858,8 +1119,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_toolchain(torch)
-    phase_build()
+    build_s, ptxas = phase_build()
     kres = {path: phase_kernels(torch, path) for path in TIERS}
+    pres = phase_packet(torch)
+    ares = phase_arities(torch)
+    _bvh8_stacks(torch)
     grids = _queue_grids(torch)
     phase_image(torch, HALL_IMAGE)
     phase_image(torch, INST_IMAGE)
@@ -869,14 +1133,35 @@ def main() -> int:
     phase_image(torch, HALL_IMAGE, slotlane=False, expect={"closest_persistent", "any_persistent"})
     phase_image(torch, INST_IMAGE, slotlane=False,
                 expect={"closest_unified_persistent", "any_unified_persistent"})
+    phase_image(torch, HALL_IMAGE, grid_packet=True, expect={"closest_packet", "any_packet"},
+                tables=(16, 32, 40))
+    # the JAX engine's table switches: closest hit on the binary table, BVH8
+    # rows, leaves of 8 triangles (node and leaf row widths in floats)
+    for switch, tables in ((("CHAMELEONRT_CLOSEST_ARITY", "2"), (16, 32, 40)),
+                           (("CHAMELEONRT_WIDE_ARITY", "8"), (16, 64, 40)),
+                           (("CHAMELEONRT_LEAF_SIZE", "8"), (16, 32, 80))):
+        with _env(**dict([switch])):
+            phase_image(torch, HALL_IMAGE, expect={"closest", "any"}, tables=tables)
+            phase_image(torch, INST_IMAGE, expect={"closest_unified", "any_unified"}, tables=tables)
     _TABLES.clear()  # the main paths build their own tables; peak memory is theirs
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {path: phase_main(torch, *args, slotlane=path not in QUEUE.values())
+    launches = {path: phase_main(torch, *args, slotlane=path not in QUEUE.values(),
+                                 grid_packet=path == "grid_packet")
                 for path, args in _main_paths().items()}
     foreign = _foreign_modules()
     if foreign:
         raise AssertionError(f"the port imported JAX or the JAX package: {foreign}")
+
+    def arities(label, count, err4):
+        """An entry's worst error, times and ptxas counts at each arity
+        (phase_arities; the entry's own error joins A = 4)."""
+        out = {}
+        for a in ARITIES:
+            r = ares[label][a]
+            out[str(a)] = {"max_abs_err": max(r["max_abs_err"], err4) if a == 4 else r["max_abs_err"],
+                           "mismatch": r["mismatch"], "ms": r["ms"], **ptxas.get((count, a), {})}
+        return out
 
     kernels = []
     slotlane = "chameleonrt_tpu/ops/traverse_slotlane.py"
@@ -911,6 +1196,7 @@ def main() -> int:
             "ms": primary["ms"], "plain_ms": primary["plain_ms"],
             "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"], "library_ms": None,
             "bounce_ms": bounce["ms"], "bounce_plain_ms": bounce["plain_ms"],
+            "arities": arities(name.split()[0], count, err),
         }
         if path in SAME_RAYS:  # the unstreamed kernels on the same wavefronts
             other = SAME_RAYS[path]
@@ -945,6 +1231,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[qpath][count][0],
             "launches_per_frame": launches[qpath][count][1], "max_abs_err": max(errs),
             "resident_blocks": grids[name.split()[0]],
+            "arities": arities(name.split()[0], count, max(errs)),
         }
         for tier in tiers:
             primary, bounce = kres[tier][key]
@@ -962,7 +1249,37 @@ def main() -> int:
             else:
                 entry[f"{tier}_wavefronts"] = times
         kernels.append(entry)
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    # the grid-packet kernels: binary rows only; B1 on the same rays on the
+    # binary and on the BVH4 table beside them
+    for name, key, replaces in (
+        ("B7a flat closest hit, grid packet", "closest", f"{packet}:627 (_closest_call)"),
+        ("B7b flat any hit, grid packet", "any", f"{packet}:660 (_any_call)"),
+    ):
+        primary, bounce = pres[key]
+        checked = (primary, bounce) if key == "closest" else pres["any_all"]
+        err = max(r.get("max_dt_common", r.get("max_abs_err")) for r in checked)
+        if key == "any":
+            err = max(err, float(pres["shadow"]["occ_mismatch"] > 0))
+        count = f"{key}_packet"
+        entry = {
+            "name": name, "route": "cuda", "source": "chameleonrt_tpu_torch/csrc/traverse_packet.cu",
+            "replaces": replaces, "launches": launches["grid_packet"][count][0],
+            "launches_per_frame": launches["grid_packet"][count][1], "max_abs_err": err,
+            "ms": primary["ms"], "plain_ms": primary["plain_ms"],
+            "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"], "library_ms": None,
+            "bounce_ms": bounce["ms"], "bounce_plain_ms": bounce["plain_ms"],
+            "flat_binary_kernel_ms": primary["flat_binary_ms"],
+            "flat_binary_kernel_bounce_ms": bounce["flat_binary_ms"],
+            "flat_kernel_ms": primary["flat_ms"], "flat_kernel_bounce_ms": bounce["flat_ms"],
+            "mismatch": [r.get("prim_mismatch", r.get("occ_mismatch")) for r in checked],
+            **ptxas.get((count, None), {}),
+        }
+        if key == "closest":
+            for kind in ("kernel_only_hits", "tied_t_mismatch", "kernel_nearer", "plain_nearer"):
+                entry[kind] = [r[kind] for r in checked]
+        kernels.append(entry)
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
+        f"(build {build_s:.1f} s)")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

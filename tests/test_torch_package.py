@@ -112,3 +112,45 @@ def test_chip_smoke_profile_helpers():
     for name in ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>",
                  "(anonymous namespace)::many_kernel(float const*)", "Memcpy HtoD (Pageable -> Device)"):
         assert chip_smoke._TRAVERSAL_KERNEL.search(name) is None, name
+
+
+def test_chip_smoke_knows_the_grid_packet_path_and_every_arity():
+    """chip_smoke.py drives the grid_packet main path (5 B7a and 10 B7b
+    launches a frame), pairs B7a/B7b with the plain flat walk, checks
+    B1-B6d at arity 2, 4 and 8 on scenes that reach every one of them, and
+    reads ptxas's registers and spills per kernel and arity, and the
+    profile's template and packet kernel names, as launch-count keys."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    from chameleonrt_tpu_torch.ops import traverse, traverse_cuda
+
+    assert chip_smoke._main_paths()["grid_packet"][-1] == {"closest_packet": 5, "any_packet": 10}
+    for closest, label, plain in ((True, "B7a", traverse.traverse_closest),
+                                  (False, "B7b", traverse.traverse_any)):
+        got = chip_smoke._kernel_pair("grid_packet", closest)
+        assert got[0] == label and got[2] is plain
+        assert got[1] is getattr(traverse_cuda, "traverse_closest_packet" if closest else "traverse_any_packet")
+    labels = {chip_smoke._PATHS[p][k][0] for *_, paths in chip_smoke.ARITY_CASES for p in paths
+              for k in (0, 1)}
+    assert labels == {f"B{n}" for n in (1, 2, 3, 4)} | {f"B{n}{x}" for n in (5, 6) for x in "abcd"}
+    assert chip_smoke.ARITIES == (2, 4, 8)
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110any_kernelILi8EEEvPKfS2_' for 'sm_90a'",
+        "    256 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 79 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121closest_packet_kernelEPKfS1_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers",
+    ])
+    assert chip_smoke._ptxas_table(log) == {
+        ("any", 8): {"stack_frame": 256, "spill_stores": 8, "spill_loads": 4, "registers": 79},
+        ("closest_packet", None): {"stack_frame": 0, "spill_stores": 0, "spill_loads": 0, "registers": 40},
+    }
+    for name, key in (("_ZN12_GLOBAL__N_130any_unified_persistent_kernelILi2EEEvNS_6ParamsE",
+                       "any_unified_persistent"),
+                      ("void (anonymous namespace)::closest_stream_kernel<8>(float const*)", "closest_stream"),
+                      ("(anonymous namespace)::any_packet_kernel(float const*, int)", "any_packet")):
+        assert chip_smoke._TRAVERSAL_KERNEL.search(name).group(1) == key, name

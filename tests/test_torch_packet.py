@@ -1,0 +1,268 @@
+"""The port's grid-packet kernels B7a/B7b (ops/traverse_cuda.py
+traverse_closest_packet / traverse_any_packet) and their route
+(grid_packet=True) against the JAX package.
+
+- The wrappers, which run the plain flat traversal on CPU tensors, against
+  the JAX traverse_closest_packet / traverse_any_packet that they replace,
+  in interpret mode (the suite's K=8 slots, conftest), on
+  tests/test_traverse_packet.py's case: 3000 random triangles, 4096 sorted
+  rays with 100 inactive, the same binary table (the JAX package's native
+  binding over the port's library, test_torch_host).
+- The wrappers take binary rows of a flat table only and size the stack
+  from the certified depth.
+- The route: make_trace_fns(grid_packet=True) traces both hit kinds of a
+  flat scene on its binary table through B7a/B7b, whatever stream,
+  slotlane and CHAMELEONRT_CLOSEST_ARITY say, and refuses a multi-instance
+  scene; a grid_packet=True frame of the textured hall against the JAX
+  `tpu` backend under CHAMELEONRT_CLOSEST_ARITY=2.
+
+Tolerances are those of tests/test_torch_traverse.py (XLA on the CPU fuses
+multiply-adds, the port does not): t within rtol 1e-5, u/v within 2e-5;
+prims and occlusion flags equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chameleonrt_tpu import native as jnative
+from chameleonrt_tpu.ops import traverse_packet as tp
+from chameleonrt_tpu.ops.lbvh import PackedBvh as JaxPackedBvh
+from chameleonrt_tpu.ops.traverse import ray_sort_perm
+from chameleonrt_tpu_torch import _build, native
+from chameleonrt_tpu_torch.core.registry import get_backend
+from chameleonrt_tpu_torch.engine import device_scene as tds
+from chameleonrt_tpu_torch.engine import trace_bvh as ttb
+from chameleonrt_tpu_torch.ops import traverse as plain
+from chameleonrt_tpu_torch.ops import traverse_cuda
+from chameleonrt_tpu_torch.scene.loader import load_scene
+from test_cross_backend import _assert_images_match, render_frames
+from test_torch_host import jax_native_on_port_library
+from test_torch_path_tracer import _render_port
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.skipif(native.get_lib() is None, reason="native builder unavailable")
+
+T_RTOL = 1e-5
+UV_ATOL = 2e-5
+HALL = "proc://hall?subdiv=1&textured=1&columns=4"
+CITY = "proc://city?n=8"
+INSTANCES = "proc://instances?nx=3&ny=3&subdiv=1"
+WRAPPERS = {"closest": traverse_cuda.traverse_closest_packet, "any": traverse_cuda.traverse_any_packet}
+
+
+@pytest.fixture(scope="module")
+def soup():
+    """(port binary table, JAX binary table, sorted rays) of
+    tests/test_traverse_packet.py's clustered soup."""
+    rng = np.random.default_rng(0)
+    n_tri, n_rays = 3000, 4096
+    centers = rng.uniform(-10, 10, (n_tri, 3)).astype(np.float32)
+    v0 = centers + rng.uniform(-0.3, 0.3, (n_tri, 3)).astype(np.float32)
+    e1 = rng.uniform(-0.6, 0.6, (n_tri, 3)).astype(np.float32)
+    e2 = rng.uniform(-0.6, 0.6, (n_tri, 3)).astype(np.float32)
+    with jax_native_on_port_library():
+        nodes2, _, leaf_rows, depth2, _ = jnative.build_bvh_pair_native(v0, e1, e2, 4)
+    table = tds.PackedBvh(torch.from_numpy(nodes2.copy()), torch.from_numpy(leaf_rows.copy()), depth2)
+    jtable = JaxPackedBvh(jnp.asarray(nodes2), jnp.asarray(leaf_rows), max_depth=depth2)
+    o = jnp.asarray(rng.uniform(-12, 12, (n_rays, 3)).astype(np.float32))
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True))
+    a = jnp.ones((n_rays,), bool).at[:100].set(False)
+    perm, _ = ray_sort_perm(o, d, a)
+    return table, jtable, (np.asarray(o[perm]), np.asarray(d[perm]), np.asarray(a[perm]))
+
+
+@pytest.fixture(scope="module")
+def jax_closest(soup):
+    """The JAX B7a's (t, prim, u, v) on the soup, in interpret mode."""
+    _, jtable, (o, d, a) = soup
+    t_min = jnp.full((o.shape[0],), 1e-4, jnp.float32)
+    return tuple(np.asarray(x) for x in tp.traverse_closest_packet(
+        jtable, jnp.asarray(o), jnp.asarray(d), t_min, jnp.asarray(a), interpret=True))
+
+
+def _torch(*xs):
+    return tuple(torch.from_numpy(np.array(x)) for x in xs)
+
+
+def test_closest_packet_matches_jax_packet_kernel(soup, jax_closest):
+    table, _, (o, d, a) = soup
+    R = o.shape[0]
+    t_ref, p_ref, u_ref, v_ref = jax_closest
+    before = dict(traverse_cuda.LAUNCHES)
+    t, p, u, v = (x.numpy() for x in traverse_cuda.traverse_closest_packet(
+        table, *_torch(o, d, np.full(R, 1e-4, np.float32), a, np.full(R, 1e20, np.float32))))
+    np.testing.assert_array_equal(p, p_ref)
+    np.testing.assert_allclose(t, t_ref, rtol=T_RTOL)
+    np.testing.assert_allclose(u, u_ref, atol=UV_ATOL)
+    np.testing.assert_allclose(v, v_ref, atol=UV_ATOL)
+    assert (p >= 0).sum() > 0 and (p[~a] == -1).all() and (t[~a] == 1e20).all()
+    assert traverse_cuda.LAUNCHES == before
+
+
+def test_any_packet_matches_jax_packet_kernel(soup, jax_closest):
+    """Occlusion at t_max = 1.001 x the closest hit (30 on a miss), with
+    the 100 inactive lanes masked out."""
+    table, jtable, (o, d, a) = soup
+    R = o.shape[0]
+    t_ref = jax_closest[0]
+    t_min = np.full(R, 1e-4, np.float32)
+    t_max = np.where(t_ref < 1e19, t_ref * 1.001, 30.0).astype(np.float32)
+    ref = np.asarray(tp.traverse_any_packet(jtable, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_min),
+                                            jnp.asarray(t_max), jnp.asarray(a), interpret=True))
+    got = traverse_cuda.traverse_any_packet(table, *_torch(o, d, t_min, t_max, a)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got.sum() > 0 and not got[~a].any()
+
+
+def _call(kind, table, R=8, t_max=None):
+    o, d = torch.full((R, 3), 0.1), torch.nn.functional.normalize(torch.ones((R, 3)), dim=1)
+    tmin, tmax = torch.full((R,), 1e-4), torch.full((R,), 1e20) if t_max is None else t_max
+    flag = torch.ones((R,), dtype=torch.bool)
+    if kind == "closest":
+        return WRAPPERS[kind](table, o, d, tmin, flag, tmax)
+    return WRAPPERS[kind](table, o, d, tmin, tmax, flag)
+
+
+@pytest.fixture(scope="module")
+def city():
+    scene = load_scene(CITY)
+    flat, meta = tds.build_device_scene(scene, torch.device("cpu"))
+    return scene, flat._replace(blas=ttb.build_blas_set(flat, meta)), meta
+
+
+@pytest.fixture(scope="module")
+def instances():
+    scene = load_scene(INSTANCES)
+    flat, meta = tds.build_device_scene(scene, torch.device("cpu"))
+    return scene, flat._replace(blas=ttb.build_blas_set(flat, meta)), meta
+
+
+@pytest.mark.parametrize("kind", sorted(WRAPPERS))
+@pytest.mark.parametrize("fault", ["bvh4", "bvh8", "two_level", "dtype", "shape"])
+def test_packet_wrappers_take_binary_flat_tables_only(city, instances, kind, fault, monkeypatch):
+    """BVH4 and BVH8 rows, a two-level table, float64 node rows and a wrong
+    t_max shape raise before any traversal."""
+
+    def no_traversal(*args, **kwargs):
+        raise AssertionError("traversed what the kernels cannot take")
+
+    monkeypatch.setattr(plain, "traverse_closest", no_traversal)
+    monkeypatch.setattr(plain, "traverse_any", no_traversal)
+    table = city[1].blas[0].closest
+    t_max = None
+    if fault == "bvh4":
+        table = city[1].blas[0].any
+    elif fault == "bvh8":
+        table = table._replace(nodes=torch.zeros((4, 64)))
+    elif fault == "two_level":
+        table = instances[1].blas[0].closest
+    elif fault == "shape":
+        t_max = torch.full((9,), 1e20)
+    if fault == "dtype":
+        with pytest.raises(TypeError):
+            _call(kind, table._replace(nodes=table.nodes.double()))
+    else:
+        with pytest.raises(ValueError):
+            _call(kind, table, t_max=t_max)
+
+
+@pytest.mark.parametrize("kind", sorted(WRAPPERS))
+def test_packet_wrappers_pass_the_certified_stack_depth(city, kind, monkeypatch):
+    """The stack is the certified binary depth + 1, as the TPU kernels size
+    theirs (traverse_packet.py:2406, :2454): a depth of 48 gives 49; one of
+    MAX_STACK raises before any traversal, as in B1-B6d."""
+    table = city[1].blas[0].closest
+    seen = []
+    real = traverse_cuda.stack_depth
+    monkeypatch.setattr(traverse_cuda, "stack_depth", lambda t: seen.append(real(t)) or seen[-1])
+    _call(kind, table._replace(max_depth=48))
+    assert seen == [49]
+    monkeypatch.setattr(_build, "kernels", None)
+    with pytest.raises(ValueError, match="stack depth"):
+        _call(kind, table._replace(max_depth=_build.MAX_STACK))
+
+
+def test_packet_wrappers_route_cpu_tensors_to_plain_without_counting(city):
+    table = city[1].blas[0].closest
+    g = torch.Generator().manual_seed(7)
+    R = 300
+    o = torch.rand((R, 3), generator=g) * 2 - 1
+    d = torch.nn.functional.normalize(torch.randn((R, 3), generator=g), dim=1)
+    tmin, tmax = torch.full((R,), 1e-4), torch.full((R,), 30.0)
+    flag = torch.rand((R,), generator=g) > 0.2
+    before = dict(traverse_cuda.LAUNCHES)
+    got = traverse_cuda.traverse_closest_packet(table, o, d, tmin, flag, tmax)
+    ref = plain.traverse_closest(table, o, d, tmin, flag, tmax)
+    assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    assert torch.equal(traverse_cuda.traverse_any_packet(table, o, d, tmin, tmax, flag),
+                       plain.traverse_any(table, o, d, tmin, tmax, flag))
+    assert traverse_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kwargs, env", [
+    ({}, {}),
+    ({"stream": True}, {}),
+    ({"slotlane": False}, {"CHAMELEONRT_CLOSEST_ARITY": "4"}),
+    ({"stream": False, "slotlane": True}, {"CHAMELEONRT_CLOSEST_ARITY": "2"}),
+])
+def test_grid_packet_routes_both_hit_kinds_through_b7_on_the_binary_table(city, kwargs, env,
+                                                                          monkeypatch):
+    """grid_packet=True: closest and any hit of a flat scene both trace its
+    binary table (16 floats a row) through B7a and B7b, whatever stream,
+    slotlane and CHAMELEONRT_CLOSEST_ARITY say."""
+    _, flat, meta = city
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    calls = []
+    for name in ("traverse_closest_packet", "traverse_any_packet"):
+        real = getattr(traverse_cuda, name)
+
+        def spy(table, *args, _real=real, _name=name):
+            calls.append((_name, table.nodes.shape[1]))
+            return _real(table, *args)
+
+        monkeypatch.setattr(traverse_cuda, name, spy)
+    closest, any_ = ttb.make_trace_fns(meta, blas=flat.blas, grid_packet=True, **kwargs)
+    g = torch.Generator().manual_seed(3)
+    o = torch.rand((64, 3), generator=g) * 2 - 1
+    d = torch.nn.functional.normalize(torch.randn((64, 3), generator=g), dim=1)
+    active = torch.ones((64,), dtype=torch.bool)
+    hit = closest(flat, o, d, 1e-4, active)
+    any_(flat, o, d, torch.where(hit.tri >= 0, hit.t, torch.full_like(hit.t, 30.0)), active)
+    assert calls == [("traverse_closest_packet", 16), ("traverse_any_packet", 16)]
+
+
+def test_grid_packet_refuses_a_multi_instance_scene(instances):
+    """The JAX package has no two-level grid-packet kernel: make_trace_fns
+    and the backend's set_scene raise ValueError."""
+    scene, flat, meta = instances
+    with pytest.raises(ValueError, match="grid_packet"):
+        ttb.make_trace_fns(meta, blas=flat.blas, grid_packet=True)
+    with pytest.raises(ValueError, match="grid_packet"):
+        ttb.make_trace_fns(meta, use_kernels=False, grid_packet=True)
+    b = get_backend("cuda", device="cpu", grid_packet=True)
+    b.initialize(8, 8)
+    with pytest.raises(ValueError, match="grid_packet"):
+        b.set_scene(scene)
+
+
+def test_grid_packet_frame_matches_jax_tpu_backend(tmp_path, monkeypatch):
+    """A grid_packet=True frame of the textured hall on the CPU (both hit
+    kinds on the binary table) against the JAX tpu backend with closest
+    hit on the binary table (CHAMELEONRT_CLOSEST_ARITY=2), the JAX
+    engine's table for B7a."""
+    monkeypatch.setenv("CHAMELEONRT_CLOSEST_ARITY", "2")
+    img_ref, acc_ref, _ = render_frames("tpu", HALL, 40, 1, tmpdir=str(tmp_path))
+    calls = []
+    real = traverse_cuda.traverse_closest_packet
+    monkeypatch.setattr(traverse_cuda, "traverse_closest_packet",
+                        lambda *a: calls.append(1) or real(*a))
+    b = _render_port(HALL, 40, 1, grid_packet=True)
+    acc = b._accum.numpy()
+    assert np.isfinite(acc).all() and acc.max() > 0
+    _assert_images_match(img_ref, b.img[..., :3].astype(np.float32), acc_ref, acc)
+    assert len(calls) == 5

@@ -328,8 +328,9 @@ def test_persistent_wrappers_pass_the_certified_stack_depth(city, instances, nam
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 @pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity", "arity", "device_mix"])
 def test_persistent_wrappers_refuse_what_the_kernels_do_not_take(city, instances, name, fault):
-    """float64 rays, a wrong t_max shape, non-contiguous directions, a
-    binary table and inputs on two devices raise before any traversal."""
+    """float64 rays, a wrong t_max shape, non-contiguous directions, node
+    rows of 24 floats (arity 3: the kernels take 2, 4 and 8) and inputs
+    on two devices raise before any traversal."""
     table = _table(name, city, instances)
     R = 8
     o = torch.full((R, 3), 0.1)
@@ -343,7 +344,7 @@ def test_persistent_wrappers_refuse_what_the_kernels_do_not_take(city, instances
         d = torch.from_numpy(np.asfortranarray(d.numpy()))
         assert not d.is_contiguous()
     elif fault == "arity":
-        table = (instances if WRAPPERS[name][2] else city)[1].blas[0].closest
+        table = table._replace(nodes=table.nodes[:, :24].contiguous())
     else:
         t_max = torch.full((R,), 1e20, device="meta")
     with pytest.raises(TypeError if fault == "dtype" else ValueError):

@@ -227,8 +227,9 @@ def test_unified_wrappers_route_cpu_tensors_to_plain(tables):
 @pytest.mark.parametrize("wrapper", ["closest", "any"])
 @pytest.mark.parametrize("fault", ["stack", "arity", "dtype"])
 def test_unified_wrappers_refuse_what_the_kernels_do_not_take(tables, wrapper, fault):
-    """A table whose stack need exceeds the kernel's, a binary table, and
-    float64 rays raise before any traversal, on any device."""
+    """A table whose stack need exceeds the kernel's, node rows of 24
+    floats (arity 3: the kernels take 2, 4 and 8), and float64 rays raise
+    before any traversal, on any device."""
     _, port, _, _, _ = tables
     R = 8
     o, d, a = _rays(port.inst_aabb.numpy(), R, seed=15)
@@ -239,7 +240,7 @@ def test_unified_wrappers_refuse_what_the_kernels_do_not_take(tables, wrapper, f
     if fault == "stack":
         table = table._replace(stack_bound=100)
     elif fault == "arity":
-        table = port.closest
+        table = table._replace(nodes=table.nodes[:, :24].contiguous())
     else:
         o = o.double()
     err = TypeError if fault == "dtype" else ValueError

@@ -219,9 +219,10 @@ def test_streamed_tier_gate_reads_two_level_tables(two_level):
 @pytest.mark.parametrize("wrapper", ["closest", "any"])
 @pytest.mark.parametrize("fault", ["dtype", "shape", "arity", "depth", "entry_row"])
 def test_unified_stream_wrappers_refuse_what_the_kernels_do_not_take(two_level, wrapper, fault):
-    """float64 rays, a wrong t_max shape, a binary table, a table whose
-    stack need exceeds MAX_STACK and leaf rows too narrow for an entry row
-    raise before any traversal."""
+    """float64 rays, a wrong t_max shape, node rows of 24 floats (arity 3:
+    the kernels take 2, 4 and 8), a table whose stack need exceeds
+    MAX_STACK and leaf rows too narrow for an entry row raise before any
+    traversal."""
     _, flat, _ = two_level
     table = flat.blas[0].any
     R = 8
@@ -233,7 +234,7 @@ def test_unified_stream_wrappers_refuse_what_the_kernels_do_not_take(two_level, 
     elif fault == "shape":
         tmax = torch.full((R + 1,), 1e20)
     elif fault == "arity":
-        table = flat.blas[0].closest
+        table = table._replace(nodes=table.nodes[:, :24].contiguous())
     elif fault == "depth":
         table = table._replace(stack_bound=_build.MAX_STACK)
     else:
