@@ -29,9 +29,11 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-fmad=false",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# what the traversal kernels hold (kMaxStack, kMaxLeaf in
-# csrc/traverse_common.cuh); kernels() checks the library against them
-MAX_STACK = 64
+# what the traversal kernels hold (kSmallStack, kMaxStack, kMaxLeaf in
+# csrc/traverse_common.cuh): the per-lane kernels are instantiated at each
+# stack capacity; kernels() checks the library against the largest
+STACK_CAPACITIES = (64, 128)
+MAX_STACK = STACK_CAPACITIES[-1]
 MAX_LEAF = 16
 
 
@@ -132,35 +134,44 @@ def kernel_library_path() -> str:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def kernels() -> ctypes.CDLL:
-    """The traversal kernels' library, compiled and loaded on first call.
-    Every entry of B1-B6d takes the node rows' arity (2, 4 or 8) before
-    the leaf size; B7a/B7b take binary rows only."""
-    lib = ctypes.CDLL(kernel_library_path())
+def load_library(path: str) -> ctypes.CDLL:
+    """The traversal kernels' library at path, loaded and bound. Every
+    entry of B1-B6d takes the node rows' arity (2, 4 or 8) before the leaf
+    size; those of the per-lane kernels (B1-B4, B5c, B5d, B6a-B6d) take the
+    stack capacity after the depth, B5c's and B5d's then their shared TLAS
+    and entry rows; B5a, B5b, B7a and B7b keep a stack of MAX_STACK entries
+    in shared memory, and B7a/B7b take binary rows only."""
+    lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
+    # B5a / B5b: nodes, leaf rows, leaves, arity, L, depth, rays..., R, stream
     flat_closest = [p, p, i, i, i, i, p, p, p, p, p, p, p, p, p, i, p]
     flat_any = [p, p, i, i, i, i, p, p, p, p, p, p, i, p]
-    unified_closest = [p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p]
-    unified_any = [p, p, i, i, i, i, i, p, p, p, p, p, p, i, p]
-    for tier in ("", "_stream"):
-        getattr(lib, f"crt_traverse_closest{tier}").argtypes = flat_closest
-        getattr(lib, f"crt_traverse_any{tier}").argtypes = flat_any
-        getattr(lib, f"crt_traverse_closest_unified{tier}").argtypes = unified_closest
-        getattr(lib, f"crt_traverse_any_unified{tier}").argtypes = unified_any
+    lib.crt_traverse_closest_stream.argtypes = flat_closest
+    lib.crt_traverse_any_stream.argtypes = flat_any
+    # B1 / B2: the stack capacity after the depth
+    lib.crt_traverse_closest.argtypes = flat_closest[:6] + [i] + flat_closest[6:]
+    lib.crt_traverse_any.argtypes = flat_any[:6] + [i] + flat_any[6:]
+    # B3 / B4: nodes, leaf rows, n_tri, tlas_lo, arity, L, depth, capacity, rays..., R, stream
+    unified_closest = [p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p]
+    unified_any = [p, p, i, i, i, i, i, i, p, p, p, p, p, p, i, p]
+    lib.crt_traverse_closest_unified.argtypes = unified_closest
+    lib.crt_traverse_any_unified.argtypes = unified_any
+    # B5c / B5d: the TLAS and entry rows held in shared memory after the capacity
+    lib.crt_traverse_closest_unified_stream.argtypes = unified_closest[:8] + [i, i] + unified_closest[8:]
+    lib.crt_traverse_any_unified_stream.argtypes = unified_any[:8] + [i, i] + unified_any[8:]
     # the work-queue kernels take one more pointer, the queue's counter, before R
-    lib.crt_traverse_closest_persistent.argtypes = flat_closest[:-2] + [p, i, p]
-    lib.crt_traverse_any_persistent.argtypes = flat_any[:-2] + [p, i, p]
-    lib.crt_traverse_closest_unified_persistent.argtypes = unified_closest[:-2] + [p, i, p]
-    lib.crt_traverse_any_unified_persistent.argtypes = unified_any[:-2] + [p, i, p]
-    # the grid-packet kernels: B1's and B2's arguments without the arity
+    for kind in ("closest", "any"):
+        for tier in ("", "_unified"):
+            base = getattr(lib, f"crt_traverse_{kind}{tier}").argtypes
+            getattr(lib, f"crt_traverse_{kind}{tier}_persistent").argtypes = base[:-2] + [p, i, p]
+    # the grid-packet kernels: B5a's and B5b's arguments without the arity
     lib.crt_traverse_closest_packet.argtypes = flat_closest[:3] + flat_closest[4:]
     lib.crt_traverse_any_packet.argtypes = flat_any[:3] + flat_any[4:]
     for kind in ("closest", "any"):
         for tier in ("", "_unified", "_stream", "_unified_stream", "_persistent",
                      "_unified_persistent", "_packet"):
             getattr(lib, f"crt_traverse_{kind}{tier}").restype = i
-    lib.crt_persistent_blocks.argtypes = [i, i]
+    lib.crt_persistent_blocks.argtypes = [i, i, i]
     lib.crt_persistent_blocks.restype = i
     lib.crt_error_string.argtypes = [i]
     lib.crt_error_string.restype = ctypes.c_char_p
@@ -174,3 +185,10 @@ def kernels() -> ctypes.CDLL:
             f"the wrappers expect {MAX_STACK} and {MAX_LEAF}"
         )
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def kernels() -> ctypes.CDLL:
+    """The traversal kernels' library, compiled and loaded on first call
+    (load_library)."""
+    return load_library(kernel_library_path())

@@ -1,7 +1,7 @@
 // Device helpers shared by the traversal kernels (traverse_flat.cu: B1, B2;
-// traverse_unified.cu: B3, B4; traverse_stream.cu: B5a, B5b, B5c, B5d;
-// traverse_persistent.cu: B6a, B6b, B6c, B6d; traverse_packet.cu: B7a,
-// B7b, on binary rows only).
+// traverse_unified.cu: B3, B4; traverse_stream.cu: B5a, B5b;
+// traverse_unified_stream.cu: B5c, B5d; traverse_persistent.cu: B6a, B6b,
+// B6c, B6d; traverse_packet.cu: B7a, B7b, on binary rows only).
 //
 // Semantics shared with the plain torch version
 // (chameleonrt_tpu_torch/ops/traverse.py):
@@ -20,6 +20,15 @@
 //   - Moller-Trumbore with det eps 1e-9 and barycentric band 4e-6.
 // Every file is built with -fmad=false so every product and sum rounds as
 // in the plain version.
+//
+// Stacks: depth, the SAH build's certified bound + 1, reaches 76 on BVH8
+// tables of the main-path scenes. The per-lane kernels (B1-B4, B5c, B5d,
+// B6a-B6d) keep a local array of S entries, S a template parameter
+// instantiated at kSmallStack and kMaxStack; their C entries switch on the
+// capacity the wrapper picks (CRT_BY_STACK), the smallest that holds depth,
+// so a BVH4 table keeps the 64-entry array. The warp-packet kernels (B5a,
+// B5b, B7a, B7b) keep one stack of kMaxStack entries per warp in shared
+// memory.
 
 #pragma once
 
@@ -29,7 +38,8 @@
 
 namespace crt {
 
-constexpr int kMaxStack = 64;     // _build.MAX_STACK
+constexpr int kSmallStack = 64;   // _build.STACK_CAPACITIES[0]
+constexpr int kMaxStack = 128;    // _build.MAX_STACK
 constexpr int kMaxLeaf = 16;      // _build.MAX_LEAF
 constexpr int kThreads = 128;
 constexpr int kDone = 0x7FFFFFFF;
@@ -255,6 +265,23 @@ __device__ __forceinline__ bool in_world(int cur, int n_tri, int tlas_lo) {
   }                                                               \
   return static_cast<int>(cudaGetLastError())
 
+// The per-lane kernels' switch onto their stack capacity, inside
+// CRT_BY_ARITY: runs the statement given with the constant S set to cap
+// (kSmallStack or kMaxStack); a depth outside [2, cap], or any other
+// capacity, returns cudaErrorInvalidValue and launches nothing.
+#define CRT_BY_STACK(cap, depth, ...)                                                  \
+  do {                                                                                 \
+    if ((depth) < 2 || (depth) > (cap)) return static_cast<int>(cudaErrorInvalidValue); \
+    switch (cap) {                                                                     \
+      case kSmallStack: { constexpr int S = kSmallStack; __VA_ARGS__; } break;         \
+      case kMaxStack: { constexpr int S = kMaxStack; __VA_ARGS__; } break;             \
+      default: return static_cast<int>(cudaErrorInvalidValue);                         \
+    }                                                                                  \
+  } while (0)
+
+#define CRT_BY_ARITY_STACK(arity, cap, depth, ...) \
+  CRT_BY_ARITY(arity, CRT_BY_STACK(cap, depth, __VA_ARGS__))
+
 __device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,
                                         const float* t_min, int i) {
   Ray r;
@@ -263,6 +290,139 @@ __device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,
   r.ix = 1.0f / r.dx; r.iy = 1.0f / r.dy; r.iz = 1.0f / r.dz;
   r.tmin = t_min[i];
   return r;
+}
+
+// A two-level table's rows read from global memory through the read-only
+// path: B3/B4's row source for the walks below. A row source T of arity A
+// holds n_tri and tlas_lo and reads
+//   t.node_row(cur, row): node row cur into row[8A];
+//   t.entry(leaf, m): instance-entry leaf's cols 0-13 into m[kEntryCols];
+//   t.leaf_slots(leaf, visit): visit(Tri) on triangle leaf `leaf`'s slots
+//     0, 1, ... until it returns true.
+// B5c/B5d's (traverse_unified_stream.cu) reads its shared rows first.
+template <int A>
+struct GlobalRows {
+  const float* nodes;
+  const float* leaf_rows;
+  int n_tri, tlas_lo, L;
+
+  __device__ __forceinline__ void node_row(int cur, float* row) const {
+    load_row<A>(nodes, cur, row);
+  }
+  __device__ __forceinline__ void entry(int leaf, float* m) const {
+    const float* erow = leaf_rows + static_cast<size_t>(leaf) * 10 * L;
+#pragma unroll
+    for (int c = 0; c < kEntryCols; ++c) m[c] = __ldg(erow + c);
+  }
+  template <typename Visit>
+  __device__ __forceinline__ void leaf_slots(int leaf, Visit visit) const {
+    const float* lrow = leaf_rows + static_cast<size_t>(leaf) * 10 * L;
+    for (int j = 0; j < L; ++j)
+      if (visit(load_tri(lrow, L, j))) return;
+  }
+};
+
+// The closest-hit walk of one live world ray w over the rows of t (B3,
+// B5c): the rules of traverse_unified.cu's header, a stack of S entries of
+// which depth - 1 may be filled. Updates (best, best_prim, best_inst,
+// best_u, best_v) on each nearer hit; an overflow sets best_prim = -2.
+template <int A, int S, typename T>
+__device__ __forceinline__ void closest_two_level(const T& t, int depth, const Ray& w,
+                                                  float& best, int& best_prim, int& best_inst,
+                                                  float& best_u, float& best_v) {
+  Ray r = w;
+  int inst = 0;  // the instance whose object space r holds
+  int stack[S];
+  int sp = 0;
+  int cur = t.tlas_lo;
+  while (cur != kDone) {
+    if (cur >= 0) {
+      float row[row_floats<A>()];
+      t.node_row(cur, row);
+      float keys[A];
+      int codes[A];
+      slab_children<A>(row, r, best, keys, codes);
+      sort_children<A>(keys, codes);
+      for (int k = A - 1; k >= 1; --k) {
+        if (keys[k] < kBig) {
+          if (sp >= depth - 1) {  // overflow
+            best_prim = -2;
+            return;
+          }
+          stack[sp++] = codes[k];
+        }
+      }
+      cur = keys[0] < kBig ? codes[0] : (sp > 0 ? stack[--sp] : kDone);
+    } else if (-cur - 1 < t.n_tri) {
+      float lt = best, lu = 0.0f, lv = 0.0f;
+      int lp = -1;
+      t.leaf_slots(-cur - 1, [&](const Tri& s) {
+        float tt, u, v;
+        int prim;
+        if (mt_tri(s, r, best, &tt, &u, &v, &prim) && tt <= lt) {
+          lt = tt; lu = u; lv = v; lp = prim;
+        }
+        return false;
+      });
+      if (lp >= 0) {  // some slot hit, so lt < best
+        best = lt; best_prim = lp; best_inst = inst; best_u = lu; best_v = lv;
+      }
+      cur = sp > 0 ? stack[--sp] : kDone;
+    } else {
+      float m[kEntryCols];
+      t.entry(-cur - 1, m);
+      r = enter_instance(m, w);
+      cur = __float_as_int(m[12]);  // a BLAS row: stay in object space
+      inst = __float_as_int(m[13]);
+      continue;
+    }
+    if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;
+  }
+}
+
+// The any-hit walk of one live world ray w over the rows of t (B4, B5d):
+// whether some t_min < t < tmax hit exists; an overflow is occluded.
+template <int A, int S, typename T>
+__device__ __forceinline__ bool any_two_level(const T& t, int depth, const Ray& w, float tmax) {
+  Ray r = w;
+  int stack[S];
+  int sp = 0;
+  int cur = t.tlas_lo;
+  while (cur != kDone) {
+    if (cur >= 0) {
+      float row[row_floats<A>()];
+      t.node_row(cur, row);
+      float keys[A];
+      int codes[A];
+      slab_children<A>(row, r, tmax, keys, codes);
+      sort_children<A>(keys, codes);
+      for (int k = A - 1; k >= 1; --k) {
+        if (keys[k] < kBig) {
+          if (sp >= depth - 1) return true;  // overflow reports occluded
+          stack[sp++] = codes[k];
+        }
+      }
+      cur = keys[0] < kBig ? codes[0] : (sp > 0 ? stack[--sp] : kDone);
+    } else if (-cur - 1 < t.n_tri) {
+      bool occ = false;
+      t.leaf_slots(-cur - 1, [&](const Tri& s) {
+        float tt, u, v;
+        int prim;
+        occ = mt_tri(s, r, tmax, &tt, &u, &v, &prim);
+        return occ;
+      });
+      if (occ) return true;
+      cur = sp > 0 ? stack[--sp] : kDone;
+    } else {
+      float m[kEntryCols];
+      t.entry(-cur - 1, m);
+      r = enter_instance(m, w);
+      cur = __float_as_int(m[12]);
+      continue;
+    }
+    if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;
+  }
+  return false;
 }
 
 }  // namespace crt

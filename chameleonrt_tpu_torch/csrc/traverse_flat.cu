@@ -13,8 +13,8 @@
 // kernels are held against. The row layouts and the rules shared with the
 // plain version are in traverse_common.cuh; each kernel is a template on
 // the node rows' arity A (2, 4 or 8), as the Pallas kernel takes any arity
-// of its sorting networks (traverse_slotlane.py:994), and its C entry
-// switches on the arity. Here:
+// of its sorting networks (traverse_slotlane.py:994), and on its stack
+// capacity S (64 or 128); its C entry switches on both. Here:
 //   - B1 keeps a hit on t < best (ties inside a leaf go to the highest
 //     slot); on a stack overflow it reports prim = -2, t = 1e20;
 //   - B2 stops at the first t_min < t < t_max; an overflow is occluded;
@@ -39,7 +39,7 @@ namespace {
 
 using namespace crt;
 
-template <int A>
+template <int A, int S>
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
                int n_leaves, int L, int depth, const float* __restrict__ orig,
@@ -54,7 +54,7 @@ closest_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_r
   float best_u = 0.0f, best_v = 0.0f;
   if (active[i]) {
     Ray r = load_ray(orig, dir, t_min, i);
-    int stack[kMaxStack];
+    int stack[S];
     int sp = 0;
     bool overflow = false;
     int cur = n_leaves == 1 ? -1 : 0;  // a one-leaf table starts at leaf 0
@@ -96,7 +96,7 @@ closest_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_r
   v_out[i] = best_v;
 }
 
-template <int A>
+template <int A, int S>
 __global__ void __launch_bounds__(kThreads)
 any_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
            int n_leaves, int L, int depth, const float* __restrict__ orig,
@@ -109,7 +109,7 @@ any_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
   if (mask[i]) {
     Ray r = load_ray(orig, dir, t_min, i);
     float tmax = t_max[i];
-    int stack[kMaxStack];
+    int stack[S];
     int sp = 0;
     int cur = n_leaves == 1 ? -1 : 0;
     while (cur != kDone && !occ) {
@@ -147,31 +147,32 @@ extern "C" {
 int crt_max_stack() { return kMaxStack; }
 int crt_max_leaf() { return kMaxLeaf; }
 
-// Launch B1 on `stream` over node rows of `arity` children. Returns the
+// Launch B1 on `stream` over node rows of `arity` children with a stack of
+// `cap` entries (kSmallStack or kMaxStack, at least depth). Returns the
 // cudaError_t of the launch.
 int crt_traverse_closest(const float* nodes, const float* leaf_rows, int n_leaves, int arity,
-                         int L, int depth, const float* orig, const float* dir,
+                         int L, int depth, int cap, const float* orig, const float* dir,
                          const float* t_min, const float* t_max, const uint8_t* active,
                          float* t_out, int* prim_out, float* u_out, float* v_out, int R,
                          void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CRT_BY_ARITY(arity, closest_kernel<A><<<grid, kThreads, 0, s>>>(
+  CRT_BY_ARITY_STACK(arity, cap, depth, closest_kernel<A, S><<<grid, kThreads, 0, s>>>(
       nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, active, t_out,
       prim_out, u_out, v_out, R));
 }
 
-// Launch B2 on `stream` over node rows of `arity` children. Returns the
-// cudaError_t of the launch.
+// Launch B2 on `stream` over node rows of `arity` children with a stack of
+// `cap` entries. Returns the cudaError_t of the launch.
 int crt_traverse_any(const float* nodes, const float* leaf_rows, int n_leaves, int arity, int L,
-                     int depth, const float* orig, const float* dir, const float* t_min,
+                     int depth, int cap, const float* orig, const float* dir, const float* t_min,
                      const float* t_max, const uint8_t* mask, uint8_t* occluded, int R,
                      void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CRT_BY_ARITY(arity, any_kernel<A><<<grid, kThreads, 0, s>>>(
+  CRT_BY_ARITY_STACK(arity, cap, depth, any_kernel<A, S><<<grid, kThreads, 0, s>>>(
       nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, mask, occluded, R));
 }
 

@@ -39,10 +39,10 @@
 // in_world holds restores the world ray. A lane's refill resets its world
 // and object rays, its stack and its instance, so a ray that ended inside
 // a BLAS leaves nothing behind.
-// Like B1-B5d, each kernel is a template on the node rows' arity A (2, 4
-// or 8; the Pallas kernels take 2, 4 or 8, traverse_packet.py:2340-2345),
-// its C entry switches on the arity, and each instantiation sizes its own
-// grid.
+// Like B1-B4, each kernel is a template on the node rows' arity A (2, 4
+// or 8; the Pallas kernels take 2, 4 or 8, traverse_packet.py:2340-2345)
+// and on its stack capacity S (64 or 128), its C entry switches on both,
+// and each instantiation sizes its own grid.
 // Built with -fmad=false, so t agrees with the plain version bit for bit.
 //
 // What bounds it on the H100: as B1-B4, dependent row fetches (latency, not
@@ -197,11 +197,11 @@ __device__ __forceinline__ void finish(const Params& p, const Walk& s, int i) {
 // The persistent loop. Every lane of a warp stays in it until a warp-wide
 // vote finds no lane with a ray after the refill, which happens only once
 // the queue is empty, so every *_sync intrinsic sees all 32 lanes.
-template <bool kAny, bool kUnified, int A>
+template <bool kAny, bool kUnified, int A, int S>
 __device__ __forceinline__ void persistent(const Params& p) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
-  int stack[kMaxStack];
+  int stack[S];
   Walk s;
   s.cur = kDone;
   int ray = -1;                 // this lane's ray, -1 while it has none
@@ -236,24 +236,24 @@ __device__ __forceinline__ void persistent(const Params& p) {
   }
 }
 
-template <int A>
+template <int A, int S>
 __global__ void __launch_bounds__(kThreads) closest_persistent_kernel(const Params p) {
-  persistent<false, false, A>(p);
+  persistent<false, false, A, S>(p);
 }
 
-template <int A>
+template <int A, int S>
 __global__ void __launch_bounds__(kThreads) any_persistent_kernel(const Params p) {
-  persistent<true, false, A>(p);
+  persistent<true, false, A, S>(p);
 }
 
-template <int A>
+template <int A, int S>
 __global__ void __launch_bounds__(kThreads) closest_unified_persistent_kernel(const Params p) {
-  persistent<false, true, A>(p);
+  persistent<false, true, A, S>(p);
 }
 
-template <int A>
+template <int A, int S>
 __global__ void __launch_bounds__(kThreads) any_unified_persistent_kernel(const Params p) {
-  persistent<true, true, A>(p);
+  persistent<true, true, A, S>(p);
 }
 
 // Blocks of kThreads that the current card keeps resident at once running
@@ -286,74 +286,80 @@ int launch(Kernel kernel, int* cached_blocks, const Params& p, void* stream) {
 }
 
 // resident blocks of B6a, B6b, B6c, B6d (first index) at arity 2, 4, 8
-// (second index, arity_slot)
-int g_blocks[4][3] = {};
+// (second index, arity_slot) and stack capacity 64, 128 (third index,
+// stack_slot)
+int g_blocks[4][3][2] = {};
 
 constexpr int arity_slot(int arity) { return arity == 2 ? 0 : arity == 4 ? 1 : 2; }
+constexpr int stack_slot(int cap) { return cap == kSmallStack ? 0 : 1; }
 
 }  // namespace
 
 extern "C" {
 
-// The grid of B6a, B6b, B6c or B6d (variant 0-3) at `arity` (2, 4 or 8):
-// resident blocks of kThreads threads, 0 before that instantiation's first
-// launch or for any other variant or arity.
-int crt_persistent_blocks(int variant, int arity) {
-  if (variant < 0 || variant >= 4 || (arity != 2 && arity != 4 && arity != 8)) return 0;
-  return g_blocks[variant][arity_slot(arity)];
+// The grid of B6a, B6b, B6c or B6d (variant 0-3) at `arity` (2, 4 or 8)
+// and stack capacity `cap` (64 or 128): resident blocks of kThreads
+// threads, 0 before that instantiation's first launch or for any other
+// variant, arity or capacity.
+int crt_persistent_blocks(int variant, int arity, int cap) {
+  if (variant < 0 || variant >= 4 || (arity != 2 && arity != 4 && arity != 8) ||
+      (cap != kSmallStack && cap != kMaxStack))
+    return 0;
+  return g_blocks[variant][arity_slot(arity)][stack_slot(cap)];
 }
 
-// Launch B6a on `stream` over node rows of `arity` children; counter is
-// one int of device memory for the queue.
+// Launch B6a on `stream` over node rows of `arity` children with a stack of
+// `cap` entries (kSmallStack or kMaxStack, at least depth); counter is one
+// int of device memory for the queue.
 int crt_traverse_closest_persistent(const float* nodes, const float* leaf_rows, int n_leaves,
-                                    int arity, int L, int depth, const float* orig,
+                                    int arity, int L, int depth, int cap, const float* orig,
                                     const float* dir, const float* t_min, const float* t_max,
                                     const uint8_t* active, float* t_out, int* prim_out,
                                     float* u_out, float* v_out, int* counter, int R,
                                     void* stream) {
   Params p{nodes, leaf_rows, n_leaves, 0, L, depth, orig, dir, t_min, t_max, active,
            t_out, prim_out, nullptr, u_out, v_out, nullptr, counter, R};
-  CRT_BY_ARITY(arity, return launch(closest_persistent_kernel<A>,
-                                    &g_blocks[0][arity_slot(A)], p, stream));
+  CRT_BY_ARITY_STACK(arity, cap, depth, return launch(closest_persistent_kernel<A, S>,
+                                    &g_blocks[0][arity_slot(A)][stack_slot(S)], p, stream));
 }
 
 // Launch B6b on `stream` over node rows of `arity` children.
 int crt_traverse_any_persistent(const float* nodes, const float* leaf_rows, int n_leaves,
-                                int arity, int L, int depth, const float* orig,
+                                int arity, int L, int depth, int cap, const float* orig,
                                 const float* dir, const float* t_min, const float* t_max,
                                 const uint8_t* mask, uint8_t* occluded, int* counter, int R,
                                 void* stream) {
   Params p{nodes, leaf_rows, n_leaves, 0, L, depth, orig, dir, t_min, t_max, mask,
            nullptr, nullptr, nullptr, nullptr, nullptr, occluded, counter, R};
-  CRT_BY_ARITY(arity, return launch(any_persistent_kernel<A>,
-                                    &g_blocks[1][arity_slot(A)], p, stream));
+  CRT_BY_ARITY_STACK(arity, cap, depth, return launch(any_persistent_kernel<A, S>,
+                                    &g_blocks[1][arity_slot(A)][stack_slot(S)], p, stream));
 }
 
 // Launch B6c on `stream` over node rows of `arity` children.
 int crt_traverse_closest_unified_persistent(const float* nodes, const float* leaf_rows,
                                             int n_tri, int tlas_lo, int arity, int L, int depth,
-                                            const float* orig, const float* dir,
+                                            int cap, const float* orig, const float* dir,
                                             const float* t_min, const float* t_max,
                                             const uint8_t* active, float* t_out,
                                             int* prim_out, int* inst_out, float* u_out,
                                             float* v_out, int* counter, int R, void* stream) {
   Params p{nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, active,
            t_out, prim_out, inst_out, u_out, v_out, nullptr, counter, R};
-  CRT_BY_ARITY(arity, return launch(closest_unified_persistent_kernel<A>,
-                                    &g_blocks[2][arity_slot(A)], p, stream));
+  CRT_BY_ARITY_STACK(arity, cap, depth, return launch(closest_unified_persistent_kernel<A, S>,
+                                    &g_blocks[2][arity_slot(A)][stack_slot(S)], p, stream));
 }
 
 // Launch B6d on `stream` over node rows of `arity` children.
 int crt_traverse_any_unified_persistent(const float* nodes, const float* leaf_rows, int n_tri,
-                                        int tlas_lo, int arity, int L, int depth,
+                                        int tlas_lo, int arity, int L, int depth, int cap,
                                         const float* orig, const float* dir,
                                         const float* t_min, const float* t_max,
                                         const uint8_t* mask, uint8_t* occluded, int* counter,
                                         int R, void* stream) {
   Params p{nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, mask,
            nullptr, nullptr, nullptr, nullptr, nullptr, occluded, counter, R};
-  CRT_BY_ARITY(arity, return launch(any_unified_persistent_kernel<A>,
-                                    &g_blocks[3][arity_slot(A)], p, stream));
+  CRT_BY_ARITY_STACK(arity, cap, depth, return launch(any_unified_persistent_kernel<A, S>,
+                                    &g_blocks[3][arity_slot(A)][stack_slot(S)], p, stream));
 }
 
 }  // extern "C"

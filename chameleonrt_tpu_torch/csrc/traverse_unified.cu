@@ -23,10 +23,12 @@
 // never runs Moller-Trumbore. Whenever the next row is a TLAS row or an
 // entry leaf, the world ray comes back: the stack is LIFO, so an
 // instance's BLAS entries all pop before the TLAS entries beneath them.
-// Rules shared with the flat kernels, and the instance-entry transform and
-// world-space test shared with B5c/B5d, are in traverse_common.cuh. As
-// there, each kernel is a template on the node rows' arity A (2, 4 or 8)
-// and its C entry switches on the arity. Here:
+// Rules shared with the flat kernels are in traverse_common.cuh, and so
+// are the walks themselves (closest_two_level, any_two_level), which B5c/B5d
+// run too over their own row source; here they read every row from global
+// memory (GlobalRows). As there, each kernel is a template on the node
+// rows' arity A (2, 4 or 8) and its stack capacity S (64 or 128), and its
+// C entry switches on both. The rules:
 //   - B3 keeps a hit on t < best (ties inside a leaf go to the highest
 //     slot) with the instance of the current object space; a stack
 //     overflow reports prim = -2;
@@ -51,16 +53,7 @@ namespace {
 
 using namespace crt;
 
-// The object-space ray of the instance whose entry row is erow (the matrix
-// through the read-only path, then traverse_common.cuh's enter_instance).
-__device__ __forceinline__ Ray enter_instance_row(const float* __restrict__ erow, const Ray& w) {
-  float m[12];
-#pragma unroll
-  for (int k = 0; k < 12; ++k) m[k] = __ldg(erow + k);
-  return enter_instance(m, w);
-}
-
-template <int A>
+template <int A, int S>
 __global__ void __launch_bounds__(kThreads)
 closest_unified_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
                        int n_tri, int tlas_lo, int L, int depth,
@@ -75,51 +68,9 @@ closest_unified_kernel(const float* __restrict__ nodes, const float* __restrict_
   int best_prim = -1, best_inst = -1;
   float best_u = 0.0f, best_v = 0.0f;
   if (active[i]) {
-    const Ray w = load_ray(orig, dir, t_min, i);
-    Ray r = w;
-    int inst = 0;  // the instance whose object space r holds
-    int stack[kMaxStack];
-    int sp = 0;
-    bool overflow = false;
-    int cur = tlas_lo;
-    while (cur != kDone) {
-      if (cur >= 0) {
-        float keys[A];
-        int codes[A];
-        node_step<A>(nodes, cur, r, best, keys, codes);
-        for (int k = A - 1; k >= 1; --k) {
-          if (keys[k] < kBig) {
-            if (sp >= depth - 1) { overflow = true; break; }
-            stack[sp++] = codes[k];
-          }
-        }
-        if (overflow) break;
-        cur = keys[0] < kBig ? codes[0] : (sp > 0 ? stack[--sp] : kDone);
-      } else if (-cur - 1 < n_tri) {
-        const float* lrow = leaf_rows + (size_t)(-cur - 1) * 10 * L;
-        float lt = best, lu = 0.0f, lv = 0.0f;
-        int lp = -1;
-        for (int j = 0; j < L; ++j) {
-          float t, u, v;
-          int prim;
-          if (mt_slot(lrow, L, j, r, best, &t, &u, &v, &prim) && t <= lt) {
-            lt = t; lu = u; lv = v; lp = prim;
-          }
-        }
-        if (lp >= 0) {  // some slot hit, so lt < best
-          best = lt; best_prim = lp; best_inst = inst; best_u = lu; best_v = lv;
-        }
-        cur = sp > 0 ? stack[--sp] : kDone;
-      } else {
-        const float* erow = leaf_rows + (size_t)(-cur - 1) * 10 * L;
-        r = enter_instance_row(erow, w);
-        cur = __float_as_int(__ldg(erow + 12));  // a BLAS row: stay in object space
-        inst = __float_as_int(__ldg(erow + 13));
-        continue;
-      }
-      if (in_world(cur, n_tri, tlas_lo)) r = w;
-    }
-    if (overflow) best_prim = -2;
+    const GlobalRows<A> t{nodes, leaf_rows, n_tri, tlas_lo, L};
+    closest_two_level<A, S>(t, depth, load_ray(orig, dir, t_min, i), best, best_prim,
+                            best_inst, best_u, best_v);
   }
   bool miss = best_prim < 0;
   t_out[i] = miss ? kTMax : best;
@@ -129,7 +80,7 @@ closest_unified_kernel(const float* __restrict__ nodes, const float* __restrict_
   v_out[i] = miss ? 0.0f : best_v;
 }
 
-template <int A>
+template <int A, int S>
 __global__ void __launch_bounds__(kThreads)
 any_unified_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
                    int n_tri, int tlas_lo, int L, int depth,
@@ -140,42 +91,8 @@ any_unified_kernel(const float* __restrict__ nodes, const float* __restrict__ le
   if (i >= R) return;
   bool occ = false;
   if (mask[i]) {
-    const Ray w = load_ray(orig, dir, t_min, i);
-    Ray r = w;
-    float tmax = t_max[i];
-    int stack[kMaxStack];
-    int sp = 0;
-    int cur = tlas_lo;
-    while (cur != kDone) {
-      if (cur >= 0) {
-        float keys[A];
-        int codes[A];
-        node_step<A>(nodes, cur, r, tmax, keys, codes);
-        for (int k = A - 1; k >= 1 && !occ; --k) {
-          if (keys[k] < kBig) {
-            if (sp >= depth - 1) occ = true;  // overflow reports occluded
-            else stack[sp++] = codes[k];
-          }
-        }
-        if (occ) break;
-        cur = keys[0] < kBig ? codes[0] : (sp > 0 ? stack[--sp] : kDone);
-      } else if (-cur - 1 < n_tri) {
-        const float* lrow = leaf_rows + (size_t)(-cur - 1) * 10 * L;
-        for (int j = 0; j < L && !occ; ++j) {
-          float t, u, v;
-          int prim;
-          occ = mt_slot(lrow, L, j, r, tmax, &t, &u, &v, &prim);
-        }
-        if (occ) break;
-        cur = sp > 0 ? stack[--sp] : kDone;
-      } else {
-        const float* erow = leaf_rows + (size_t)(-cur - 1) * 10 * L;
-        r = enter_instance_row(erow, w);
-        cur = __float_as_int(__ldg(erow + 12));
-        continue;
-      }
-      if (in_world(cur, n_tri, tlas_lo)) r = w;
-    }
+    const GlobalRows<A> t{nodes, leaf_rows, n_tri, tlas_lo, L};
+    occ = any_two_level<A, S>(t, depth, load_ray(orig, dir, t_min, i), t_max[i]);
   }
   occluded[i] = occ ? 1 : 0;
 }
@@ -184,10 +101,12 @@ any_unified_kernel(const float* __restrict__ nodes, const float* __restrict__ le
 
 extern "C" {
 
-// Launch B3 on `stream` over node rows of `arity` children. Returns the
+// Launch B3 on `stream` over node rows of `arity` children with a stack of
+// `cap` entries (kSmallStack or kMaxStack, at least depth). Returns the
 // cudaError_t of the launch.
 int crt_traverse_closest_unified(const float* nodes, const float* leaf_rows, int n_tri,
-                                 int tlas_lo, int arity, int L, int depth, const float* orig,
+                                 int tlas_lo, int arity, int L, int depth, int cap,
+                                 const float* orig,
                                  const float* dir, const float* t_min, const float* t_max,
                                  const uint8_t* active, float* t_out, int* prim_out,
                                  int* inst_out, float* u_out, float* v_out, int R,
@@ -195,21 +114,21 @@ int crt_traverse_closest_unified(const float* nodes, const float* leaf_rows, int
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CRT_BY_ARITY(arity, closest_unified_kernel<A><<<grid, kThreads, 0, s>>>(
+  CRT_BY_ARITY_STACK(arity, cap, depth, closest_unified_kernel<A, S><<<grid, kThreads, 0, s>>>(
       nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, active, t_out,
       prim_out, inst_out, u_out, v_out, R));
 }
 
-// Launch B4 on `stream` over node rows of `arity` children. Returns the
-// cudaError_t of the launch.
+// Launch B4 on `stream` over node rows of `arity` children with a stack of
+// `cap` entries. Returns the cudaError_t of the launch.
 int crt_traverse_any_unified(const float* nodes, const float* leaf_rows, int n_tri,
-                             int tlas_lo, int arity, int L, int depth, const float* orig,
+                             int tlas_lo, int arity, int L, int depth, int cap, const float* orig,
                              const float* dir, const float* t_min, const float* t_max,
                              const uint8_t* mask, uint8_t* occluded, int R, void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CRT_BY_ARITY(arity, any_unified_kernel<A><<<grid, kThreads, 0, s>>>(
+  CRT_BY_ARITY_STACK(arity, cap, depth, any_unified_kernel<A, S><<<grid, kThreads, 0, s>>>(
       nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, mask, occluded, R));
 }
 

@@ -1,8 +1,9 @@
 """Wrappers of the traversal kernels: B1 (flat closest hit) and B2 (flat any
 hit) in csrc/traverse_flat.cu, B3 (two-level closest hit) and B4
-(two-level any hit) in csrc/traverse_unified.cu, the streamed tier in
-csrc/traverse_stream.cu: B5a (flat closest hit), B5b (flat any hit), B5c
-(two-level closest hit) and B5d (two-level any hit), and the work-queue
+(two-level any hit) in csrc/traverse_unified.cu, the streamed tier: B5a
+(flat closest hit) and B5b (flat any hit) in csrc/traverse_stream.cu, B5c
+(two-level closest hit) and B5d (two-level any hit) in
+csrc/traverse_unified_stream.cu, and the work-queue
 persistent kernels in csrc/traverse_persistent.cu: B6a (flat closest
 hit), B6b (flat any hit), B6c (two-level closest hit) and B6d (two-level
 any hit), and the grid-packet kernels in csrc/traverse_packet.cu: B7a
@@ -19,15 +20,19 @@ with either `stream` value); B7a/B7b the grid-packet kernels of
 traverse_packet.py (traverse_closest_packet, traverse_any_packet). B1-B6d
 take node rows of arity 2, 4 or 8 (16, 32 or 64 floats), as the TPU
 kernels do, B7a/B7b binary rows only. Every kernel sizes its stack as the
-TPU kernels do (stack_depth). A wrapper checks its inputs against what the
-kernel takes and raises on anything else. Then, on CUDA tensors, it
-allocates the outputs (and a work-queue kernel's counter), launches
-the kernel on the current stream without synchronizing, and raises if the
-launch fails; on CPU tensors it runs the plain version in ops/traverse.py
-instead. There is no other fallback.
+TPU kernels do (stack_depth), up to MAX_STACK (128) entries: the per-lane
+kernels launch the instantiation of the smallest capacity that holds it
+(stack_capacity: 64, or 128), the warp-packet kernels (B5a, B5b, B7a,
+B7b) hold MAX_STACK entries a warp in shared memory. A wrapper checks its
+inputs against what the kernel takes and raises on anything else. Then,
+on CUDA tensors, it allocates the outputs (and a work-queue kernel's
+counter), launches the kernel on the current stream without
+synchronizing, and raises if the launch fails; on CPU tensors it runs the
+plain version in ops/traverse.py instead. There is no other fallback.
 
 LAUNCHES counts kernel launches, one per launch, so a caller can show that
-a run went through the kernels.
+a run went through the kernels; STACK_LAUNCHES the same launches by the
+stack capacity they ran with.
 """
 
 from __future__ import annotations
@@ -46,8 +51,17 @@ LAUNCHES = {"closest": 0, "any": 0, "closest_unified": 0, "any_unified": 0,
             "closest_persistent": 0, "any_persistent": 0,
             "closest_unified_persistent": 0, "any_unified_persistent": 0,
             "closest_packet": 0, "any_packet": 0}
+STACK_LAUNCHES = {key: {cap: 0 for cap in _build.STACK_CAPACITIES} for key in LAUNCHES}
 # floats per node row the kernels take: binary, BVH4 and BVH8 (B1-B6d)
 ROW_FLOATS = (16, 32, 64)
+# the C entries of the warp-packet kernels, whose stack of MAX_STACK entries
+# a warp sits in shared memory; every other entry takes the capacity of the
+# per-lane stack it launches with
+_SHARED_STACK = ("crt_traverse_closest_stream", "crt_traverse_any_stream",
+                 "crt_traverse_closest_packet", "crt_traverse_any_packet")
+# bytes of dynamic shared memory B5c/B5d may hold rows in (kSharedBudget in
+# csrc/traverse_unified_stream.cu)
+SHARED_BUDGET = 64 * 1024
 
 
 def stack_depth(table) -> int:
@@ -61,11 +75,44 @@ def stack_depth(table) -> int:
     return max(2, int(bound) + 1)
 
 
+def stack_capacity(depth: int) -> int:
+    """The stack capacity of the per-lane kernels' instantiation that a
+    stack of depth entries launches: the smallest of
+    _build.STACK_CAPACITIES (64, 128) that holds it, so BVH4 tables keep
+    the 64-entry array. Raises above MAX_STACK."""
+    for cap in _build.STACK_CAPACITIES:
+        if depth <= cap:
+            return cap
+    raise ValueError(f"stack depth {depth} exceeds the kernel's {_build.MAX_STACK}")
+
+
+def shared_rows(ubvh: UnifiedBvh) -> dict:
+    """What B5c/B5d hold in shared memory for a two-level table, laid out
+    as csrc/traverse_unified_stream.cu's shared_layout lays it out: as many
+    TLAS rows [tlas_lo, n_nodes) as fit in SHARED_BUDGET bytes, then as many
+    instance-entry rows [n_tri_leaves, n_leaves) as fit in the rest, each
+    range starting on 16 bytes. An entry range whose start in global memory
+    is 8 bytes past 16 (40L-byte rows at odd L) is copied from 8 bytes
+    before it (entry_offset), and its shared bytes round up to 16. Returns
+    {"tlas_rows", "entry_rows", "tlas_bytes", "entry_offset",
+    "entry_bytes", "bytes"}."""
+    node_bytes, leaf_bytes = ubvh.nodes.shape[1] * 4, ubvh.leaf_rows.shape[1] * 4
+    n_tlas = min(ubvh.nodes.shape[0] - ubvh.tlas_lo, SHARED_BUDGET // node_bytes)
+    tlas_bytes = n_tlas * node_bytes
+    off = ubvh.n_tri_leaves * leaf_bytes % 16
+    n_ent = min(ubvh.leaf_rows.shape[0] - ubvh.n_tri_leaves,
+                max(0, (SHARED_BUDGET - tlas_bytes - off) // leaf_bytes))
+    off = off if n_ent else 0
+    ent_bytes = -(-(off + n_ent * leaf_bytes) // 16) * 16
+    return {"tlas_rows": n_tlas, "entry_rows": n_ent, "tlas_bytes": tlas_bytes,
+            "entry_offset": off, "entry_bytes": ent_bytes, "bytes": tlas_bytes + ent_bytes}
+
+
 def _check(table, orig, dir, t_min, t_max, flag, widths=ROW_FLOATS):
     """Validate everything the kernels take; raise on anything else:
     node rows of a width in widths (a width of 8A floats is arity A), and a
-    stack depth up to the kernels' MAX_STACK. Returns (arity, leaf size,
-    stack depth)."""
+    stack depth up to the kernels' MAX_STACK (128). Returns (arity, leaf
+    size, stack depth)."""
     R = orig.shape[0]
     want = [
         ("nodes", table.nodes, torch.float32, None),
@@ -95,8 +142,8 @@ def _check(table, orig, dir, t_min, t_max, flag, widths=ROW_FLOATS):
     depth = stack_depth(table)
     if depth > _build.MAX_STACK:
         raise ValueError(f"stack depth {depth} exceeds the kernel's {_build.MAX_STACK}")
-    if table.nodes.data_ptr() % 16:
-        raise ValueError("node rows must be 16-byte aligned")
+    if table.nodes.data_ptr() % 16 or table.leaf_rows.data_ptr() % 16:
+        raise ValueError("node and leaf rows must be 16-byte aligned")
     return table.nodes.shape[1] // 8, L, depth
 
 
@@ -144,10 +191,35 @@ def _arity_arg(entry: str, arity: int) -> list:
     return [] if entry.endswith("_packet") else [arity]
 
 
+def _stack_cap(entry: str, depth: int) -> int:
+    """The stack capacity a C entry launches with: the per-lane kernels'
+    stack_capacity, or the warp-packet kernels' MAX_STACK."""
+    return _build.MAX_STACK if entry in _SHARED_STACK else stack_capacity(depth)
+
+
+def _stack_args(entry: str, cap: int, table) -> list:
+    """The arguments a C entry takes after the depth: none for a
+    warp-packet kernel; a per-lane kernel's stack capacity cap; B5c's and
+    B5d's then the TLAS and entry rows they hold in shared memory
+    (shared_rows)."""
+    if entry in _SHARED_STACK:
+        return []
+    if not entry.endswith("_unified_stream"):
+        return [cap]
+    rows = shared_rows(table)
+    return [cap, rows["tlas_rows"], rows["entry_rows"]]
+
+
+def _count(key: str, cap: int):
+    LAUNCHES[key] += 1
+    STACK_LAUNCHES[key][cap] += 1
+
+
 def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_max):
     """A flat closest-hit kernel (B1, B5a, B6a or B7a) through its C entry point."""
     check = _check_packet if entry.endswith("_packet") else _check
     arity, L, depth = check(pbvh, orig, dir, t_min, t_max, active)
+    cap = _stack_cap(entry, depth)
     if orig.device.type == "cpu":
         return plain.traverse_closest(pbvh, orig, dir, t_min, active, t_max)
     lib = _build.kernels()
@@ -161,13 +233,13 @@ def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves,
-        *_arity_arg(entry, arity), L, depth,
+        *_arity_arg(entry, arity), L, depth, *_stack_args(entry, cap, pbvh),
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         active.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
         *[q.data_ptr() for q in queue], R, _stream(orig),
     )
     _raise_on(lib, err, entry)
-    LAUNCHES[key] += 1
+    _count(key, cap)
     return t, prim, u, v
 
 
@@ -175,6 +247,7 @@ def _any(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     """A flat any-hit kernel (B2, B5b, B6b or B7b) through its C entry point."""
     check = _check_packet if entry.endswith("_packet") else _check
     arity, L, depth = check(pbvh, orig, dir, t_min, t_max, mask)
+    cap = _stack_cap(entry, depth)
     if orig.device.type == "cpu":
         return plain.traverse_any(pbvh, orig, dir, t_min, t_max, mask)
     lib = _build.kernels()
@@ -185,12 +258,12 @@ def _any(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves,
-        *_arity_arg(entry, arity), L, depth,
+        *_arity_arg(entry, arity), L, depth, *_stack_args(entry, cap, pbvh),
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         mask.data_ptr(), occ.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
     )
     _raise_on(lib, err, entry)
-    LAUNCHES[key] += 1
+    _count(key, cap)
     return occ
 
 
@@ -226,6 +299,7 @@ def traverse_any_stream(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
 def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
     """A two-level closest-hit kernel (B3, B5c or B6c) through its C entry point."""
     arity, L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, active)
+    cap = _stack_cap(entry, depth)
     if orig.device.type == "cpu":
         return plain.traverse_closest_unified(ubvh, orig, dir, t_min, active, t_max)
     lib = _build.kernels()
@@ -240,18 +314,20 @@ def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, a
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, arity,
-        L, depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-        active.data_ptr(), t.data_ptr(), prim.data_ptr(), inst.data_ptr(), u.data_ptr(),
-        v.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
+        L, depth, *_stack_args(entry, cap, ubvh), orig.data_ptr(), dir.data_ptr(),
+        t_min.data_ptr(), t_max.data_ptr(), active.data_ptr(), t.data_ptr(), prim.data_ptr(),
+        inst.data_ptr(), u.data_ptr(), v.data_ptr(), *[q.data_ptr() for q in queue], R,
+        _stream(orig),
     )
     _raise_on(lib, err, entry)
-    LAUNCHES[key] += 1
+    _count(key, cap)
     return t, prim, inst, u, v
 
 
 def _any_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
     """A two-level any-hit kernel (B4, B5d or B6d) through its C entry point."""
     arity, L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, mask)
+    cap = _stack_cap(entry, depth)
     if orig.device.type == "cpu":
         return plain.traverse_any_unified(ubvh, orig, dir, t_min, t_max, mask)
     lib = _build.kernels()
@@ -262,11 +338,12 @@ def _any_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, t_max
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, arity,
-        L, depth, orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-        mask.data_ptr(), occ.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
+        L, depth, *_stack_args(entry, cap, ubvh), orig.data_ptr(), dir.data_ptr(),
+        t_min.data_ptr(), t_max.data_ptr(), mask.data_ptr(), occ.data_ptr(),
+        *[q.data_ptr() for q in queue], R, _stream(orig),
     )
     _raise_on(lib, err, entry)
-    LAUNCHES[key] += 1
+    _count(key, cap)
     return occ
 
 
@@ -286,16 +363,16 @@ def traverse_any_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
 
 def traverse_closest_unified_stream(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
     """B5c: closest hit over a two-level table in the streamed tier, one
-    warp per packet of 32 consecutive rays. Returns (t, prim, inst, u, v);
-    its plain version is plain.traverse_closest_unified. As with B5a, t
-    agrees; a prim may differ only where two hits tie exactly in t."""
+    thread per ray in B3's order, with the TLAS and instance-entry rows of
+    shared_rows in shared memory. Returns (t, prim, inst, u, v), bit-equal
+    to its plain version, plain.traverse_closest_unified."""
     return _closest_unified("crt_traverse_closest_unified_stream", "closest_unified_stream",
                             ubvh, orig, dir, t_min, active, t_max)
 
 
 def traverse_any_unified_stream(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
-    """B5d: any hit over a two-level table in the streamed tier, one warp
-    per packet. Returns (R,) bool occluded & mask; its plain version is
+    """B5d: any hit over a two-level table in the streamed tier, as B5c in
+    B4's order. Returns (R,) bool occluded & mask; its plain version is
     plain.traverse_any_unified, with which it agrees lane for lane."""
     return _any_unified("crt_traverse_any_unified_stream", "any_unified_stream",
                         ubvh, orig, dir, t_min, t_max, mask)

@@ -8,7 +8,8 @@ nor the JAX package (it asserts so at its end). Phases:
 1. device and toolchain: the card's name and power limit (nvidia-smi),
    torch, CUDA and nvcc versions;
 2. build: the traversal kernels (csrc/*.cu, one nvcc each, in parallel),
-   with ptxas's registers and spills for each kernel and arity;
+   with ptxas's registers and spills for each kernel, arity and stack
+   capacity (the per-lane kernels at 64 and 128 entries);
 3. kernels against their plain torch versions on the card, each with
    kernel and plain times on a sorted primary wavefront and a
    diffuse-bounce wavefront from its hit points:
@@ -24,14 +25,16 @@ nor the JAX package (it asserts so at its end). Phases:
      hit at both t_max factors on both wavefronts, with B1/B2 timed on the
      same rays; and B5b on the 10 masked shadow-ray wavefronts of one
      640x360 city frame;
-   - B5c/B5d (the two-level streamed tier, whose plain versions are
-     B3/B4's) on proc://instances?nx=4&ny=4&subdiv=2 at 320x180, forced,
-     and on the large San Miguel proxy (gen://san_miguel?leaf_tris=700000
+   - B5c/B5d (the two-level streamed tier, per-lane walks bit-equal to
+     their plain versions, B3/B4's: 0 mismatches and |dt| = |du| = |dv|
+     = 0) on proc://instances?nx=4&ny=4&subdiv=2 at 320x180, forced, and
+     on the large San Miguel proxy (gen://san_miguel?leaf_tris=700000
      &canopy_instances=10: 95 instances, 9.67M instanced triangles, a
      two-level table about three times the L2) at 1280x720, which the gate
      must route to them, any hit at both t_max factors on both wavefronts,
-     with B3/B4 timed on the same rays; and B5d on the 10 masked shadow-ray
-     wavefronts of one 1-spp 1280x720 frame of it;
+     with B3/B4 timed on the same rays and the rows B5c/B5d hold in shared
+     memory logged; and B5d on the 10 masked shadow-ray wavefronts of one
+     1-spp 1280x720 frame of it;
    - B6a-B6d (the work-queue kernels that trace every scene with the
      slot-lane tier off, whose plain versions are B1-B4's) on every
      wavefront above: B6a/B6b on the flat and city wavefronts, B6c/B6d on
@@ -52,13 +55,22 @@ nor the JAX package (it asserts so at its end). Phases:
      primary wavefronts of the parity scenes at 320x180: B1/B2 and B6a/B6b
      on proc://hall?subdiv=2, B5a/B5b (forced) on proc://city?n=60, B3/B4,
      B5c/B5d (forced) and B6c/B6d on proc://instances?nx=4&ny=4&subdiv=2,
-     each against the plain version on the same table; and the stack that
-     each main-path scene's BVH8 table needs, against the kernels' 64;
-   each kernel's least time on its main-path primary wavefront (bound_ms)
-   comes from the distinct rows and the operations that wavefront's rays
-   need, counted by the plain walk (ops/traverse.py WalkCount); B6a-B6d
-   compute the same functions on the same rays as B1-B4 and share their
-   bounds;
+     and B5c/B5d on instance grids at leaf sizes 5 and 9, whose entry rows
+     overflow shared memory or start 8 bytes past 16, each against the
+     plain version on the same table;
+   - C3 (phase_bvh8): the stack each main-path scene's BVH8 table needs
+     (CHAMELEONRT_WIDE_ARITY=8; all but the hall's exceed 64), and on those
+     tables B3/B4 and B6c/B6d (San Miguel), B5c/B5d (the large proxy) and
+     B5a/B5b (the city) against the plain walk on the main-path primary
+     wavefront, with the stack capacity each launch ran with (128), and a
+     BVH8 San Miguel image against the plain walk;
+   each kernel's least time on its main-path primary and bounce wavefronts
+   (bound_ms, bounce_bound_ms) comes from the distinct rows and the
+   operations that wavefront's rays need, counted by the plain walk
+   (ops/traverse.py WalkCount); B6a-B6d compute the same functions on the
+   same rays as B1-B4 and share their bounds; on the main-path wavefronts
+   each per-lane kernel is also timed at its 128-entry instantiation
+   (ms_stack128), whose result must equal the 64-entry one's;
 4. images through the kernels against images through the plain traversal
    (textured hall, proc://instances?nx=6&ny=6&subdiv=3, with stream=True
    proc://city?n=60 and proc://instances?nx=6&ny=6&subdiv=3, with
@@ -81,7 +93,9 @@ nor the JAX package (it asserts so at its end). Phases:
    (B7a/B7b) at 1280x720, 1 spp; each path's last frame runs
    under torch.profiler, which gives where its time goes: device busy
    time, the idle share of the frame, and the device time of the traversal
-   kernels and of the largest other rows.
+   kernels and of the largest other rows; every per-lane launch of these
+   BVH4 main paths must have run with the 64-entry stack, every
+   warp-packet one (B5a, B5b, B7a, B7b) with its 128-entry shared stack.
 
 A gen://san_miguel URI is this script's own: _load generates the scene
 with the port's scene/pbrt_gen.py (its query string gives the generator's
@@ -196,21 +210,23 @@ def phase_toolchain(torch):
 
 
 # a kernel instantiation in ptxas's log: its launch-count key and, for a
-# template on the node rows' arity, the arity
-# (_ZN12_GLOBAL__N_114closest_kernelILi8EEEv..., ..._packet_kernelEPKf...)
+# template on the node rows' arity and stack capacity, those
+# (_ZN12_GLOBAL__N_114closest_kernelILi8ELi64EEEv..., ..._packet_kernelEPKf...)
 _PTXAS_KERNEL = re.compile(
-    r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent|_packet)?)_kernel(?:ILi(\d)E)?")
+    r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent|_packet)?)_kernel"
+    r"(?:ILi(\d)E(?:Li(\d+)E)?)?")
 
 
 def _ptxas_table(log_text):
-    """{(launch-count key, arity or None): {"registers", "spill_stores",
-    "spill_loads", "stack_frame"}} from nvcc's ptxas -v output."""
+    """{(launch-count key, arity or None, stack capacity or None):
+    {"registers", "spill_stores", "spill_loads", "stack_frame"}} from
+    nvcc's ptxas -v output."""
     out, key = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = _PTXAS_KERNEL.search(m.group(1))
-            key = (k.group(1), int(k.group(2)) if k.group(2) else None) if k else None
+            key = (k.group(1), *(int(g) if g else None for g in k.groups()[1:])) if k else None
             if key:
                 out[key] = {}
             continue
@@ -240,8 +256,8 @@ def phase_build():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] ptxas: {line.strip()}")
     ptxas = _ptxas_table(text)
-    log(f"[build] per kernel and arity: "
-        f"{json.dumps({f'{k}@{a}': v for (k, a), v in sorted(ptxas.items(), key=str)})}")
+    log(f"[build] per kernel, arity and stack capacity: "
+        f"{json.dumps({'@'.join(map(str, k)): v for k, v in sorted(ptxas.items(), key=str)})}")
     return secs, ptxas
 
 
@@ -286,18 +302,19 @@ def _env(**values):
                 os.environ[k] = v
 
 
-def _scene_tables(torch, uri, wide=4):
+def _scene_tables(torch, uri, wide=4, leaf=4):
     """(scene, FlatScene with its tables on the card, SceneMeta), built once
-    per URI and wide arity (CHAMELEONRT_WIDE_ARITY during the build)."""
+    per URI, wide arity and leaf size (CHAMELEONRT_WIDE_ARITY and
+    CHAMELEONRT_LEAF_SIZE during the build)."""
     from chameleonrt_tpu_torch.engine.device_scene import build_device_scene
     from chameleonrt_tpu_torch.engine.trace_bvh import build_blas_set
 
-    if (uri, wide) not in _TABLES:
+    if (uri, wide, leaf) not in _TABLES:
         scene = _load(uri)
         flat, meta = build_device_scene(scene, torch.device("cuda"))
-        with _env(CHAMELEONRT_WIDE_ARITY=str(wide)):
-            _TABLES[uri, wide] = (scene, flat._replace(blas=build_blas_set(flat, meta)), meta)
-    return _TABLES[uri, wide]
+        with _env(CHAMELEONRT_WIDE_ARITY=str(wide), CHAMELEONRT_LEAF_SIZE=str(leaf)):
+            _TABLES[uri, wide, leaf] = (scene, flat._replace(blas=build_blas_set(flat, meta)), meta)
+    return _TABLES[uri, wide, leaf]
 
 
 def _bound(table, count, active, out_bytes):
@@ -407,6 +424,14 @@ _PATHS = {
 }
 SAME_RAYS = {"stream": "flat", "unified_stream": "unified"}
 TWO_LEVEL = ("unified", "unified_stream", "unified_persistent")
+# the paths whose kernels walk in the plain walk's per-lane order, held to
+# exact agreement: 0 mismatches and |dt| = |du| = |dv| = 0 (B5c/B5d; the
+# other per-lane kernels keep the JAX bench's gate, which they meet with 0)
+EXACT = ("unified_stream",)
+# the paths whose kernels keep a per-lane stack of a capacity the wrapper
+# picks (traverse_cuda.stack_capacity); the others hold MAX_STACK entries a
+# warp in shared memory
+PER_LANE = ("flat", "unified", "unified_stream", "persistent", "unified_persistent")
 # the slot-lane tiers, whose wavefronts phase 3 builds, and the work-queue
 # path that traces the same scenes with the slot-lane tier off
 TIERS = ("flat", "unified", "stream", "unified_stream")
@@ -423,11 +448,11 @@ def _kernel_pair(path: str, closest: bool):
     return label, getattr(traverse_cuda, kernel), getattr(traverse, plain)
 
 
-def _closest_agreement(k, p, unified):
+def _closest_agreement(k, p, unified, exact=False):
     """A closest-hit kernel's result k against the plain result p on the
     same R rays: prim (and instance) mismatches, the largest |dt| over
     common hits and |du|, |dv| over hits on the same triangle, and whether
-    they pass the gates."""
+    they pass the gates (exact: all three 0)."""
     R = k[0].shape[0]
     tk, pk, uk, vk = k[0], k[1], k[-2], k[-1]
     tp, pp, up, vp = p[0], p[1], p[-2], p[-1]
@@ -451,14 +476,41 @@ def _closest_agreement(k, p, unified):
             "tied_t_mismatch": int((both & (tk == tp)).sum()),
             "kernel_nearer": int((both & (tk < tp)).sum()),
             "plain_nearer": int((both & (tk > tp)).sum()),
-            "ok": mism <= max(2, R // 50000) and dt <= DT_TOL and duv <= UV_TOL}
+            "ok": (mism == dt == duv == 0) if exact else
+                  (mism <= max(2, R // 50000) and dt <= DT_TOL and duv <= UV_TOL)}
 
 
-def _any_agreement(ok_k, ok_p):
-    """An any-hit kernel's flags against the plain flags on the same rays."""
+def _any_agreement(ok_k, ok_p, exact=False):
+    """An any-hit kernel's flags against the plain flags on the same rays
+    (exact: no mismatch)."""
     mism = int((ok_k != ok_p).sum())
     return {"occ_mismatch": mism, "max_abs_err": float((ok_k.float() - ok_p.float()).abs().max()),
-            "ok": mism <= max(2, ok_k.shape[0] // 50000)}
+            "ok": mism == 0 if exact else mism <= max(2, ok_k.shape[0] // 50000)}
+
+
+def _deepened(table):
+    """The table with a certified bound of MAX_STACK - 1, so that a per-lane
+    kernel launches its MAX_STACK-entry instantiation on it; the walk is the
+    same, since the true bound is lower."""
+    from chameleonrt_tpu_torch import _build
+
+    if hasattr(table, "stack_bound"):
+        return table._replace(stack_bound=_build.MAX_STACK - 1)
+    return table._replace(max_depth=_build.MAX_STACK - 1)
+
+
+def _time_at_max_stack(torch, res, kernel, args, want):
+    """A per-lane kernel on the same rays at its MAX_STACK instantiation
+    (_deepened table): its result must equal want, the result at its
+    64-entry one; its time goes into res["ms_stack128"]."""
+    deep = (_deepened(args[0]),) + tuple(args[1:])
+    got = kernel(*deep)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(x, y)) for x, y in zip(got, want)) if isinstance(got, tuple) \
+        else bool(torch.equal(got, want))
+    if not same:
+        raise AssertionError(f"{kernel.__name__} differs between its stack capacities")
+    res["ms_stack128"] = _median_ms(torch, lambda: kernel(*deep), KERNEL_REPS)
 
 
 @contextlib.contextmanager
@@ -488,7 +540,7 @@ def _sentinel_outputs(torch):
         torch.empty, torch.empty_like = empty, empty_like
 
 
-def _check_queue(torch, path, closest, args, ref):
+def _check_queue(torch, path, closest, args, ref, max_stack=False):
     """The work-queue kernel that traces path's scenes with the slot-lane
     tier off (QUEUE: B6a-B6d) on the rays of one of phase 3's checks
     (args, as the tier's kernel took them), against ref, the plain result
@@ -496,7 +548,8 @@ def _check_queue(torch, path, closest, args, ref):
     (_sentinel_outputs), of which none may survive, and it must pass the
     tier kernel's gates; the same on the first SMALL_R rays alone (each
     lane of the plain walk is independent, so ref's first lanes are their
-    plain result); then its time, median of KERNEL_REPS."""
+    plain result); then its time, median of KERNEL_REPS, and with max_stack
+    its time at its MAX_STACK instantiation (_time_at_max_stack)."""
     unified = path in TWO_LEVEL
     name, kernel, _ = _kernel_pair(QUEUE[path], closest)
 
@@ -519,6 +572,8 @@ def _check_queue(torch, path, closest, args, ref):
     res["small"]["rays"] = SMALL_R
     res["ok"] = res["ok"] and res["small"]["ok"]
     res["ms"] = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
+    if max_stack:
+        _time_at_max_stack(torch, res, kernel, args, kernel(*args))
     return res
 
 
@@ -547,7 +602,9 @@ def _check_closest(torch, table, path, orig, dirs, t_min, active, label, plain_r
     of the plain version (inst None in a flat scene). Other kernels are
     timed on the same rays (_time_also). A path whose scenes a work-queue
     kernel also traces (QUEUE) checks that kernel on the same rays.
-    bound: count the plain walk and give the kernel's least time."""
+    bound: count the plain walk and give the kernel's least time, and
+    time a per-lane kernel (and the work-queue one) at its MAX_STACK
+    instantiation too."""
     from chameleonrt_tpu_torch.ops.intersect import T_MAX
     from chameleonrt_tpu_torch.ops.traverse import WalkCount
 
@@ -562,15 +619,17 @@ def _check_closest(torch, table, path, orig, dirs, t_min, active, label, plain_r
     p = plain(*args, count=count)
     pk = k[1]
     res = {"rays": R, "active": int(active.sum()), "hits": int((pk >= 0).sum()),
-           "overflows": int((pk == -2).sum()), **_closest_agreement(k, p, unified)}
+           "overflows": int((pk == -2).sum()), **_closest_agreement(k, p, unified, path in EXACT)}
     if unified:
         res["instances_hit"] = int(torch.unique(k[2][pk >= 0]).numel())
     if bound:
         res.update(_bound(table, count, active, 20 if unified else 16))
     res["ms"] = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
+    if bound and path in PER_LANE:
+        _time_at_max_stack(torch, res, kernel, args, k)
     _time_also(torch, res, path, True, args, also)
     if path in QUEUE:
-        res["queue"] = _check_queue(torch, path, True, args, p)
+        res["queue"] = _check_queue(torch, path, True, args, p, max_stack=bound)
     res["plain_ms"] = _median_ms(torch, lambda: plain(*args), plain_reps, warmup=False)
     res["plain_reps"] = plain_reps
     log(f"[kernels] {name} closest {label}: {json.dumps(res)}")
@@ -598,13 +657,15 @@ def _check_any(torch, table, path, orig, dirs, t_closest, active, label, factor,
     count = WalkCount(table) if bound else None
     ok_p = plain(*args, count=count)
     res = {"rays": R, "t_max_factor": factor, "occluded": int(ok_k.sum()),
-           **_any_agreement(ok_k, ok_p)}
+           **_any_agreement(ok_k, ok_p, path in EXACT)}
     if bound:
         res.update(_bound(table, count, active, 1))
     res["ms"] = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
+    if bound and path in PER_LANE:
+        _time_at_max_stack(torch, res, kernel, args, ok_k)
     _time_also(torch, res, path, False, args, also)
     if path in QUEUE:
-        res["queue"] = _check_queue(torch, path, False, args, ok_p)
+        res["queue"] = _check_queue(torch, path, False, args, ok_p, max_stack=bound)
     res["plain_ms"] = _median_ms(torch, lambda: plain(*args), plain_reps, warmup=False)
     res["plain_reps"] = plain_reps
     log(f"[kernels] {name} any {label}: {json.dumps(res)}")
@@ -687,6 +748,7 @@ def phase_kernels(torch, path: str):
     the unified path asserts that it does not."""
     from chameleonrt_tpu_torch.engine.trace_bvh import streamed_tier, table_bytes
     from chameleonrt_tpu_torch.ops.math import EPSILON
+    from chameleonrt_tpu_torch.ops.traverse_cuda import shared_rows, stack_capacity, stack_depth
 
     cases = {
         "flat": (("parity hall subdiv=2 320x180", HALL_PARITY, 320, 180, PLAIN_REPS),
@@ -716,7 +778,10 @@ def phase_kernels(torch, path: str):
                 f"tlas_lo {table.tlas_lo}, stack_bound {table.stack_bound}, "
                 f"{meta.num_instances} instances of {len(meta.mesh_tri_ranges)} meshes, "
                 f"{meta.num_tris} unique tris, {table_bytes(table)} bytes against an L2 of {l2}: "
-                f"streamed tier by the gate {tier}")
+                f"streamed tier by the gate {tier}; stack capacity "
+                f"{stack_capacity(stack_depth(table))}"
+                + (f"; B5c/B5d hold in shared memory {json.dumps(shared_rows(table))}"
+                   if path == "unified_stream" else ""))
         else:
             log(f"[kernels] {label}: {meta.num_tris} tris, BVH4 table {tuple(table.nodes.shape)} "
                 f"nodes, {tuple(table.leaf_rows.shape)} leaf rows, {table_bytes(table)} bytes "
@@ -734,14 +799,18 @@ def phase_kernels(torch, path: str):
               for f in factors[0]]
         bo, bd, bact = _bounce_wavefront(torch, flat, orig, dirs, t, prim, inst)
         eps = torch.full((R,), EPSILON, dtype=torch.float32, device="cuda")
-        r3, bt, _, _ = _check_closest(torch, table, path, bo, bd, eps, bact, f"{label} bounce", reps)
-        a2 = [_check_any(torch, table, path, bo, bd, bt, bact, f"{label} bounce", f, reps)
+        r3, bt, _, _ = _check_closest(torch, table, path, bo, bd, eps, bact, f"{label} bounce", reps,
+                                      bound=main_case)
+        a2 = [_check_any(torch, table, path, bo, bd, bt, bact, f"{label} bounce", f, reps,
+                         bound=main_case and f == factors[1][-1])
               for f in factors[1]]
         out = {"closest": (r1, r3), "any": (a1[0], a2[-1]), "any_all": a1 + a2}
         queue_all["closest"] += [r1["queue"], r3["queue"]]
         queue_all["any"] += [a["queue"] for a in a1 + a2]
     out["queue_all"] = queue_all
     # the last case is the main path's scene: its tables serve the shadow check
+    if path == "unified_stream":
+        out["shared_rows"] = shared_rows(table)
     W, H = (CITY_W, CITY_H) if path == "stream" else (MAIN_W, MAIN_H)
     out["shadow"] = _check_any_shadow(torch, scene, (flat, meta), path, W, H)
     if path in ("flat", "unified"):
@@ -788,42 +857,52 @@ def phase_packet(torch):
         bo, bd, bact = _bounce_wavefront(torch, flat, orig, dirs, t, prim, None)
         eps = torch.full((R,), EPSILON, dtype=torch.float32, device="cuda")
         r3, bt, _, _ = _check_closest(torch, table, "grid_packet", bo, bd, eps, bact,
-                                      f"{label} bounce", reps, also=also[True])
+                                      f"{label} bounce", reps, bound=main_case, also=also[True])
         a2 = [_check_any(torch, table, "grid_packet", bo, bd, bt, bact, f"{label} bounce", f, reps,
-                         also=also[False])
+                         bound=main_case and f == 0.999, also=also[False])
               for f in (1.001, 0.999)]
         out = {"closest": (r1, r3), "any": (a1[0], a2[-1]), "any_all": a1 + a2}
     out["shadow"] = _check_any_shadow(torch, scene, (flat, meta), "grid_packet", MAIN_W, MAIN_H)
     return out
 
 
-# B1-B6d at each arity: (label, scene, paths whose kernels trace it);
-# the streamed paths are forced onto these tables, which fit the L2
+# B1-B6d at each arity: (label, scene, paths whose kernels trace it, leaf
+# size); the streamed paths are forced onto these tables, which fit the
+# L2. The last three hold B5c/B5d's shared rows to odd leaf sizes: a
+# 576-instance grid whose entry rows overflow the 64 KB of shared memory,
+# with the entry range 8 bytes past 16 (L = 5) and then a tail past the
+# bulk copy (L = 9), and a 4-instance grid with both (L = 5).
+GRID_24 = "proc://instances?nx=24&ny=24&subdiv=0"
 ARITY_CASES = (
-    ("parity hall subdiv=2 320x180", HALL_PARITY, ("flat", "persistent")),
-    ("parity city n=60 320x180", CITY_PARITY, ("stream",)),
+    ("parity hall subdiv=2 320x180", HALL_PARITY, ("flat", "persistent"), 4),
+    ("parity city n=60 320x180", CITY_PARITY, ("stream",), 4),
     ("parity instances nx=4 ny=4 320x180", INST_PARITY,
-     ("unified", "unified_stream", "unified_persistent")),
+     ("unified", "unified_stream", "unified_persistent"), 4),
+    ("instances nx=24 ny=24 L=5 320x180", GRID_24, ("unified_stream",), 5),
+    ("instances nx=24 ny=24 L=9 320x180", GRID_24, ("unified_stream",), 9),
+    ("instances nx=2 ny=2 L=5 320x180", "proc://instances?nx=2&ny=2&subdiv=0", ("unified_stream",), 5),
 )
 ARITIES = (2, 4, 8)
 
 
 def phase_arities(torch):
     """B1-B6d at every arity they take: on the primary wavefront of each
-    ARITY_CASES scene at 320x180, the binary table (A = 2), the BVH4 table
-    (A = 4) and the BVH8 table (A = 8, built with CHAMELEONRT_WIDE_ARITY=8),
-    each path's closest-hit kernel against the plain closest hit on the
-    same table, and its any-hit kernel against the plain any hit at t_max
-    = 1.001 x that hit, under the gates of phase 3. Returns {label: {arity:
-    {"max_abs_err", "mismatch", "ms"}}}: the worst |dt| (closest hit) or
-    flag difference (any hit) over the scenes of the kernel."""
+    ARITY_CASES scene at 320x180 and its leaf size, the binary table (A =
+    2), the BVH4 table (A = 4) and the BVH8 table (A = 8, built with
+    CHAMELEONRT_WIDE_ARITY=8), each path's closest-hit kernel against the
+    plain closest hit on the same table, and its any-hit kernel against the
+    plain any hit at t_max = 1.001 x that hit, under the gates of phase 3
+    (B5c/B5d exact). Returns {label: {arity: {"max_abs_err", "mismatch",
+    "ms"}}}: the worst |dt| (closest hit) or flag difference (any hit) over
+    the scenes of the kernel."""
     from chameleonrt_tpu_torch.ops.intersect import T_MAX
     from chameleonrt_tpu_torch.ops.math import EPSILON
+    from chameleonrt_tpu_torch.ops.traverse_cuda import shared_rows
 
     out = {}
-    for label, uri, paths in ARITY_CASES:
+    for label, uri, paths, leaf in ARITY_CASES:
         for arity in ARITIES:
-            scene, flat, _ = _scene_tables(torch, uri, wide=8 if arity == 8 else 4)
+            scene, flat, _ = _scene_tables(torch, uri, wide=8 if arity == 8 else 4, leaf=leaf)
             table = flat.blas[0].closest if arity == 2 else flat.blas[0].any
             if table.nodes.shape[1] != 8 * arity:
                 raise AssertionError(f"{uri}: expected rows of {8 * arity} floats, got {tuple(table.nodes.shape)}")
@@ -839,16 +918,18 @@ def phase_arities(torch):
             occ_p = plain_a(*a_args)
             line = {"rays": R, "rows": tuple(table.nodes.shape), "stack": table.stack_bound
                     if hasattr(table, "stack_bound") else table.max_depth}
+            if "unified_stream" in paths:
+                line["shared"] = shared_rows(table)
             for path in paths:
                 for closest, args in ((True, c_args), (False, a_args)):
                     name, kernel, _ = _kernel_pair(path, closest)
                     got = kernel(*args)
                     torch.cuda.synchronize()
                     if closest:
-                        agree = _closest_agreement(got, p, path in TWO_LEVEL)
+                        agree = _closest_agreement(got, p, path in TWO_LEVEL, path in EXACT)
                         err, mism = agree["max_dt_common"], agree["prim_mismatch"]
                     else:
-                        agree = _any_agreement(got, occ_p)
+                        agree = _any_agreement(got, occ_p, path in EXACT)
                         err, mism = agree["max_abs_err"], agree["occ_mismatch"]
                     ms = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
                     line[name] = {"max_abs_err": err, "mismatch": mism, "ms": ms}
@@ -864,35 +945,114 @@ def phase_arities(torch):
     return out
 
 
-def _bvh8_stacks(torch):
-    """The stack each main-path scene's BVH8 table (CHAMELEONRT_WIDE_ARITY=8)
-    needs: the certified bound + 1, against the kernels' MAX_STACK, above
-    which B1-B6d refuse the table. Returns {scene: (need, fits)}."""
-    from chameleonrt_tpu_torch import _build
-    from chameleonrt_tpu_torch.ops.traverse_cuda import stack_depth
+def _stack_launches(before):
+    """{launch-count key: {capacity: launches}} since before, a copy of
+    traverse_cuda.STACK_LAUNCHES: the stack capacity each launch ran with."""
+    from chameleonrt_tpu_torch.ops import traverse_cuda
 
     out = {}
-    for uri in (HALL_SCENE, SAN_MIGUEL, CITY_SCENE, SAN_MIGUEL_LARGE):
-        table = _scene_tables(torch, uri, wide=8)[1].blas[0].any
-        need = stack_depth(table)
-        out[uri] = (need, need <= _build.MAX_STACK)
-        del _TABLES[uri, 8]
-    log(f"[arity] BVH8 stack needs (certified bound + 1) against MAX_STACK {_build.MAX_STACK}: "
-        f"{json.dumps(out)}")
+    for key, caps in traverse_cuda.STACK_LAUNCHES.items():
+        moved = {cap: n - before[key][cap] for cap, n in caps.items() if n != before[key][cap]}
+        if moved:
+            out[key] = moved
     return out
+
+
+def _snapshot_stacks():
+    from chameleonrt_tpu_torch.ops import traverse_cuda
+
+    return {k: dict(v) for k, v in traverse_cuda.STACK_LAUNCHES.items()}
+
+
+# C3 on the card: each main-path scene's BVH8 table (CHAMELEONRT_WIDE_ARITY
+# =8) and the paths whose kernels trace it there, on its main-path primary
+# wavefront: (label, scene, width, height, paths)
+C3_CASES = (
+    ("San Miguel proxy 1280x720", SAN_MIGUEL, MAIN_W, MAIN_H, ("unified", "unified_persistent")),
+    ("large San Miguel proxy 1280x720", SAN_MIGUEL_LARGE, MAIN_W, MAIN_H, ("unified_stream",)),
+    ("city n=610 640x360", CITY_SCENE, CITY_W, CITY_H, ("stream",)),
+)
+
+
+def phase_bvh8(torch):
+    """C3, stacks deeper than 64: the stack each main-path scene's BVH8
+    table needs (certified bound + 1, against MAX_STACK); on the C3_CASES
+    scenes, whose BVH8 stacks exceed 64, each path's closest-hit kernel
+    against the plain walk on the main-path primary wavefront, and its
+    any-hit kernel at t_max = 1.001 x that hit, under phase 3's gates
+    (B3/B4, B5c/B5d and B6c/B6d meet them exactly), with the stack
+    capacity each launch ran with; then a BVH8 San Miguel image (phase 4's
+    size) against the plain walk. Returns {"stacks": {scene: need},
+    "cases": {label: {kernel: {...}}}}."""
+    from chameleonrt_tpu_torch import _build
+    from chameleonrt_tpu_torch.ops.intersect import T_MAX
+    from chameleonrt_tpu_torch.ops.math import EPSILON
+    from chameleonrt_tpu_torch.ops.traverse_cuda import stack_capacity, stack_depth
+
+    stacks = {}
+    for uri in (HALL_SCENE, SAN_MIGUEL, CITY_SCENE, SAN_MIGUEL_LARGE):
+        stacks[uri] = stack_depth(_scene_tables(torch, uri, wide=8)[1].blas[0].any)
+        if uri == HALL_SCENE:
+            del _TABLES[uri, 8, 4]
+    log(f"[bvh8] BVH8 stack needs (certified bound + 1) against MAX_STACK {_build.MAX_STACK}: "
+        f"{json.dumps(stacks)}")
+    cases = {}
+    for label, uri, W, H, paths in C3_CASES:
+        scene, _, _ = _scene_tables(torch, uri, wide=8)
+        table = _TABLES[uri, 8, 4][1].blas[0].any
+        if stack_capacity(stack_depth(table)) != _build.MAX_STACK:
+            raise AssertionError(f"{uri}'s BVH8 stack {stack_depth(table)} fits the 64-entry kernels")
+        orig, dirs, active = _primary_wavefront(torch, scene, W, H)
+        R = orig.shape[0]
+        c_args = (table, orig, dirs, torch.zeros((R,), device="cuda"), active,
+                  torch.full((R,), T_MAX, device="cuda"))
+        p = _kernel_pair(paths[0], True)[2](*c_args)
+        t_max = torch.where(p[0] < 1e19, p[0] * 1.001, torch.full_like(p[0], 100.0))
+        a_args = (table, orig, dirs, torch.full((R,), EPSILON, device="cuda"), t_max, active)
+        occ_p = _kernel_pair(paths[0], False)[2](*a_args)
+        res = {"rays": R, "rows": tuple(table.nodes.shape), "stack": stack_depth(table)}
+        for path in paths:
+            for closest, args in ((True, c_args), (False, a_args)):
+                name, kernel, _ = _kernel_pair(path, closest)
+                before = _snapshot_stacks()
+                got = kernel(*args)
+                torch.cuda.synchronize()
+                exact = path in PER_LANE
+                agree = (_closest_agreement(got, p, path in TWO_LEVEL, exact) if closest
+                         else _any_agreement(got, occ_p, exact))
+                res[name] = {**agree, "stack_launches": _stack_launches(before),
+                             "ms": _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)}
+                if not agree["ok"]:
+                    raise AssertionError(f"{name} on {label}'s BVH8 table disagrees with its plain "
+                                         f"version: {res[name]}")
+        log(f"[bvh8] {label}: {json.dumps(res)}")
+        cases[label] = res
+        del _TABLES[uri, 8, 4]
+    with _env(CHAMELEONRT_WIDE_ARITY="8"):
+        before = _snapshot_stacks()
+        phase_image(torch, SAN_MIGUEL, expect={"closest_unified", "any_unified"},
+                    tables=(16, 64, 40))
+        caps = _stack_launches(before)
+    log(f"[bvh8] San Miguel image launches by stack capacity: {json.dumps(caps)}")
+    if set(caps) != {"closest_unified", "any_unified"} or any(
+            set(c) != {_build.MAX_STACK} for c in caps.values()):
+        raise AssertionError(f"the BVH8 San Miguel image launched {caps}")
+    return {"stacks": stacks, "cases": cases}
 
 
 def _queue_grids(torch):
     """The work-queue kernels' grids as their first launches sized them:
-    resident blocks of 128 threads on the card, by label and arity (0 for
-    an instantiation that never launched)."""
+    resident blocks of 128 threads on the card, by label, arity and stack
+    capacity (0 for an instantiation that never launched)."""
     from chameleonrt_tpu_torch import _build
 
     lib = _build.kernels()
-    grids = {label: {a: lib.crt_persistent_blocks(i, a) for a in ARITIES}
+    grids = {label: {f"{a}@{cap}": lib.crt_persistent_blocks(i, a, cap)
+                     for a in ARITIES for cap in _build.STACK_CAPACITIES}
              for i, label in enumerate(("B6a", "B6b", "B6c", "B6d"))}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"[kernels] work-queue grids (blocks of 128 threads, {sms} SMs) by arity: {json.dumps(grids)}")
+    log(f"[kernels] work-queue grids (blocks of 128 threads, {sms} SMs) by arity@capacity: "
+        f"{json.dumps(grids)}")
     return grids
 
 
@@ -1014,8 +1174,8 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     timed_frames frames timed on the host clock and PROFILE_FRAMES profiled frames
     (_profile_frames), with every launch count set to 0 just before and
     read just after. expect maps each count to its launches per frame.
-    Returns {count: (launches in the run, launches per frame)} of the
-    kernels that ran."""
+    Returns {count: (launches in the run, launches per frame, {stack
+    capacity: launches})} of the kernels that ran."""
     from chameleonrt_tpu_torch.core.registry import get_backend
     from chameleonrt_tpu_torch.ops import traverse_cuda
 
@@ -1026,6 +1186,8 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     allocated_before = torch.cuda.memory_allocated()
     for k in traverse_cuda.LAUNCHES:
         traverse_cuda.LAUNCHES[k] = 0
+        for cap in traverse_cuda.STACK_LAUNCHES[k]:
+            traverse_cuda.STACK_LAUNCHES[k][cap] = 0
     backend = get_backend("cuda", slotlane=slotlane, grid_packet=grid_packet)
     backend.initialize(W, H)
     t0 = time.perf_counter()
@@ -1048,6 +1210,8 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     profiled = _profile_frames(torch, backend, (pos, d, up, fov), statistics.median(ms), expect)
     n_frames += PROFILE_FRAMES
     launches = dict(traverse_cuda.LAUNCHES)
+    stacks = {k: {cap: n for cap, n in caps.items() if n}
+              for k, caps in traverse_cuda.STACK_LAUNCHES.items() if any(caps.values())}
     res = {
         "scene": uri, "width": W, "height": H, "spp": spp, "slotlane": slotlane,
         "grid_packet": grid_packet,
@@ -1057,13 +1221,19 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
         "ms_per_frame": ms, "min_ms": min(ms), "median_ms": statistics.median(ms),
         "rays_per_frame": rays, "mray_s_median": statistics.median(mray_s),
         "peak_mem_bytes": peak, "allocated_before_bytes": allocated_before,
-        "launches": launches, "frames": n_frames,
+        "launches": launches, "stack_launches": stacks, "frames": n_frames,
     }
     log(f"[main] {json.dumps(res)}")
     log(f"[profile] {uri}: {json.dumps(profiled)}")
     want = {k: expect.get(k, 0) * n_frames for k in launches}
     if launches != want:
         raise AssertionError(f"expected {want} launches over {n_frames} frames, got {launches}")
+    # the BVH4 tables keep the 64-entry per-lane stacks; the warp-packet
+    # kernels hold MAX_STACK entries a warp in shared memory
+    want_cap = {k: {128 if k in ("closest_stream", "any_stream", "closest_packet", "any_packet")
+                    else 64: n} for k, n in launches.items() if n}
+    if stacks != want_cap:
+        raise AssertionError(f"expected launches by stack capacity {want_cap}, got {stacks}")
     accum = backend._accum
     if tuple(accum.shape) != (H, W, 3) or not bool(torch.isfinite(accum).all()):
         raise AssertionError("accumulated image is not a finite (H, W, 3) buffer")
@@ -1071,7 +1241,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
         raise AssertionError("accumulated image is all black")
     log(f"[main] {uri}: image mean {float(accum.mean()):.5f}, max {float(accum.max()):.5f}; "
         f"8-bit image mean {float(backend.img[..., :3].mean()):.3f}")
-    return {k: (n, n // n_frames) for k, n in launches.items() if n}
+    return {k: (n, n // n_frames, stacks[k]) for k, n in launches.items() if n}
 
 
 def _main_paths():
@@ -1114,6 +1284,7 @@ def main() -> int:
         print("no CUDA device: this check runs on an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from chameleonrt_tpu_torch._build import STACK_CAPACITIES
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1123,7 +1294,7 @@ def main() -> int:
     kres = {path: phase_kernels(torch, path) for path in TIERS}
     pres = phase_packet(torch)
     ares = phase_arities(torch)
-    _bvh8_stacks(torch)
+    c3 = phase_bvh8(torch)
     grids = _queue_grids(torch)
     phase_image(torch, HALL_IMAGE)
     phase_image(torch, INST_IMAGE)
@@ -1155,12 +1326,34 @@ def main() -> int:
 
     def arities(label, count, err4):
         """An entry's worst error, times and ptxas counts at each arity
-        (phase_arities; the entry's own error joins A = 4)."""
+        (phase_arities; the entry's own error joins A = 4), the counts of a
+        per-lane kernel at each stack capacity."""
         out = {}
         for a in ARITIES:
             r = ares[label][a]
+            ptx = {f"stack{cap}": ptxas[count, a, cap] for cap in STACK_CAPACITIES
+                   if (count, a, cap) in ptxas} or ptxas.get((count, a, None), {})
             out[str(a)] = {"max_abs_err": max(r["max_abs_err"], err4) if a == 4 else r["max_abs_err"],
-                           "mismatch": r["mismatch"], "ms": r["ms"], **ptxas.get((count, a), {})}
+                           "mismatch": r["mismatch"], "ms": r["ms"], **ptx}
+        return out
+
+    # C3: each kernel on its scene's BVH8 table
+    bvh8 = {name: {"scene": label, "stack": res["stack"], **{
+        k: v for k, v in r.items() if k in ("prim_mismatch", "occ_mismatch", "max_dt_common", "ms",
+                                            "stack_launches")}}
+        for label, res in c3["cases"].items() for name, r in res.items() if name[0] == "B"}
+
+    def shared(path, count, primary, bounce):
+        """The keys every phase-3 entry shares: launches on the main path
+        and by stack capacity there, times, bounds on both wavefronts."""
+        out = {"launches": launches[path][count][0], "launches_per_frame": launches[path][count][1],
+               "main_path_stack_launches": launches[path][count][2],
+               "ms": primary["ms"], "plain_ms": primary["plain_ms"],
+               "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"], "library_ms": None,
+               "bounce_ms": bounce["ms"], "bounce_plain_ms": bounce["plain_ms"],
+               "bounce_bound_ms": bounce["bound_ms"], "bounce_bound_by": bounce["bound_by"]}
+        if "ms_stack128" in primary:
+            out.update(ms_stack128=primary["ms_stack128"], bounce_ms_stack128=bounce["ms_stack128"])
         return out
 
     kernels = []
@@ -1179,9 +1372,10 @@ def main() -> int:
         ("B5b flat any hit, streamed tier", "stream", "any", "traverse_stream.cu",
          f"{slotlane}:835 (_any_call_slotlane, stream=True)"),
         ("B5c two-level closest hit, streamed tier", "unified_stream", "closest",
-         "traverse_stream.cu", f"{slotlane}:1025 (_closest_unified_call_slotlane, stream=True)"),
+         "traverse_unified_stream.cu",
+         f"{slotlane}:1025 (_closest_unified_call_slotlane, stream=True)"),
         ("B5d two-level any hit, streamed tier", "unified_stream", "any",
-         "traverse_stream.cu", f"{slotlane}:1085 (_any_unified_call_slotlane, stream=True)"),
+         "traverse_unified_stream.cu", f"{slotlane}:1085 (_any_unified_call_slotlane, stream=True)"),
     ):
         primary, bounce = kres[path][key]
         checked = (primary, bounce) if key == "closest" else kres[path]["any_all"]
@@ -1189,15 +1383,17 @@ def main() -> int:
         if key == "any":
             err = max(err, float(kres[path]["shadow"]["occ_mismatch"] > 0))
         count = key if path == "flat" else f"{key}_{path}"
+        label = name.split()[0]
         entry = {
             "name": name, "route": "cuda", "source": f"chameleonrt_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches[path][count][0],
-            "launches_per_frame": launches[path][count][1], "max_abs_err": err,
-            "ms": primary["ms"], "plain_ms": primary["plain_ms"],
-            "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"], "library_ms": None,
-            "bounce_ms": bounce["ms"], "bounce_plain_ms": bounce["plain_ms"],
-            "arities": arities(name.split()[0], count, err),
+            "replaces": replaces, "max_abs_err": err, **shared(path, count, primary, bounce),
+            "stack_capacities": list(STACK_CAPACITIES) if path in PER_LANE else [STACK_CAPACITIES[-1]],
+            "arities": arities(label, count, err),
         }
+        if label in bvh8:
+            entry["bvh8"] = bvh8[label]
+        if path == "unified_stream":
+            entry["shared_rows"] = kres[path]["shared_rows"]
         if path in SAME_RAYS:  # the unstreamed kernels on the same wavefronts
             other = SAME_RAYS[path]
             entry[f"{other}_kernel_ms"] = primary[f"{other}_ms"]
@@ -1226,20 +1422,26 @@ def main() -> int:
         if key == "any":
             errs.append(float(kres[tiers[0]]["queue_shadow"]["occ_mismatch"] > 0))
         count = f"{key}_{qpath}"
+        label = name.split()[0]
         entry = {
             "name": name, "route": "cuda", "source": "chameleonrt_tpu_torch/csrc/traverse_persistent.cu",
             "replaces": replaces, "launches": launches[qpath][count][0],
-            "launches_per_frame": launches[qpath][count][1], "max_abs_err": max(errs),
-            "resident_blocks": grids[name.split()[0]],
-            "arities": arities(name.split()[0], count, max(errs)),
+            "launches_per_frame": launches[qpath][count][1],
+            "main_path_stack_launches": launches[qpath][count][2], "max_abs_err": max(errs),
+            "stack_capacities": list(STACK_CAPACITIES), "resident_blocks": grids[label],
+            "arities": arities(label, count, max(errs)),
         }
+        if label in bvh8:
+            entry["bvh8"] = bvh8[label]
         for tier in tiers:
             primary, bounce = kres[tier][key]
-            times = {"ms": primary["queue"]["ms"], "plain_ms": primary["plain_ms"],
-                     "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"],
-                     "library_ms": None, "bounce_ms": bounce["queue"]["ms"],
-                     "bounce_plain_ms": bounce["plain_ms"],
+            times = {**shared(tier, key if tier == "flat" else f"{key}_{tier}", primary, bounce),
+                     "ms": primary["queue"]["ms"], "bounce_ms": bounce["queue"]["ms"],
+                     "ms_stack128": primary["queue"]["ms_stack128"],
+                     "bounce_ms_stack128": bounce["queue"]["ms_stack128"],
                      f"{tier}_kernel_ms": primary["ms"], f"{tier}_kernel_bounce_ms": bounce["ms"]}
+            for k in ("launches", "launches_per_frame", "main_path_stack_launches"):
+                del times[k]  # the tier kernel's, not this one's
             if tier in SAME_RAYS:
                 other = SAME_RAYS[tier]
                 times[f"{other}_kernel_ms"] = primary[f"{other}_ms"]
@@ -1263,16 +1465,13 @@ def main() -> int:
         count = f"{key}_packet"
         entry = {
             "name": name, "route": "cuda", "source": "chameleonrt_tpu_torch/csrc/traverse_packet.cu",
-            "replaces": replaces, "launches": launches["grid_packet"][count][0],
-            "launches_per_frame": launches["grid_packet"][count][1], "max_abs_err": err,
-            "ms": primary["ms"], "plain_ms": primary["plain_ms"],
-            "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"], "library_ms": None,
-            "bounce_ms": bounce["ms"], "bounce_plain_ms": bounce["plain_ms"],
+            "replaces": replaces, "max_abs_err": err, **shared("grid_packet", count, primary, bounce),
+            "stack_capacities": [STACK_CAPACITIES[-1]],
             "flat_binary_kernel_ms": primary["flat_binary_ms"],
             "flat_binary_kernel_bounce_ms": bounce["flat_binary_ms"],
             "flat_kernel_ms": primary["flat_ms"], "flat_kernel_bounce_ms": bounce["flat_ms"],
             "mismatch": [r.get("prim_mismatch", r.get("occ_mismatch")) for r in checked],
-            **ptxas.get((count, None), {}),
+            **ptxas.get((count, None, None), {}),
         }
         if key == "closest":
             for kind in ("kernel_only_hits", "tied_t_mismatch", "kernel_nearer", "plain_nearer"):

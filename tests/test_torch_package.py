@@ -118,8 +118,9 @@ def test_chip_smoke_knows_the_grid_packet_path_and_every_arity():
     """chip_smoke.py drives the grid_packet main path (5 B7a and 10 B7b
     launches a frame), pairs B7a/B7b with the plain flat walk, checks
     B1-B6d at arity 2, 4 and 8 on scenes that reach every one of them, and
-    reads ptxas's registers and spills per kernel and arity, and the
-    profile's template and packet kernel names, as launch-count keys."""
+    reads ptxas's registers and spills per kernel, arity and stack
+    capacity, and the profile's template and packet kernel names, as
+    launch-count keys."""
     sys.path.insert(0, ROOT)
     try:
         import chip_smoke
@@ -133,23 +134,29 @@ def test_chip_smoke_knows_the_grid_packet_path_and_every_arity():
         got = chip_smoke._kernel_pair("grid_packet", closest)
         assert got[0] == label and got[2] is plain
         assert got[1] is getattr(traverse_cuda, "traverse_closest_packet" if closest else "traverse_any_packet")
-    labels = {chip_smoke._PATHS[p][k][0] for *_, paths in chip_smoke.ARITY_CASES for p in paths
+    labels = {chip_smoke._PATHS[p][k][0] for _, _, paths, _ in chip_smoke.ARITY_CASES for p in paths
               for k in (0, 1)}
     assert labels == {f"B{n}" for n in (1, 2, 3, 4)} | {f"B{n}{x}" for n in (5, 6) for x in "abcd"}
     assert chip_smoke.ARITIES == (2, 4, 8)
     log = "\n".join([
-        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110any_kernelILi8EEEvPKfS2_' for 'sm_90a'",
-        "    256 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110any_kernelILi8ELi128EEEvPKfS2_' for 'sm_90a'",
+        "    512 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
         "ptxas info    : Used 79 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121closest_stream_kernelILi4EEEvPKfS2_' for 'sm_90a'",
+        "    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 48 registers",
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121closest_packet_kernelEPKfS1_' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 40 registers",
     ])
     assert chip_smoke._ptxas_table(log) == {
-        ("any", 8): {"stack_frame": 256, "spill_stores": 8, "spill_loads": 4, "registers": 79},
-        ("closest_packet", None): {"stack_frame": 0, "spill_stores": 0, "spill_loads": 0, "registers": 40},
+        ("any", 8, 128): {"stack_frame": 512, "spill_stores": 8, "spill_loads": 4, "registers": 79},
+        ("closest_stream", 4, None): {"stack_frame": 32, "spill_stores": 0, "spill_loads": 0,
+                                      "registers": 48},
+        ("closest_packet", None, None): {"stack_frame": 0, "spill_stores": 0, "spill_loads": 0,
+                                         "registers": 40},
     }
-    for name, key in (("_ZN12_GLOBAL__N_130any_unified_persistent_kernelILi2EEEvNS_6ParamsE",
+    for name, key in (("_ZN12_GLOBAL__N_130any_unified_persistent_kernelILi2ELi64EEEvNS_6ParamsE",
                        "any_unified_persistent"),
                       ("void (anonymous namespace)::closest_stream_kernel<8>(float const*)", "closest_stream"),
                       ("(anonymous namespace)::any_packet_kernel(float const*, int)", "any_packet")):

@@ -41,7 +41,7 @@ from chameleonrt_tpu.ops.traverse import (
     traverse_closest_unified_blocked,
 )
 from chameleonrt_tpu.scene.loader import load_scene as jax_load_scene
-from chameleonrt_tpu_torch import convert, native
+from chameleonrt_tpu_torch import _build, convert, native
 from chameleonrt_tpu_torch.engine import device_scene as tds
 from chameleonrt_tpu_torch.engine import trace_bvh as ttb
 from chameleonrt_tpu_torch.ops import traverse as plain
@@ -238,7 +238,7 @@ def test_unified_wrappers_refuse_what_the_kernels_do_not_take(tables, wrapper, f
     tmax = torch.full((R,), 1e20)
     table = port.any
     if fault == "stack":
-        table = table._replace(stack_bound=100)
+        table = table._replace(stack_bound=_build.MAX_STACK)  # needs MAX_STACK + 1
     elif fault == "arity":
         table = table._replace(nodes=table.nodes[:, :24].contiguous())
     else:
