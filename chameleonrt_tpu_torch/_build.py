@@ -138,9 +138,8 @@ def load_library(path: str) -> ctypes.CDLL:
     """The traversal kernels' library at path, loaded and bound. Every
     entry of B1-B6d takes the node rows' arity (2, 4 or 8) before the leaf
     size; those of the per-lane kernels (B1-B4, B5c, B5d, B6a-B6d) take the
-    stack capacity after the depth, B5c's and B5d's then their shared TLAS
-    and entry rows; B5a, B5b, B7a and B7b keep a stack of MAX_STACK entries
-    in shared memory, and B7a/B7b take binary rows only."""
+    stack capacity after the depth; B5a, B5b, B7a and B7b keep a stack of
+    MAX_STACK entries in shared memory, and B7a/B7b take binary rows only."""
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     # B5a / B5b: nodes, leaf rows, leaves, arity, L, depth, rays..., R, stream
@@ -151,14 +150,13 @@ def load_library(path: str) -> ctypes.CDLL:
     # B1 / B2: the stack capacity after the depth
     lib.crt_traverse_closest.argtypes = flat_closest[:6] + [i] + flat_closest[6:]
     lib.crt_traverse_any.argtypes = flat_any[:6] + [i] + flat_any[6:]
-    # B3 / B4: nodes, leaf rows, n_tri, tlas_lo, arity, L, depth, capacity, rays..., R, stream
+    # B3 / B4, B5c / B5d: nodes, leaf rows, n_tri, tlas_lo, arity, L, depth, capacity, rays...,
+    # R, stream
     unified_closest = [p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p]
     unified_any = [p, p, i, i, i, i, i, i, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_closest_unified.argtypes = unified_closest
-    lib.crt_traverse_any_unified.argtypes = unified_any
-    # B5c / B5d: the TLAS and entry rows held in shared memory after the capacity
-    lib.crt_traverse_closest_unified_stream.argtypes = unified_closest[:8] + [i, i] + unified_closest[8:]
-    lib.crt_traverse_any_unified_stream.argtypes = unified_any[:8] + [i, i] + unified_any[8:]
+    for tier in ("_unified", "_unified_stream"):
+        getattr(lib, f"crt_traverse_closest{tier}").argtypes = unified_closest
+        getattr(lib, f"crt_traverse_any{tier}").argtypes = unified_any
     # the work-queue kernels take one more pointer, the queue's counter, before R
     for kind in ("closest", "any"):
         for tier in ("", "_unified"):

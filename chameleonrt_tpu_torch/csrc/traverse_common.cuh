@@ -21,6 +21,12 @@
 // Every file is built with -fmad=false so every product and sum rounds as
 // in the plain version.
 //
+// The two-level walks (B3/B4, B5c/B5d, and B6c) are closest_two_level and
+// any_two_level below, templates on a row source (GlobalRows). The closest
+// walk runs node rows in a loop of its own that the warp leaves once most
+// of its lanes wait at a leaf; the any walk is still one loop over node
+// rows, triangle leaves and instance entries.
+//
 // Stacks: depth, the SAH build's certified bound + 1, reaches 76 on BVH8
 // tables of the main-path scenes. The per-lane kernels (B1-B4, B5c, B5d,
 // B6a-B6d) keep a local array of S entries, S a template parameter
@@ -42,6 +48,7 @@ constexpr int kSmallStack = 64;   // _build.STACK_CAPACITIES[0]
 constexpr int kMaxStack = 128;    // _build.MAX_STACK
 constexpr int kMaxLeaf = 16;      // _build.MAX_LEAF
 constexpr int kThreads = 128;
+constexpr int kNodeLanes = 8;  // closest_two_level's node loop: lanes that keep it going
 constexpr int kDone = 0x7FFFFFFF;
 constexpr float kTMax = 1e20f;
 constexpr float kBig = 1e30f;
@@ -293,13 +300,18 @@ __device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,
 }
 
 // A two-level table's rows read from global memory through the read-only
-// path: B3/B4's row source for the walks below. A row source T of arity A
-// holds n_tri and tlas_lo and reads
+// path: the row source of B3/B4, B5c/B5d and B6c for the walks below. A
+// row source T of arity A holds n_tri and tlas_lo and reads
 //   t.node_row(cur, row): node row cur into row[8A];
 //   t.entry(leaf, m): instance-entry leaf's cols 0-13 into m[kEntryCols];
 //   t.leaf_slots(leaf, visit): visit(Tri) on triangle leaf `leaf`'s slots
 //     0, 1, ... until it returns true.
-// B5c/B5d's (traverse_unified_stream.cu) reads its shared rows first.
+// Node rows load 16 bytes at a time. An entry row is three 16-byte loads
+// and one of 8 where L is even (40L-byte rows then start on 16 bytes), else
+// seven of 8 bytes. Where L is even a leaf's slots come two at a time, as
+// ten 8-byte loads (one per component) in flight together; odd L read slot
+// by slot. Four slots a batch (ten 16-byte loads) held 16 more registers
+// and measured slower on bounce rays (PERF.md section 6).
 template <int A>
 struct GlobalRows {
   const float* nodes;
@@ -311,21 +323,63 @@ struct GlobalRows {
   }
   __device__ __forceinline__ void entry(int leaf, float* m) const {
     const float* erow = leaf_rows + static_cast<size_t>(leaf) * 10 * L;
+    if (L % 2 == 0) {
+      const float4* e4 = reinterpret_cast<const float4*>(erow);
 #pragma unroll
-    for (int c = 0; c < kEntryCols; ++c) m[c] = __ldg(erow + c);
+      for (int q = 0; q < 3; ++q) {
+        const float4 x = __ldg(e4 + q);
+        m[4 * q] = x.x; m[4 * q + 1] = x.y; m[4 * q + 2] = x.z; m[4 * q + 3] = x.w;
+      }
+      const float2 y = __ldg(reinterpret_cast<const float2*>(erow + 12));
+      m[12] = y.x; m[13] = y.y;
+    } else {
+      const float2* e2 = reinterpret_cast<const float2*>(erow);
+#pragma unroll
+      for (int q = 0; q < kEntryCols / 2; ++q) {
+        const float2 x = __ldg(e2 + q);
+        m[2 * q] = x.x; m[2 * q + 1] = x.y;
+      }
+    }
   }
   template <typename Visit>
   __device__ __forceinline__ void leaf_slots(int leaf, Visit visit) const {
     const float* lrow = leaf_rows + static_cast<size_t>(leaf) * 10 * L;
-    for (int j = 0; j < L; ++j)
-      if (visit(load_tri(lrow, L, j))) return;
+    if (L % 2 != 0) {
+      for (int j = 0; j < L; ++j)
+        if (visit(load_tri(lrow, L, j))) return;
+      return;
+    }
+    for (int j0 = 0; j0 < L; j0 += 2) {
+      float2 c[10];
+#pragma unroll
+      for (int k = 0; k < 10; ++k) c[k] = __ldg(reinterpret_cast<const float2*>(lrow + k * L + j0));
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        Tri s;
+        s.v0x = j ? c[0].y : c[0].x; s.v0y = j ? c[1].y : c[1].x; s.v0z = j ? c[2].y : c[2].x;
+        s.e1x = j ? c[3].y : c[3].x; s.e1y = j ? c[4].y : c[4].x; s.e1z = j ? c[5].y : c[5].x;
+        s.e2x = j ? c[6].y : c[6].x; s.e2y = j ? c[7].y : c[7].x; s.e2z = j ? c[8].y : c[8].x;
+        s.prim = __float_as_int(j ? c[9].y : c[9].x);
+        if (visit(s)) return;
+      }
+    }
   }
 };
 
 // The closest-hit walk of one live world ray w over the rows of t (B3,
-// B5c): the rules of traverse_unified.cu's header, a stack of S entries of
-// which depth - 1 may be filled. Updates (best, best_prim, best_inst,
-// best_u, best_v) on each nearer hit; an overflow sets best_prim = -2.
+// B5c, B6c): the rules of traverse_unified.cu's header, a stack of S
+// entries of which depth - 1 may be filled. Updates (best, best_prim,
+// best_inst, best_u, best_v) on each nearer hit; an overflow sets
+// best_prim = -2. Node rows run in a loop of their own (Aila and Laine's
+// "while-while", HPG 2009), so the lanes of a warp that are descending take
+// their node rows together, and a lane at a triangle leaf or an instance
+// entry waits at the loop's end. The warp leaves the node loop once fewer
+// than kNodeLanes of its lanes are still in it: the waiting lanes then take
+// their leaves together, and the others resume their node rows after.
+// Where the warp took the loop to its end, its lanes waited on a few long
+// descents. Each lane visits its rows in the plain walk's order, one at a
+// time, whenever it leaves the loop: no speculative step, no postponed
+// leaf, so ties break as there.
 template <int A, int S, typename T>
 __device__ __forceinline__ void closest_two_level(const T& t, int depth, const Ray& w,
                                                   float& best, int& best_prim, int& best_inst,
@@ -336,7 +390,8 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
   int sp = 0;
   int cur = t.tlas_lo;
   while (cur != kDone) {
-    if (cur >= 0) {
+    // 0 <= cur < kDone: a node row
+    while (static_cast<unsigned>(cur) < static_cast<unsigned>(kDone)) {
       float row[row_floats<A>()];
       t.node_row(cur, row);
       float keys[A];
@@ -353,7 +408,11 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
         }
       }
       cur = keys[0] < kBig ? codes[0] : (sp > 0 ? stack[--sp] : kDone);
-    } else if (-cur - 1 < t.n_tri) {
+      if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;  // a pop onto a TLAS row
+      if (__popc(__activemask()) < kNodeLanes) break;  // most of the warp waits
+    }
+    if (cur >= 0) continue;  // a node row still, or kDone
+    if (-cur - 1 < t.n_tri) {
       float lt = best, lu = 0.0f, lv = 0.0f;
       int lp = -1;
       t.leaf_slots(-cur - 1, [&](const Tri& s) {
@@ -368,20 +427,21 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
         best = lt; best_prim = lp; best_inst = inst; best_u = lu; best_v = lv;
       }
       cur = sp > 0 ? stack[--sp] : kDone;
+      if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;
     } else {
       float m[kEntryCols];
       t.entry(-cur - 1, m);
       r = enter_instance(m, w);
       cur = __float_as_int(m[12]);  // a BLAS row: stay in object space
       inst = __float_as_int(m[13]);
-      continue;
     }
-    if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;
   }
 }
 
 // The any-hit walk of one live world ray w over the rows of t (B4, B5d):
-// whether some t_min < t < tmax hit exists; an overflow is occluded.
+// whether some t_min < t < tmax hit exists; an overflow is occluded. Still
+// one loop: closest_two_level's node loop is left for the any-hit kernels'
+// own redesign (ROADMAP.md, queue D).
 template <int A, int S, typename T>
 __device__ __forceinline__ bool any_two_level(const T& t, int depth, const Ray& w, float tmax) {
   Ray r = w;
@@ -423,6 +483,38 @@ __device__ __forceinline__ bool any_two_level(const T& t, int depth, const Ray& 
     if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;
   }
   return false;
+}
+
+// Ray i of a wavefront through closest_two_level over the rows of t, its
+// result written at i (B3, B5c, B6c): a miss, an inactive lane or an
+// overflow is (1e20, prim, -1, 0, 0) with prim -1 or -2.
+template <int A, int S, typename T>
+__device__ __forceinline__ void closest_ray(const T& t, int depth, const float* orig,
+                                            const float* dir, const float* t_min,
+                                            const float* t_max, const uint8_t* active,
+                                            float* t_out, int* prim_out, int* inst_out,
+                                            float* u_out, float* v_out, int i) {
+  float best = fminf(kTMax, t_max[i]), best_u = 0.0f, best_v = 0.0f;
+  int best_prim = -1, best_inst = -1;
+  if (active[i])
+    closest_two_level<A, S>(t, depth, load_ray(orig, dir, t_min, i), best, best_prim, best_inst,
+                            best_u, best_v);
+  const bool miss = best_prim < 0;
+  t_out[i] = miss ? kTMax : best;
+  prim_out[i] = best_prim;
+  inst_out[i] = miss ? -1 : best_inst;
+  u_out[i] = miss ? 0.0f : best_u;
+  v_out[i] = miss ? 0.0f : best_v;
+}
+
+// Ray i through any_two_level over the rows of t, occluded & mask written
+// at i (B4, B5d).
+template <int A, int S, typename T>
+__device__ __forceinline__ void any_ray(const T& t, int depth, const float* orig, const float* dir,
+                                        const float* t_min, const float* t_max,
+                                        const uint8_t* mask, uint8_t* occluded, int i) {
+  occluded[i] =
+      mask[i] && any_two_level<A, S>(t, depth, load_ray(orig, dir, t_min, i), t_max[i]) ? 1 : 0;
 }
 
 }  // namespace crt

@@ -17,13 +17,22 @@
 //     (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs,
 //     computed once per kernel), whatever the number of rays;
 //   - a device counter, reset in stream order before each launch, hands out
-//     ray indices; a warp takes kFetch consecutive indices with one atomic
-//     and gives them to its idle lanes by a ballot, in lane order, so
-//     refills follow the path tracer's sorted order;
-//   - each lane walks its own ray, one row per iteration, in B1's per-lane
-//     order (traverse_flat.cu: near-first through the sorting network,
-//     leaves as it meets them, a local-memory stack of `depth` entries), and
-//     takes a new ray as soon as its ray ends.
+//     ray indices, kFetch consecutive ones to a warp with one atomic;
+//   - each lane walks its own ray in B1's per-lane order (traverse_flat.cu:
+//     near-first through the sorting network, leaves as it meets them, a
+//     local-memory stack of `depth` entries).
+// Two schedules share that queue:
+//   - B6c fetches per warp, as the TPU kernel's slot pulls its next packet:
+//     the warp's 32 lanes take 32 consecutive sorted rays, each walks its
+//     ray to the end with B3's walk (closest_two_level over GlobalRows,
+//     traverse_common.cuh), and the warp meets at __syncwarp() before its
+//     next fetch. A warp's lanes always hold neighbours in the sorted
+//     wavefront, and no ballot or refill runs between two row steps;
+//   - B6a, B6b and B6d refill per lane: a lane whose ray ends takes the
+//     next index of the warp's batch at once (handed out by a ballot, in
+//     lane order), and every row step runs inside a warp-wide ballot, an
+//     any-vote and the refill bookkeeping. The per-warp fetch is queue D's
+//     to try there (ROADMAP.md).
 // The TPU kernel's phase alternation, deferred leaf FIFO, merged phase,
 // pinned tree top and VMEM gates schedule a lockstep vector unit and are
 // not carried over. Every table sits in global memory behind the L2, so one
@@ -36,9 +45,10 @@
 //     t_min < t < t_max, and an overflow is occluded, as B2/B4.
 // Two-level walks are B3/B4's (traverse_unified.cu): an instance-entry leaf
 // rebuilds the object ray from the world ray, and a step onto a row where
-// in_world holds restores the world ray. A lane's refill resets its world
-// and object rays, its stack and its instance, so a ray that ended inside
-// a BLAS leaves nothing behind.
+// in_world holds restores the world ray. B6c runs B3's walk itself; B6d's
+// step() repeats B4's rules, and a lane's refill resets its world and
+// object rays and its stack, so a ray that ended inside a BLAS leaves
+// nothing behind.
 // Like B1-B4, each kernel is a template on the node rows' arity A (2, 4
 // or 8; the Pallas kernels take 2, 4 or 8, traverse_packet.py:2340-2345)
 // and on its stack capacity S (64 or 128), its C entry switches on both,
@@ -46,13 +56,15 @@
 // Built with -fmad=false, so t agrees with the plain version bit for bit.
 //
 // What bounds it on the H100: as B1-B4, dependent row fetches (latency, not
-// bytes: a wavefront's distinct rows are a few MB). The queue keeps every
-// lane busy until the queue is empty, where a B1 warp waits for its longest
-// ray; the price is coherence, since a warp's lanes soon hold rays from
-// different parts of the sorted wavefront, and a ballot, an any-vote and
-// the refill each iteration. On an H100 80GB HBM3 at 700 W the price was
-// the larger: B6a-B6d took 0.97-1.37x the time of B1-B4 on the same
-// 921,600-ray wavefronts (chip_smoke.py, phase 3).
+// bytes: a wavefront's distinct rows are a few MB). The per-lane refill
+// keeps every lane busy until the queue is empty, where a B1 warp waits
+// for its longest ray; the price is coherence, since a warp's lanes soon
+// hold rays from different parts of the sorted wavefront, and a ballot, an
+// any-vote and the refill each row step. On an H100 80GB HBM3 at 700 W the
+// price was the larger: B6a-B6d took 0.97-1.37x the time of B1-B4 on the
+// same 921,600-ray wavefronts (chip_smoke.py, phase 3). Fetching per warp
+// took 17-20% off B6c on the same walk (scripts/kernel_turns.py; PERF.md
+// section 6), and B6c now runs within 10% of B3 on the same rays.
 
 #include "traverse_common.cuh"
 
@@ -84,15 +96,13 @@ struct Params {
   int R;
 };
 
-// One lane's walk.
+// One lane's walk (B6a, B6b, B6d).
 struct Walk {
   Ray w;       // the world ray (two-level)
   Ray r;       // the ray of the current space
   float tmax;  // closest hit: the best t so far; any hit: t_max
   float u, v;
   int prim;    // closest hit: the best prim so far (-2 after an overflow)
-  int inst;    // two-level closest hit: the best prim's instance
-  int space;   // two-level closest hit: the instance whose object space r holds
   int cur, sp;
   bool occ;    // any hit
 };
@@ -103,7 +113,7 @@ __device__ __forceinline__ void start(const Params& p, Walk& s, int i) {
   s.r = s.w;
   s.tmax = kAny ? p.t_max[i] : fminf(kTMax, p.t_max[i]);
   s.u = 0.0f; s.v = 0.0f;
-  s.prim = -1; s.inst = -1; s.space = 0;
+  s.prim = -1;
   s.sp = 0;
   s.occ = false;
   if (!p.flag[i]) s.cur = kDone;
@@ -157,7 +167,7 @@ __device__ __forceinline__ void step(const Params& p, Walk& s, int* stack) {
         }
       }
       if (lp >= 0) {  // some slot hit, so lt < the best t
-        s.tmax = lt; s.prim = lp; s.u = lu; s.v = lv; s.inst = s.space;
+        s.tmax = lt; s.prim = lp; s.u = lu; s.v = lv;
       }
     }
     s.cur = pop(s, stack);
@@ -168,24 +178,16 @@ __device__ __forceinline__ void step(const Params& p, Walk& s, int* stack) {
     for (int k = 0; k < 12; ++k) m[k] = __ldg(erow + k);
     s.r = enter_instance(m, s.w);
     s.cur = __float_as_int(__ldg(erow + 12));  // a BLAS row: stay in object space
-    s.space = __float_as_int(__ldg(erow + 13));
     return;
   }
   if (kUnified && in_world(s.cur, p.n_tri, p.tlas_lo)) s.r = s.w;
 }
 
 // The ended walk's result, at its ray's index.
-template <bool kAny, bool kUnified>
+template <bool kAny>
 __device__ __forceinline__ void finish(const Params& p, const Walk& s, int i) {
   if (kAny) {
     p.occluded[i] = s.occ ? 1 : 0;
-  } else if (kUnified) {
-    const bool miss = s.prim < 0;
-    p.t_out[i] = miss ? kTMax : s.tmax;
-    p.prim_out[i] = s.prim;
-    p.inst_out[i] = miss ? -1 : s.inst;
-    p.u_out[i] = miss ? 0.0f : s.u;
-    p.v_out[i] = miss ? 0.0f : s.v;
   } else {  // B1's outputs, u and v included
     p.t_out[i] = s.prim < 0 ? kTMax : s.tmax;
     p.prim_out[i] = s.prim;
@@ -229,7 +231,7 @@ __device__ __forceinline__ void persistent(const Params& p) {
     if (ray >= 0) {
       if (s.cur != kDone) step<kAny, kUnified, A>(p, s, stack);
       if (s.cur == kDone) {
-        finish<kAny, kUnified>(p, s, ray);
+        finish<kAny>(p, s, ray);
         ray = -1;
       }
     }
@@ -246,9 +248,27 @@ __global__ void __launch_bounds__(kThreads) any_persistent_kernel(const Params p
   persistent<true, false, A, S>(p);
 }
 
+// B6c: persistent warps over B3's walk. Lane 0 takes kFetch consecutive
+// ray indices with one atomic and the warp shares them by a shuffle; each
+// lane walks its ray to the end (closest_two_level over GlobalRows, as B3)
+// and writes its result; the warp meets at __syncwarp() and fetches again
+// until the counter passes R. Every lane reaches each fetch; a lane past R
+// at the queue's ragged end does not walk.
 template <int A, int S>
 __global__ void __launch_bounds__(kThreads) closest_unified_persistent_kernel(const Params p) {
-  persistent<false, true, A, S>(p);
+  const unsigned lane = threadIdx.x & 31u;
+  const GlobalRows<A> t{p.nodes, p.leaf_rows, p.n_tri, p.tlas_lo, p.L};
+  while (true) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(p.counter, kFetch);
+    base = __shfl_sync(kFull, base, 0);
+    if (base >= p.R) return;  // warp-uniform
+    const int i = base + static_cast<int>(lane);
+    if (i < p.R)
+      closest_ray<A, S>(t, p.depth, p.orig, p.dir, p.t_min, p.t_max, p.flag, p.t_out, p.prim_out,
+                        p.inst_out, p.u_out, p.v_out, i);
+    __syncwarp();
+  }
 }
 
 template <int A, int S>

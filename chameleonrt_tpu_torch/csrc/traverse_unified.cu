@@ -43,9 +43,18 @@
 // instance box it enters). The San Miguel proxy's BVH4 table (57K node rows
 // of 128 bytes, 120K leaf rows of 160 bytes, 27 MB) fits in the 50 MB L2.
 // Divergence is worse than in a flat scene: neighbouring rays enter
-// different instances and their object-space rays differ.
-// Later work: the same as B1/B2 (warp packets on the sorted wavefront, the
-// stack in shared memory, FMA), and a TLAS that is walked once per warp.
+// different instances and their object-space rays differ. So B3's walk
+// (closest_two_level) takes node rows in a loop of their own that a warp
+// leaves once fewer than kNodeLanes of its lanes are in it, and GlobalRows
+// reads a leaf's slots two at a time and an entry row 16 bytes at a time.
+// On an H100 80GB HBM3 at 700 W that took 15-20% off B3 on San Miguel's
+// and the large proxy's sorted 921,600-ray wavefronts (scripts/
+// kernel_turns.py, PERF.md section 6). Measured and left out: a register
+// cap for 10 or 12 blocks an SM (48 or 40 registers spill; 5-16% slower),
+// the node loop run to its end (faster on primary rays, 3-4% slower on
+// bounce rays), four slots a leaf batch (16 more registers, slower on
+// bounce rays).
+// Later work: B4's walk (any_two_level) in the same shape, FMA.
 
 #include "traverse_common.cuh"
 
@@ -62,22 +71,11 @@ closest_unified_kernel(const float* __restrict__ nodes, const float* __restrict_
                        const uint8_t* __restrict__ active, float* __restrict__ t_out,
                        int* __restrict__ prim_out, int* __restrict__ inst_out,
                        float* __restrict__ u_out, float* __restrict__ v_out, int R) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  float best = fminf(kTMax, t_max[i]);
-  int best_prim = -1, best_inst = -1;
-  float best_u = 0.0f, best_v = 0.0f;
-  if (active[i]) {
-    const GlobalRows<A> t{nodes, leaf_rows, n_tri, tlas_lo, L};
-    closest_two_level<A, S>(t, depth, load_ray(orig, dir, t_min, i), best, best_prim,
-                            best_inst, best_u, best_v);
-  }
-  bool miss = best_prim < 0;
-  t_out[i] = miss ? kTMax : best;
-  prim_out[i] = best_prim;
-  inst_out[i] = miss ? -1 : best_inst;
-  u_out[i] = miss ? 0.0f : best_u;
-  v_out[i] = miss ? 0.0f : best_v;
+  const GlobalRows<A> t{nodes, leaf_rows, n_tri, tlas_lo, L};
+  closest_ray<A, S>(t, depth, orig, dir, t_min, t_max, active, t_out, prim_out, inst_out, u_out,
+                    v_out, i);
 }
 
 template <int A, int S>
@@ -87,14 +85,10 @@ any_unified_kernel(const float* __restrict__ nodes, const float* __restrict__ le
                    const float* __restrict__ orig, const float* __restrict__ dir,
                    const float* __restrict__ t_min, const float* __restrict__ t_max,
                    const uint8_t* __restrict__ mask, uint8_t* __restrict__ occluded, int R) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  bool occ = false;
-  if (mask[i]) {
-    const GlobalRows<A> t{nodes, leaf_rows, n_tri, tlas_lo, L};
-    occ = any_two_level<A, S>(t, depth, load_ray(orig, dir, t_min, i), t_max[i]);
-  }
-  occluded[i] = occ ? 1 : 0;
+  const GlobalRows<A> t{nodes, leaf_rows, n_tri, tlas_lo, L};
+  any_ray<A, S>(t, depth, orig, dir, t_min, t_max, mask, occluded, i);
 }
 
 }  // namespace

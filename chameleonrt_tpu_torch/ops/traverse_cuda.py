@@ -59,9 +59,6 @@ ROW_FLOATS = (16, 32, 64)
 # per-lane stack it launches with
 _SHARED_STACK = ("crt_traverse_closest_stream", "crt_traverse_any_stream",
                  "crt_traverse_closest_packet", "crt_traverse_any_packet")
-# bytes of dynamic shared memory B5c/B5d may hold rows in (kSharedBudget in
-# csrc/traverse_unified_stream.cu)
-SHARED_BUDGET = 64 * 1024
 
 
 def stack_depth(table) -> int:
@@ -84,28 +81,6 @@ def stack_capacity(depth: int) -> int:
         if depth <= cap:
             return cap
     raise ValueError(f"stack depth {depth} exceeds the kernel's {_build.MAX_STACK}")
-
-
-def shared_rows(ubvh: UnifiedBvh) -> dict:
-    """What B5c/B5d hold in shared memory for a two-level table, laid out
-    as csrc/traverse_unified_stream.cu's shared_layout lays it out: as many
-    TLAS rows [tlas_lo, n_nodes) as fit in SHARED_BUDGET bytes, then as many
-    instance-entry rows [n_tri_leaves, n_leaves) as fit in the rest, each
-    range starting on 16 bytes. An entry range whose start in global memory
-    is 8 bytes past 16 (40L-byte rows at odd L) is copied from 8 bytes
-    before it (entry_offset), and its shared bytes round up to 16. Returns
-    {"tlas_rows", "entry_rows", "tlas_bytes", "entry_offset",
-    "entry_bytes", "bytes"}."""
-    node_bytes, leaf_bytes = ubvh.nodes.shape[1] * 4, ubvh.leaf_rows.shape[1] * 4
-    n_tlas = min(ubvh.nodes.shape[0] - ubvh.tlas_lo, SHARED_BUDGET // node_bytes)
-    tlas_bytes = n_tlas * node_bytes
-    off = ubvh.n_tri_leaves * leaf_bytes % 16
-    n_ent = min(ubvh.leaf_rows.shape[0] - ubvh.n_tri_leaves,
-                max(0, (SHARED_BUDGET - tlas_bytes - off) // leaf_bytes))
-    off = off if n_ent else 0
-    ent_bytes = -(-(off + n_ent * leaf_bytes) // 16) * 16
-    return {"tlas_rows": n_tlas, "entry_rows": n_ent, "tlas_bytes": tlas_bytes,
-            "entry_offset": off, "entry_bytes": ent_bytes, "bytes": tlas_bytes + ent_bytes}
 
 
 def _check(table, orig, dir, t_min, t_max, flag, widths=ROW_FLOATS):
@@ -197,17 +172,10 @@ def _stack_cap(entry: str, depth: int) -> int:
     return _build.MAX_STACK if entry in _SHARED_STACK else stack_capacity(depth)
 
 
-def _stack_args(entry: str, cap: int, table) -> list:
-    """The arguments a C entry takes after the depth: none for a
-    warp-packet kernel; a per-lane kernel's stack capacity cap; B5c's and
-    B5d's then the TLAS and entry rows they hold in shared memory
-    (shared_rows)."""
-    if entry in _SHARED_STACK:
-        return []
-    if not entry.endswith("_unified_stream"):
-        return [cap]
-    rows = shared_rows(table)
-    return [cap, rows["tlas_rows"], rows["entry_rows"]]
+def _stack_args(entry: str, cap: int) -> list:
+    """The argument a C entry takes after the depth: a per-lane kernel's
+    stack capacity cap, none for a warp-packet kernel."""
+    return [] if entry in _SHARED_STACK else [cap]
 
 
 def _count(key: str, cap: int):
@@ -233,7 +201,7 @@ def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves,
-        *_arity_arg(entry, arity), L, depth, *_stack_args(entry, cap, pbvh),
+        *_arity_arg(entry, arity), L, depth, *_stack_args(entry, cap),
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         active.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
         *[q.data_ptr() for q in queue], R, _stream(orig),
@@ -258,7 +226,7 @@ def _any(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves,
-        *_arity_arg(entry, arity), L, depth, *_stack_args(entry, cap, pbvh),
+        *_arity_arg(entry, arity), L, depth, *_stack_args(entry, cap),
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         mask.data_ptr(), occ.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
     )
@@ -314,7 +282,7 @@ def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, a
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, arity,
-        L, depth, *_stack_args(entry, cap, ubvh), orig.data_ptr(), dir.data_ptr(),
+        L, depth, *_stack_args(entry, cap), orig.data_ptr(), dir.data_ptr(),
         t_min.data_ptr(), t_max.data_ptr(), active.data_ptr(), t.data_ptr(), prim.data_ptr(),
         inst.data_ptr(), u.data_ptr(), v.data_ptr(), *[q.data_ptr() for q in queue], R,
         _stream(orig),
@@ -338,7 +306,7 @@ def _any_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, t_max
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, arity,
-        L, depth, *_stack_args(entry, cap, ubvh), orig.data_ptr(), dir.data_ptr(),
+        L, depth, *_stack_args(entry, cap), orig.data_ptr(), dir.data_ptr(),
         t_min.data_ptr(), t_max.data_ptr(), mask.data_ptr(), occ.data_ptr(),
         *[q.data_ptr() for q in queue], R, _stream(orig),
     )
@@ -362,10 +330,9 @@ def traverse_any_unified(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
 
 
 def traverse_closest_unified_stream(ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
-    """B5c: closest hit over a two-level table in the streamed tier, one
-    thread per ray in B3's order, with the TLAS and instance-entry rows of
-    shared_rows in shared memory. Returns (t, prim, inst, u, v), bit-equal
-    to its plain version, plain.traverse_closest_unified."""
+    """B5c: closest hit over a two-level table in the streamed tier, B3's
+    per-ray walk in a kernel of its own. Returns (t, prim, inst, u, v),
+    bit-equal to its plain version, plain.traverse_closest_unified."""
     return _closest_unified("crt_traverse_closest_unified_stream", "closest_unified_stream",
                             ubvh, orig, dir, t_min, active, t_max)
 

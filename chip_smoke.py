@@ -27,23 +27,23 @@ nor the JAX package (it asserts so at its end). Phases:
      640x360 city frame;
    - B5c/B5d (the two-level streamed tier, per-lane walks bit-equal to
      their plain versions, B3/B4's: 0 mismatches and |dt| = |du| = |dv|
-     = 0) on proc://instances?nx=4&ny=4&subdiv=2 at 320x180, forced, and
-     on the large San Miguel proxy (gen://san_miguel?leaf_tris=700000
+     = 0, the gate of every two-level kernel) on
+     proc://instances?nx=4&ny=4&subdiv=2 at 320x180, forced, and on the
+     large San Miguel proxy (gen://san_miguel?leaf_tris=700000
      &canopy_instances=10: 95 instances, 9.67M instanced triangles, a
      two-level table about three times the L2) at 1280x720, which the gate
      must route to them, any hit at both t_max factors on both wavefronts,
-     with B3/B4 timed on the same rays and the rows B5c/B5d hold in shared
-     memory logged; and B5d on the 10 masked shadow-ray wavefronts of one
-     1-spp 1280x720 frame of it;
+     with B3/B4 timed on the same rays; and B5d on the 10 masked
+     shadow-ray wavefronts of one 1-spp 1280x720 frame of it;
    - B6a-B6d (the work-queue kernels that trace every scene with the
      slot-lane tier off, whose plain versions are B1-B4's) on every
      wavefront above: B6a/B6b on the flat and city wavefronts, B6c/B6d on
      the two-level ones, each against the plain result already computed
      for the tier's kernel on the same rays and timed beside it, with its
      outputs (and its queue's counter) allocated as sentinels that must
-     not survive, and again on the first 777 rays alone (fewer than one
-     SM holds, not a multiple of 32); and B6b / B6d on the shadow-ray
-     wavefronts of one hall / San Miguel frame;
+     not survive, and again on the first 777 rays alone (far fewer than
+     the grid's threads, not a multiple of 32); and B6b / B6d on the
+     shadow-ray wavefronts of one hall / San Miguel frame;
    - B7a/B7b (the grid-packet kernels, binary rows only, whose plain
      versions are B1/B2's on the same binary table) on the hall's binary
      table: proc://hall?subdiv=2 at 320x180 and the textured hall at
@@ -55,9 +55,10 @@ nor the JAX package (it asserts so at its end). Phases:
      primary wavefronts of the parity scenes at 320x180: B1/B2 and B6a/B6b
      on proc://hall?subdiv=2, B5a/B5b (forced) on proc://city?n=60, B3/B4,
      B5c/B5d (forced) and B6c/B6d on proc://instances?nx=4&ny=4&subdiv=2,
-     and B5c/B5d on instance grids at leaf sizes 5 and 9, whose entry rows
-     overflow shared memory or start 8 bytes past 16, each against the
-     plain version on the same table;
+     and the two-level kernels again on a 576-instance grid at leaf sizes
+     5 and 9, whose leaf rows are read slot by slot and whose entry rows
+     start 8 bytes past 16 at every other row, each against the plain
+     version on the same table;
    - C3 (phase_bvh8): the stack each main-path scene's BVH8 table needs
      (CHAMELEONRT_WIDE_ARITY=8; all but the hall's exceed 64), and on those
      tables B3/B4 and B6c/B6d (San Miguel), B5c/B5d (the large proxy) and
@@ -177,9 +178,9 @@ RAY_OPS = 3
 # bytes per ray: in orig, dir, t_min, t_max, the mask; out t, prim, u, v
 # (closest hit, plus inst on a two-level table) or the occluded flag
 RAY_IN_BYTES = 12 + 12 + 4 + 4 + 1
-# the work-queue kernels' small wavefront: fewer rays than one SM holds
-# (at 7 resident blocks of 128, B6c's occupancy, 896 threads) and not a
-# multiple of 32, so the queue's empty and ragged ends run
+# the work-queue kernels' small wavefront: far fewer rays than their grids
+# hold (at least 5 resident blocks of 128 threads on each of 132 SMs) and
+# not a multiple of 32, so the queue's empty and ragged ends run
 SMALL_R = 777
 # what _sentinel_outputs fills fresh outputs with: NaN (floats), this
 # (integers: no prim or instance reaches it, and a queue counter left there
@@ -425,9 +426,10 @@ _PATHS = {
 SAME_RAYS = {"stream": "flat", "unified_stream": "unified"}
 TWO_LEVEL = ("unified", "unified_stream", "unified_persistent")
 # the paths whose kernels walk in the plain walk's per-lane order, held to
-# exact agreement: 0 mismatches and |dt| = |du| = |dv| = 0 (B5c/B5d; the
-# other per-lane kernels keep the JAX bench's gate, which they meet with 0)
-EXACT = ("unified_stream",)
+# exact agreement: 0 mismatches and |dt| = |du| = |dv| = 0 (B3/B4, B5c/B5d
+# and B6c/B6d, the two-level walks; the flat per-lane kernels keep the JAX
+# bench's gate, which they meet with 0)
+EXACT = ("unified", "unified_stream", "unified_persistent")
 # the paths whose kernels keep a per-lane stack of a capacity the wrapper
 # picks (traverse_cuda.stack_capacity); the others hold MAX_STACK entries a
 # warp in shared memory
@@ -549,8 +551,10 @@ def _check_queue(torch, path, closest, args, ref, max_stack=False):
     tier kernel's gates; the same on the first SMALL_R rays alone (each
     lane of the plain walk is independent, so ref's first lanes are their
     plain result); then its time, median of KERNEL_REPS, and with max_stack
-    its time at its MAX_STACK instantiation (_time_at_max_stack)."""
+    its time at its MAX_STACK instantiation (_time_at_max_stack). B6c/B6d
+    meet the gate exactly (EXACT), B6a/B6b the JAX bench's."""
     unified = path in TWO_LEVEL
+    exact = QUEUE[path] in EXACT
     name, kernel, _ = _kernel_pair(QUEUE[path], closest)
 
     def check(call_args, want):
@@ -560,10 +564,10 @@ def _check_queue(torch, path, closest, args, ref, max_stack=False):
         if closest:
             left = (any(bool(torch.isnan(x).any()) for x in (got[0], got[-2], got[-1]))
                     or any(bool((x == INT_SENTINEL).any()) for x in got[1:-2]))
-            agree = _closest_agreement(got, want, unified)
+            agree = _closest_agreement(got, want, unified, exact)
         else:
             left = bool((got.view(torch.uint8) > 1).any())
-            agree = {"ok": False} if left else _any_agreement(got, want)
+            agree = {"ok": False} if left else _any_agreement(got, want, exact)
         return {**agree, "sentinels_left": left, "ok": agree["ok"] and not left}
 
     res = {"kernel": name, **check(args, ref)}
@@ -748,7 +752,7 @@ def phase_kernels(torch, path: str):
     the unified path asserts that it does not."""
     from chameleonrt_tpu_torch.engine.trace_bvh import streamed_tier, table_bytes
     from chameleonrt_tpu_torch.ops.math import EPSILON
-    from chameleonrt_tpu_torch.ops.traverse_cuda import shared_rows, stack_capacity, stack_depth
+    from chameleonrt_tpu_torch.ops.traverse_cuda import stack_capacity, stack_depth
 
     cases = {
         "flat": (("parity hall subdiv=2 320x180", HALL_PARITY, 320, 180, PLAIN_REPS),
@@ -779,9 +783,7 @@ def phase_kernels(torch, path: str):
                 f"{meta.num_instances} instances of {len(meta.mesh_tri_ranges)} meshes, "
                 f"{meta.num_tris} unique tris, {table_bytes(table)} bytes against an L2 of {l2}: "
                 f"streamed tier by the gate {tier}; stack capacity "
-                f"{stack_capacity(stack_depth(table))}"
-                + (f"; B5c/B5d hold in shared memory {json.dumps(shared_rows(table))}"
-                   if path == "unified_stream" else ""))
+                f"{stack_capacity(stack_depth(table))}")
         else:
             log(f"[kernels] {label}: {meta.num_tris} tris, BVH4 table {tuple(table.nodes.shape)} "
                 f"nodes, {tuple(table.leaf_rows.shape)} leaf rows, {table_bytes(table)} bytes "
@@ -809,8 +811,6 @@ def phase_kernels(torch, path: str):
         queue_all["any"] += [a["queue"] for a in a1 + a2]
     out["queue_all"] = queue_all
     # the last case is the main path's scene: its tables serve the shadow check
-    if path == "unified_stream":
-        out["shared_rows"] = shared_rows(table)
     W, H = (CITY_W, CITY_H) if path == "stream" else (MAIN_W, MAIN_H)
     out["shadow"] = _check_any_shadow(torch, scene, (flat, meta), path, W, H)
     if path in ("flat", "unified"):
@@ -868,19 +868,15 @@ def phase_packet(torch):
 
 # B1-B6d at each arity: (label, scene, paths whose kernels trace it, leaf
 # size); the streamed paths are forced onto these tables, which fit the
-# L2. The last three hold B5c/B5d's shared rows to odd leaf sizes: a
-# 576-instance grid whose entry rows overflow the 64 KB of shared memory,
-# with the entry range 8 bytes past 16 (L = 5) and then a tail past the
-# bulk copy (L = 9), and a 4-instance grid with both (L = 5).
+# L2. The last two hold the two-level kernels to odd leaf sizes, whose
+# 40L-byte rows start 8 bytes past 16 at every other row.
 GRID_24 = "proc://instances?nx=24&ny=24&subdiv=0"
 ARITY_CASES = (
     ("parity hall subdiv=2 320x180", HALL_PARITY, ("flat", "persistent"), 4),
     ("parity city n=60 320x180", CITY_PARITY, ("stream",), 4),
-    ("parity instances nx=4 ny=4 320x180", INST_PARITY,
-     ("unified", "unified_stream", "unified_persistent"), 4),
-    ("instances nx=24 ny=24 L=5 320x180", GRID_24, ("unified_stream",), 5),
-    ("instances nx=24 ny=24 L=9 320x180", GRID_24, ("unified_stream",), 9),
-    ("instances nx=2 ny=2 L=5 320x180", "proc://instances?nx=2&ny=2&subdiv=0", ("unified_stream",), 5),
+    ("parity instances nx=4 ny=4 320x180", INST_PARITY, TWO_LEVEL, 4),
+    ("instances nx=24 ny=24 L=5 320x180", GRID_24, TWO_LEVEL, 5),
+    ("instances nx=24 ny=24 L=9 320x180", GRID_24, TWO_LEVEL, 9),
 )
 ARITIES = (2, 4, 8)
 
@@ -892,12 +888,11 @@ def phase_arities(torch):
     CHAMELEONRT_WIDE_ARITY=8), each path's closest-hit kernel against the
     plain closest hit on the same table, and its any-hit kernel against the
     plain any hit at t_max = 1.001 x that hit, under the gates of phase 3
-    (B5c/B5d exact). Returns {label: {arity: {"max_abs_err", "mismatch",
+    (the two-level kernels exact). Returns {label: {arity: {"max_abs_err", "mismatch",
     "ms"}}}: the worst |dt| (closest hit) or flag difference (any hit) over
     the scenes of the kernel."""
     from chameleonrt_tpu_torch.ops.intersect import T_MAX
     from chameleonrt_tpu_torch.ops.math import EPSILON
-    from chameleonrt_tpu_torch.ops.traverse_cuda import shared_rows
 
     out = {}
     for label, uri, paths, leaf in ARITY_CASES:
@@ -918,8 +913,6 @@ def phase_arities(torch):
             occ_p = plain_a(*a_args)
             line = {"rays": R, "rows": tuple(table.nodes.shape), "stack": table.stack_bound
                     if hasattr(table, "stack_bound") else table.max_depth}
-            if "unified_stream" in paths:
-                line["shared"] = shared_rows(table)
             for path in paths:
                 for closest, args in ((True, c_args), (False, a_args)):
                     name, kernel, _ = _kernel_pair(path, closest)
@@ -1017,7 +1010,7 @@ def phase_bvh8(torch):
                 before = _snapshot_stacks()
                 got = kernel(*args)
                 torch.cuda.synchronize()
-                exact = path in PER_LANE
+                exact = path in EXACT
                 agree = (_closest_agreement(got, p, path in TWO_LEVEL, exact) if closest
                          else _any_agreement(got, occ_p, exact))
                 res[name] = {**agree, "stack_launches": _stack_launches(before),
@@ -1392,8 +1385,6 @@ def main() -> int:
         }
         if label in bvh8:
             entry["bvh8"] = bvh8[label]
-        if path == "unified_stream":
-            entry["shared_rows"] = kres[path]["shared_rows"]
         if path in SAME_RAYS:  # the unstreamed kernels on the same wavefronts
             other = SAME_RAYS[path]
             entry[f"{other}_kernel_ms"] = primary[f"{other}_ms"]

@@ -1,4 +1,4 @@
-"""The kernels' stack capacities (C3) and B5c/B5d's shared rows, on the CPU.
+"""The kernels' stack capacities (C3) and their C entries' arguments, on the CPU.
 
 - Every per-lane kernel (B1-B4, B5c, B5d, B6a-B6d) launches the
   instantiation of the smallest stack capacity that holds the table's
@@ -8,13 +8,8 @@
 - Each C entry gets the arguments its binding in _build.load_library
   declares, in order: the wrappers run against a stand-in for the
   kernels' library on tensors of the meta device, which take the kernel
-  path without a card, and the capacity, B5c's and B5d's shared rows and
-  the launch counts by capacity are read off the calls.
-- The rows B5c/B5d hold in shared memory (traverse_cuda.shared_rows): as
-  many TLAS rows, then instance-entry rows, as fit in 64 KB, each range on
-  16 bytes, on a grid whose rows all fit and on a 576-instance grid whose
-  entry rows do not, at arity 2, 4 and 8 and leaf sizes 4 and 5 (whose
-  200-byte entry rows can start 8 bytes past 16).
+  path without a card, and the capacity and the launch counts by capacity
+  are read off the calls.
 - A frame under CHAMELEONRT_WIDE_ARITY=8 of a 4,096-instance grid whose
   BVH8 certified stack + 1 exceeds 64, which the port refused before: the
   `cuda` backend on the CPU against the JAX `tpu` backend, held to
@@ -44,8 +39,6 @@ pytestmark = pytest.mark.skipif(native.get_lib() is None, reason="native SAH lib
 
 FLAT = "proc://cornell"
 TWO_LEVEL = "proc://instances?nx=2&ny=2&subdiv=0"
-PARITY = "proc://instances?nx=4&ny=4&subdiv=2"
-GRID_24 = "proc://instances?nx=24&ny=24&subdiv=0"
 # its BVH8 table at leaves of 2 needs a stack of 67
 DEEP = "proc://instances?nx=64&ny=64&subdiv=6"
 DEEP_ENV = {"CHAMELEONRT_WIDE_ARITY": "8", "CHAMELEONRT_LEAF_SIZE": "2"}
@@ -201,10 +194,10 @@ class _Library:
 def test_c_entries_get_the_capacity_and_shared_rows(tables, name, depth, monkeypatch):
     """On a device other than the CPU each wrapper calls its C entry with
     as many arguments as its binding declares: after the depth, a per-lane
-    kernel's stack capacity (64 at depth 64, 128 at 65), then B5c's and
-    B5d's shared TLAS and entry rows; the warp-packet kernels (B5a, B5b,
-    B7a, B7b) none. The launch counts move by one, under the capacity the
-    launch ran with (MAX_STACK for the warp-packet kernels)."""
+    kernel's stack capacity (64 at depth 64, 128 at 65), the warp-packet
+    kernels' (B5a, B5b, B7a, B7b) none. The launch counts move by one,
+    under the capacity the launch ran with (MAX_STACK for the warp-packet
+    kernels)."""
     key, entry, _, kind = WRAPPERS[name]
     monkeypatch.setattr(_build.ctypes, "CDLL", _Library)
     lib = _build.load_library("stand-in")
@@ -231,62 +224,11 @@ def test_c_entries_get_the_capacity_and_shared_rows(tables, name, depth, monkeyp
     if name in SHARED_STACK:
         assert rest[0] == 0  # the rays' pointer: no capacity
         cap = _build.MAX_STACK
-    elif "unified_stream" in name:
-        rows = traverse_cuda.shared_rows(table)
-        assert rest[:3] == [cap, rows["tlas_rows"], rows["entry_rows"]]
     else:
-        assert rest[0] == cap
+        assert rest[0] == cap and rest[1] == 0  # the capacity, then the rays' pointer
     assert args[-2:] == (40, 0)  # R, the stream
     assert traverse_cuda.LAUNCHES[key] == launches[key] + 1
     assert traverse_cuda.STACK_LAUNCHES[key] == {**stacks[key], cap: stacks[key][cap] + 1}
-
-
-def _shared_layout(n_nodes, tlas_lo, n_leaves, n_tri, A, L, budget=64 * 1024):
-    """csrc/traverse_unified_stream.cu's layout, by its own rule: whole
-    rows, the TLAS range from shared byte 0, the entry range from the next
-    16-byte boundary, copied from the 16-byte boundary at or before its
-    first row in global memory."""
-    node_b, leaf_b = 32 * A, 40 * L
-    n_tlas = 0
-    while n_tlas < n_nodes - tlas_lo and (n_tlas + 1) * node_b <= budget:
-        n_tlas += 1
-    start = n_tri * leaf_b
-    lead = start - start // 16 * 16
-    n_ent = 0
-    while (n_ent < n_leaves - n_tri
-           and n_tlas * node_b + -(-(lead + (n_ent + 1) * leaf_b) // 16) * 16 <= budget):
-        n_ent += 1
-    return n_tlas, n_ent, lead if n_ent else 0
-
-
-@pytest.mark.parametrize("leaf", [4, 5])
-@pytest.mark.parametrize("arity", ARITIES)
-@pytest.mark.parametrize("uri", [PARITY, GRID_24])
-def test_shared_rows_fill_the_budget_in_whole_rows_on_16_bytes(uri, arity, leaf, monkeypatch):
-    """On the parity grid every TLAS and entry row fits; on the 576-instance
-    grid the entry rows (92 KB at leaf size 4) do not. The counts, offsets
-    and bytes are the layout's; both ranges start on 16 bytes in shared
-    memory, the entry range's copy on 16 bytes in global memory, and the
-    whole stays within 64 KB."""
-    closest, wide = _tables(uri, monkeypatch, wide=8 if arity == 8 else 4, leaf=leaf)
-    table = closest if arity == 2 else wide
-    assert table.arity == arity and table.leaf_size == leaf
-    rows = traverse_cuda.shared_rows(table)
-    n_nodes, n_leaves = table.nodes.shape[0], table.leaf_rows.shape[0]
-    n_tlas, n_ent, lead = _shared_layout(n_nodes, table.tlas_lo, n_leaves, table.n_tri_leaves,
-                                         arity, leaf)
-    assert (rows["tlas_rows"], rows["entry_rows"], rows["entry_offset"]) == (n_tlas, n_ent, lead)
-    assert rows["tlas_bytes"] == n_tlas * 32 * arity and rows["tlas_bytes"] % 16 == 0
-    assert rows["entry_bytes"] % 16 == 0 and rows["entry_bytes"] >= lead + n_ent * 40 * leaf
-    assert (table.n_tri_leaves * 40 * leaf - lead) % 16 == 0 and lead in (0, 8)
-    assert rows["bytes"] == rows["tlas_bytes"] + rows["entry_bytes"] <= traverse_cuda.SHARED_BUDGET
-    entries = n_leaves - table.n_tri_leaves
-    if uri == PARITY:
-        assert n_tlas == n_nodes - table.tlas_lo and n_ent == entries == 16
-    else:
-        assert entries == 576 and n_ent < entries and n_tlas == n_nodes - table.tlas_lo
-        if leaf == 4:
-            assert entries * 160 > 90_000
 
 
 def test_bvh8_frame_deeper_than_64_stacks_matches_jax_tpu_backend(tmp_path, monkeypatch):

@@ -1,0 +1,271 @@
+"""The two-level walks of the CUDA kernels, built for the host and held bit
+for bit against the plain walk, on the CPU.
+
+csrc/traverse_common.cuh holds the walks that B3/B4 (csrc/traverse_unified.cu),
+B5c/B5d and B6c run: closest_two_level and any_two_level over a row source.
+Here g++ compiles that header against a small shim of cuda_runtime.h
+(written into the test's temporary directory: the CUDA qualifiers, float2,
+float4, __ldg, the bit casts, __popc, and an __activemask that has the
+closest walk leave its node loop early at every third node row) with
+-ffp-contract=off, the
+counterpart of nvcc's -fmad=false, into a harness that runs both walks over
+GlobalRows for every ray, loaded through ctypes. The harness must equal
+ops/traverse.py's traverse_closest_unified / traverse_any_unified bit for
+bit: t, prim, instance, u and v, occlusion, ties included, on the parity
+grid (proc://instances?nx=4&ny=4&subdiv=2) at arity 2 (the binary table), 4
+and 8 and leaf sizes 4 and 5, on primary rays and on bounce rays from their
+hit points, at both stack capacities; and on a table whose certified bound
+is cut so far that the walk overflows, which gives prim = -2 or occluded.
+
+This is the walk's logic on the host, not the kernel: chip_smoke.py holds
+the kernels themselves to the plain walk on the card.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from chameleonrt_tpu_torch import native
+from chameleonrt_tpu_torch.engine import device_scene as tds
+from chameleonrt_tpu_torch.engine import trace_bvh as ttb
+from chameleonrt_tpu_torch.ops import camera, rng
+from chameleonrt_tpu_torch.ops import traverse as plain
+from chameleonrt_tpu_torch.ops import traverse_cuda
+from chameleonrt_tpu_torch.ops.math import EPSILON
+from chameleonrt_tpu_torch.scene.loader import load_scene
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.skipif(native.get_lib() is None, reason="native SAH library unavailable")
+
+PARITY = "proc://instances?nx=4&ny=4&subdiv=2"
+W, H = 64, 40
+ARITIES = (2, 4, 8)
+LEAVES = (4, 5)
+CSRC = traverse_cuda._build._CSRC
+
+# what traverse_common.cuh takes from the CUDA runtime, for the host
+SHIM = r"""
+#pragma once
+#include <stddef.h>
+#include <string.h>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline __attribute__((always_inline))
+#define __launch_bounds__(...)
+struct __attribute__((aligned(8))) float2 { float x, y; };
+struct __attribute__((aligned(16))) float4 { float x, y, z, w; };
+template <typename T> inline T __ldg(const T* p) { return *p; }
+inline int __float_as_int(float x) { int i; memcpy(&i, &x, 4); return i; }
+inline unsigned __float_as_uint(float x) { unsigned u; memcpy(&u, &x, 4); return u; }
+inline float __int_as_float(int i) { float x; memcpy(&x, &i, 4); return x; }
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// one lane of a warp alone at every third call, so that the walk's node loop
+// is left early (a lane still at a node row) as often as it runs on
+static unsigned crt_calls;
+inline unsigned __activemask() { return ++crt_calls % 3 ? 0xffffffffu : 1u; }
+"""
+
+# B3's and B4's kernels (csrc/traverse_unified.cu) as loops over the rays of
+# their per-ray bodies, behind their switch onto arity and stack capacity
+HARNESS = r"""
+#include "traverse_common.cuh"
+using namespace crt;
+
+template <int A, int S>
+static void closest_all(const float* nodes, const float* leaf_rows, int n_tri, int tlas_lo, int L,
+                        int depth, const float* orig, const float* dir, const float* t_min,
+                        const float* t_max, const uint8_t* active, float* t_out, int* prim_out,
+                        int* inst_out, float* u_out, float* v_out, int R) {
+  const GlobalRows<A> t{nodes, leaf_rows, n_tri, tlas_lo, L};
+  for (int i = 0; i < R; ++i)
+    closest_ray<A, S>(t, depth, orig, dir, t_min, t_max, active, t_out, prim_out, inst_out, u_out,
+                      v_out, i);
+}
+
+template <int A, int S>
+static void any_all(const float* nodes, const float* leaf_rows, int n_tri, int tlas_lo, int L,
+                    int depth, const float* orig, const float* dir, const float* t_min,
+                    const float* t_max, const uint8_t* mask, uint8_t* occluded, int R) {
+  const GlobalRows<A> t{nodes, leaf_rows, n_tri, tlas_lo, L};
+  for (int i = 0; i < R; ++i) any_ray<A, S>(t, depth, orig, dir, t_min, t_max, mask, occluded, i);
+}
+
+extern "C" {
+
+int walk_closest(const float* nodes, const float* leaf_rows, int n_tri, int tlas_lo, int arity,
+                 int L, int depth, int cap, const float* orig, const float* dir,
+                 const float* t_min, const float* t_max, const uint8_t* active, float* t_out,
+                 int* prim_out, int* inst_out, float* u_out, float* v_out, int R) {
+  CRT_BY_ARITY_STACK(arity, cap, depth, closest_all<A, S>(
+      nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, active, t_out,
+      prim_out, inst_out, u_out, v_out, R));
+}
+
+int walk_any(const float* nodes, const float* leaf_rows, int n_tri, int tlas_lo, int arity, int L,
+             int depth, int cap, const float* orig, const float* dir, const float* t_min,
+             const float* t_max, const uint8_t* mask, uint8_t* occluded, int R) {
+  CRT_BY_ARITY_STACK(arity, cap, depth, any_all<A, S>(
+      nodes, leaf_rows, n_tri, tlas_lo, L, depth, orig, dir, t_min, t_max, mask, occluded, R));
+}
+
+}  // extern "C"
+"""
+
+
+@pytest.fixture(scope="module")
+def walks(tmp_path_factory):
+    """The harness, compiled once per module and loaded."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ unavailable")
+    d = tmp_path_factory.mktemp("walk_host")
+    (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "harness.cpp").write_text(HARNESS)
+    lib = d / "libwalk.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+                    f"-I{d}", f"-I{CSRC}", "-o", str(lib), str(d / "harness.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return load_scene(PARITY)
+
+
+def _table(scene, arity, leaf):
+    """The parity grid's two-level table of the given arity (2: the binary
+    closest-hit table) at leaf size leaf."""
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("CHAMELEONRT_WIDE_ARITY", "8" if arity == 8 else "4")
+        mp.setenv("CHAMELEONRT_LEAF_SIZE", str(leaf))
+        flat, meta = tds.build_device_scene(scene, torch.device("cpu"))
+        pair = ttb.build_blas_set(flat, meta)[0]
+    finally:
+        mp.undo()
+    table = pair.closest if arity == 2 else pair.any
+    assert table.arity == arity and table.leaf_size == leaf
+    return flat, table
+
+
+def _primary(scene):
+    """W x H jittered camera rays, all active."""
+    cam = scene.cameras[0]
+    d = cam.center - cam.position
+    view = camera.compute_view_params(cam.position, d / np.linalg.norm(d), cam.up, cam.fov_y, W, H)
+    ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    px, py = xs.reshape(-1), ys.reshape(-1)
+    _, orig, dirs = camera.generate_primary_rays(view, px, py, float(W), float(H),
+                                                 rng.get_rng(px + py * W, 1))
+    R = orig.shape[0]
+    return orig, dirs, torch.zeros((R,)), torch.ones((R,), dtype=torch.bool)
+
+
+def _bounce(orig, dirs, t, prim, seed=3):
+    """Rays from the primary hit points in seeded directions turned back
+    against the incoming ray; lanes whose primary ray missed are inactive."""
+    hit = prim >= 0
+    p = orig + torch.where(hit, t, torch.zeros_like(t))[:, None] * dirs
+    w = np.random.default_rng(seed).normal(size=tuple(orig.shape)).astype(np.float32)
+    w = torch.nn.functional.normalize(torch.from_numpy(w), dim=1)
+    w = torch.where(((w * dirs).sum(1) > 0)[:, None], -w, w)
+    return p.contiguous(), w.contiguous(), torch.full((orig.shape[0],), EPSILON), hit
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _table_args(table):
+    depth = traverse_cuda.stack_depth(table)
+    return ([_ptr(table.nodes), _ptr(table.leaf_rows), table.n_tri_leaves, table.tlas_lo,
+             table.arity, table.leaf_size, depth], depth)
+
+
+def _closest(walks, table, orig, dirs, t_min, active, t_max, cap):
+    R = orig.shape[0]
+    t, u, v = (torch.empty((R,)) for _ in range(3))
+    prim, inst = (torch.empty((R,), dtype=torch.int32) for _ in range(2))
+    head, _ = _table_args(table)
+    err = walks.walk_closest(*head, cap, *map(_ptr, (orig, dirs, t_min, t_max, active, t, prim,
+                                                     inst, u, v)), R)
+    assert err == 0
+    return t, prim, inst, u, v
+
+
+def _any(walks, table, orig, dirs, t_min, t_max, mask, cap):
+    R = orig.shape[0]
+    occ = torch.empty((R,), dtype=torch.bool)
+    head, _ = _table_args(table)
+    err = walks.walk_any(*head, cap, *map(_ptr, (orig, dirs, t_min, t_max, mask, occ)), R)
+    assert err == 0
+    return occ
+
+
+def _assert_bit_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                           w.view(torch.int32) if w.is_floating_point() else w)
+
+
+@pytest.mark.parametrize("rays", ["primary", "bounce"])
+@pytest.mark.parametrize("leaf", LEAVES)
+@pytest.mark.parametrize("arity", ARITIES)
+def test_walks_equal_the_plain_walk_bit_for_bit(walks, scene, arity, leaf, rays):
+    """closest_two_level and any_two_level over GlobalRows against the
+    plain walk on the same table and rays: t, prim, instance, u, v and
+    occlusion equal bit for bit (any hit at t_max = 1.001 x the closest
+    hit on primary rays, 0.999 x on bounce rays), and equal at the 64- and
+    128-entry stack capacities."""
+    flat, table = _table(scene, arity, leaf)
+    orig, dirs, t_min, active = _primary(scene)
+    t_max = torch.full((orig.shape[0],), 1e20)
+    if rays == "bounce":
+        t, prim, _, _, _ = plain.traverse_closest_unified(table, orig, dirs, t_min, active, t_max)
+        orig, dirs, t_min, active = _bounce(orig, dirs, t, prim)
+    want = plain.traverse_closest_unified(table, orig, dirs, t_min, active, t_max)
+    got = _closest(walks, table, orig, dirs, t_min, active, t_max, 64)
+    _assert_bit_equal(got, want)
+    _assert_bit_equal(_closest(walks, table, orig, dirs, t_min, active, t_max, 128), want)
+    hits = want[1] >= 0
+    assert int(hits.sum()) > 50 and int(torch.unique(want[2][hits]).numel()) > 4
+    factor = 1.001 if rays == "primary" else 0.999
+    t_any = torch.where(want[0] < 1e19, want[0] * factor, torch.full_like(want[0], 100.0))
+    a_min = torch.full_like(t_min, EPSILON)
+    occ_want = plain.traverse_any_unified(table, orig, dirs, a_min, t_any, active)
+    for cap in (64, 128):
+        assert torch.equal(_any(walks, table, orig, dirs, a_min, t_any, active, cap), occ_want)
+    if rays == "primary":  # most hits occlude at 1.001 x their own t
+        assert int(occ_want.sum()) > int(hits.sum()) // 2
+
+
+@pytest.mark.parametrize("arity", ARITIES)
+def test_overflow_gives_prim_minus_two_and_occluded(walks, scene, arity):
+    """A certified bound of 2 makes both walks' stack 3 entries deep: a push
+    onto a full stack ends the closest walk with prim = -2 (t = 1e20, no
+    instance, u = v = 0) and reports the any walk occluded, as the plain
+    walk does, lane for lane."""
+    _, table = _table(scene, arity, 4)
+    table = table._replace(stack_bound=2)
+    assert traverse_cuda.stack_depth(table) == plain.unified_stack_limit(table) == 3
+    orig, dirs, t_min, active = _primary(scene)
+    t_max = torch.full((orig.shape[0],), 1e20)
+    want = plain.traverse_closest_unified(table, orig, dirs, t_min, active, t_max)
+    got = _closest(walks, table, orig, dirs, t_min, active, t_max, 64)
+    _assert_bit_equal(got, want)
+    over = want[1] == -2
+    assert int(over.sum()) > 0
+    assert bool((want[0][over] == 1e20).all() and (want[2][over] == -1).all())
+    occ_want = plain.traverse_any_unified(table, orig, dirs, t_min, t_max, active)
+    occ = _any(walks, table, orig, dirs, t_min, t_max, active, 64)
+    assert torch.equal(occ, occ_want) and bool(occ[over].all())
