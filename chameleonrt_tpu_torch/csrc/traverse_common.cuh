@@ -21,11 +21,11 @@
 // Every file is built with -fmad=false so every product and sum rounds as
 // in the plain version.
 //
-// The two-level walks (B3/B4, B5c/B5d, and B6c) are closest_two_level and
+// The two-level walks (B3/B4, B5c/B5d, B6c/B6d) are closest_two_level and
 // any_two_level below, templates on a row source (GlobalRows). The closest
-// walk runs node rows in a loop of its own that the warp leaves once most
-// of its lanes wait at a leaf; the any walk is still one loop over node
-// rows, triangle leaves and instance entries.
+// walk runs node rows in a loop of their own that the warp leaves once most
+// of its lanes wait at a leaf; the any walk is one loop over node rows,
+// triangle leaves and instance entries (any_two_level says why).
 //
 // Stacks: depth, the SAH build's certified bound + 1, reaches 76 on BVH8
 // tables of the main-path scenes. The per-lane kernels (B1-B4, B5c, B5d,
@@ -300,7 +300,7 @@ __device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,
 }
 
 // A two-level table's rows read from global memory through the read-only
-// path: the row source of B3/B4, B5c/B5d and B6c for the walks below. A
+// path: the row source of B3/B4, B5c/B5d and B6c/B6d for the walks below. A
 // row source T of arity A holds n_tri and tlas_lo and reads
 //   t.node_row(cur, row): node row cur into row[8A];
 //   t.entry(leaf, m): instance-entry leaf's cols 0-13 into m[kEntryCols];
@@ -438,10 +438,16 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
   }
 }
 
-// The any-hit walk of one live world ray w over the rows of t (B4, B5d):
-// whether some t_min < t < tmax hit exists; an overflow is occluded. Still
-// one loop: closest_two_level's node loop is left for the any-hit kernels'
-// own redesign (ROADMAP.md, queue D).
+// The any-hit walk of one live world ray w over the rows of t (B4, B5d,
+// B6d): whether some t_min < t < tmax hit exists; an overflow is occluded.
+// One loop over node rows, triangle leaves and instance entries. Measured
+// against it on an H100 80GB HBM3 at 700 W and left out: closest_two_level's
+// node loop, left once fewer than 8 (or 16, or 4) lanes are in it. It took
+// 1-4% off B6d's bounce and shadow rays but cost B6d's and B5d's primary
+// rays 1-2%, beyond the spread of duplicate trees, and moved B4 within that
+// spread (San Miguel's and the large proxy's sorted 921,600-ray wavefronts
+// and San Miguel's first-bounce shadow rays; scripts/kernel_turns.py,
+// PERF.md section 6), where it took 10-18% off the closest walk.
 template <int A, int S, typename T>
 __device__ __forceinline__ bool any_two_level(const T& t, int depth, const Ray& w, float tmax) {
   Ray r = w;
@@ -508,7 +514,7 @@ __device__ __forceinline__ void closest_ray(const T& t, int depth, const float* 
 }
 
 // Ray i through any_two_level over the rows of t, occluded & mask written
-// at i (B4, B5d).
+// at i (B4, B5d, B6d).
 template <int A, int S, typename T>
 __device__ __forceinline__ void any_ray(const T& t, int depth, const float* orig, const float* dir,
                                         const float* t_min, const float* t_max,

@@ -18,21 +18,23 @@
 //     computed once per kernel), whatever the number of rays;
 //   - a device counter, reset in stream order before each launch, hands out
 //     ray indices, kFetch consecutive ones to a warp with one atomic;
-//   - each lane walks its own ray in B1's per-lane order (traverse_flat.cu:
-//     near-first through the sorting network, leaves as it meets them, a
+//   - each lane walks its own ray in the plain walk's per-lane order
+//     (near-first through the sorting network, leaves as it meets them, a
 //     local-memory stack of `depth` entries).
 // Two schedules share that queue:
-//   - B6c fetches per warp, as the TPU kernel's slot pulls its next packet:
-//     the warp's 32 lanes take 32 consecutive sorted rays, each walks its
-//     ray to the end with B3's walk (closest_two_level over GlobalRows,
-//     traverse_common.cuh), and the warp meets at __syncwarp() before its
-//     next fetch. A warp's lanes always hold neighbours in the sorted
-//     wavefront, and no ballot or refill runs between two row steps;
-//   - B6a, B6b and B6d refill per lane: a lane whose ray ends takes the
-//     next index of the warp's batch at once (handed out by a ballot, in
-//     lane order), and every row step runs inside a warp-wide ballot, an
-//     any-vote and the refill bookkeeping. The per-warp fetch is queue D's
-//     to try there (ROADMAP.md).
+//   - B6c and B6d fetch per warp (per_warp), as the TPU kernel's slot pulls
+//     its next packet: the warp's 32 lanes take 32 consecutive sorted rays,
+//     each walks its ray to the end with the two-level walk of B3 or B4
+//     (closest_ray / any_ray over GlobalRows, traverse_common.cuh: leaf
+//     slots two at a time, entry rows 16 bytes at a time, and for closest
+//     hit node rows in a loop the warp leaves once most of its lanes wait),
+//     and the warp meets at __syncwarp() before its next fetch. A warp's
+//     lanes always hold neighbours in the sorted wavefront, and no ballot or
+//     refill runs between two row steps;
+//   - B6a and B6b refill per lane (persistent): a lane whose ray ends takes
+//     the next index of the warp's batch at once (handed out by a ballot, in
+//     lane order), and every row step (step) runs inside a warp-wide ballot,
+//     an any-vote and the refill bookkeeping.
 // The TPU kernel's phase alternation, deferred leaf FIFO, merged phase,
 // pinned tree top and VMEM gates schedule a lockstep vector unit and are
 // not carried over. Every table sits in global memory behind the L2, so one
@@ -43,12 +45,6 @@
 //     lane is (1e20, -1, [-1,] 0, 0), a stack overflow prim = -2, as B1/B3;
 //   - B6b, B6d: occluded & mask; the walk stops at the first
 //     t_min < t < t_max, and an overflow is occluded, as B2/B4.
-// Two-level walks are B3/B4's (traverse_unified.cu): an instance-entry leaf
-// rebuilds the object ray from the world ray, and a step onto a row where
-// in_world holds restores the world ray. B6c runs B3's walk itself; B6d's
-// step() repeats B4's rules, and a lane's refill resets its world and
-// object rays and its stack, so a ray that ended inside a BLAS leaves
-// nothing behind.
 // Like B1-B4, each kernel is a template on the node rows' arity A (2, 4
 // or 8; the Pallas kernels take 2, 4 or 8, traverse_packet.py:2340-2345)
 // and on its stack capacity S (64 or 128), its C entry switches on both,
@@ -63,8 +59,13 @@
 // any-vote and the refill each row step. On an H100 80GB HBM3 at 700 W the
 // price was the larger: B6a-B6d took 0.97-1.37x the time of B1-B4 on the
 // same 921,600-ray wavefronts (chip_smoke.py, phase 3). Fetching per warp
-// took 17-20% off B6c on the same walk (scripts/kernel_turns.py; PERF.md
-// section 6), and B6c now runs within 10% of B3 on the same rays.
+// took 17-20% off B6c and 9-22% off B6d on the same walks, shadow rays
+// included (scripts/kernel_turns.py; PERF.md section 6). Measured for B6d
+// and left out: packing a batch's masked-in rays into lanes, up to 2 or 4
+// fetches a round, which lost 5-20% to the plain per-warp fetch on the
+// main path's shadow rays and 0-3% on the others (lanes then hold rays
+// further apart, and a sparse wavefront's time is that of its longest
+// walks).
 
 #include "traverse_common.cuh"
 
@@ -96,10 +97,9 @@ struct Params {
   int R;
 };
 
-// One lane's walk (B6a, B6b, B6d).
+// One lane's walk (B6a, B6b).
 struct Walk {
-  Ray w;       // the world ray (two-level)
-  Ray r;       // the ray of the current space
+  Ray r;
   float tmax;  // closest hit: the best t so far; any hit: t_max
   float u, v;
   int prim;    // closest hit: the best prim so far (-2 after an overflow)
@@ -107,17 +107,16 @@ struct Walk {
   bool occ;    // any hit
 };
 
-template <bool kAny, bool kUnified>
+template <bool kAny>
 __device__ __forceinline__ void start(const Params& p, Walk& s, int i) {
-  s.w = load_ray(p.orig, p.dir, p.t_min, i);
-  s.r = s.w;
+  s.r = load_ray(p.orig, p.dir, p.t_min, i);
   s.tmax = kAny ? p.t_max[i] : fminf(kTMax, p.t_max[i]);
   s.u = 0.0f; s.v = 0.0f;
   s.prim = -1;
   s.sp = 0;
   s.occ = false;
   if (!p.flag[i]) s.cur = kDone;
-  else s.cur = kUnified ? p.tlas_lo : (p.n_tri == 1 ? -1 : 0);  // a one-leaf table starts at leaf 0
+  else s.cur = p.n_tri == 1 ? -1 : 0;  // a one-leaf table starts at leaf 0
 }
 
 __device__ __forceinline__ int pop(Walk& s, const int* stack) {
@@ -125,7 +124,7 @@ __device__ __forceinline__ int pop(Walk& s, const int* stack) {
 }
 
 // One row of the walk at s.cur (not kDone); ends the walk with s.cur = kDone.
-template <bool kAny, bool kUnified, int A>
+template <bool kAny, int A>
 __device__ __forceinline__ void step(const Params& p, Walk& s, int* stack) {
   const int cur = s.cur;
   if (cur >= 0) {
@@ -144,43 +143,34 @@ __device__ __forceinline__ void step(const Params& p, Walk& s, int* stack) {
       }
     }
     s.cur = keys[0] < kBig ? codes[0] : pop(s, stack);
-  } else if (!kUnified || -cur - 1 < p.n_tri) {
-    const float* lrow = p.leaf_rows + (size_t)(-cur - 1) * 10 * p.L;
-    if (kAny) {
-      for (int j = 0; j < p.L; ++j) {
-        float t, u, v;
-        int prim;
-        if (mt_slot(lrow, p.L, j, s.r, s.tmax, &t, &u, &v, &prim)) {
-          s.occ = true;
-          s.cur = kDone;
-          return;
-        }
-      }
-    } else {
-      float lt = s.tmax, lu = 0.0f, lv = 0.0f;
-      int lp = -1;
-      for (int j = 0; j < p.L; ++j) {
-        float t, u, v;
-        int prim;
-        if (mt_slot(lrow, p.L, j, s.r, s.tmax, &t, &u, &v, &prim) && t <= lt) {
-          lt = t; lu = u; lv = v; lp = prim;
-        }
-      }
-      if (lp >= 0) {  // some slot hit, so lt < the best t
-        s.tmax = lt; s.prim = lp; s.u = lu; s.v = lv;
-      }
-    }
-    s.cur = pop(s, stack);
-  } else {  // an instance-entry row: into the instance's object space
-    const float* erow = p.leaf_rows + (size_t)(-cur - 1) * 10 * p.L;
-    float m[12];
-#pragma unroll
-    for (int k = 0; k < 12; ++k) m[k] = __ldg(erow + k);
-    s.r = enter_instance(m, s.w);
-    s.cur = __float_as_int(__ldg(erow + 12));  // a BLAS row: stay in object space
     return;
   }
-  if (kUnified && in_world(s.cur, p.n_tri, p.tlas_lo)) s.r = s.w;
+  const float* lrow = p.leaf_rows + (size_t)(-cur - 1) * 10 * p.L;
+  if (kAny) {
+    for (int j = 0; j < p.L; ++j) {
+      float t, u, v;
+      int prim;
+      if (mt_slot(lrow, p.L, j, s.r, s.tmax, &t, &u, &v, &prim)) {
+        s.occ = true;
+        s.cur = kDone;
+        return;
+      }
+    }
+  } else {
+    float lt = s.tmax, lu = 0.0f, lv = 0.0f;
+    int lp = -1;
+    for (int j = 0; j < p.L; ++j) {
+      float t, u, v;
+      int prim;
+      if (mt_slot(lrow, p.L, j, s.r, s.tmax, &t, &u, &v, &prim) && t <= lt) {
+        lt = t; lu = u; lv = v; lp = prim;
+      }
+    }
+    if (lp >= 0) {  // some slot hit, so lt < the best t
+      s.tmax = lt; s.prim = lp; s.u = lu; s.v = lv;
+    }
+  }
+  s.cur = pop(s, stack);
 }
 
 // The ended walk's result, at its ray's index.
@@ -199,7 +189,7 @@ __device__ __forceinline__ void finish(const Params& p, const Walk& s, int i) {
 // The persistent loop. Every lane of a warp stays in it until a warp-wide
 // vote finds no lane with a ray after the refill, which happens only once
 // the queue is empty, so every *_sync intrinsic sees all 32 lanes.
-template <bool kAny, bool kUnified, int A, int S>
+template <bool kAny, int A, int S>
 __device__ __forceinline__ void persistent(const Params& p) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
@@ -223,13 +213,13 @@ __device__ __forceinline__ void persistent(const Params& p) {
       const int rank = __popc(idle & below);
       if (ray < 0 && rank < q_end - q_next) {
         ray = q_next + rank;
-        start<kAny, kUnified>(p, s, ray);
+        start<kAny>(p, s, ray);
       }
       q_next = min(q_next + __popc(idle), q_end);
     }
     if (!__any_sync(kFull, ray >= 0)) break;
     if (ray >= 0) {
-      if (s.cur != kDone) step<kAny, kUnified, A>(p, s, stack);
+      if (s.cur != kDone) step<kAny, A>(p, s, stack);
       if (s.cur == kDone) {
         finish<kAny>(p, s, ray);
         ray = -1;
@@ -240,40 +230,50 @@ __device__ __forceinline__ void persistent(const Params& p) {
 
 template <int A, int S>
 __global__ void __launch_bounds__(kThreads) closest_persistent_kernel(const Params p) {
-  persistent<false, false, A, S>(p);
+  persistent<false, A, S>(p);
 }
 
 template <int A, int S>
 __global__ void __launch_bounds__(kThreads) any_persistent_kernel(const Params p) {
-  persistent<true, false, A, S>(p);
+  persistent<true, A, S>(p);
 }
 
-// B6c: persistent warps over B3's walk. Lane 0 takes kFetch consecutive
-// ray indices with one atomic and the warp shares them by a shuffle; each
-// lane walks its ray to the end (closest_two_level over GlobalRows, as B3)
-// and writes its result; the warp meets at __syncwarp() and fetches again
+// Persistent warps (B6c, B6d): lane 0 takes kFetch consecutive ray indices
+// with one atomic and the warp shares them by a shuffle; each lane runs
+// walk(i) on its index, and the warp meets at __syncwarp() and fetches again
 // until the counter passes R. Every lane reaches each fetch; a lane past R
 // at the queue's ragged end does not walk.
-template <int A, int S>
-__global__ void __launch_bounds__(kThreads) closest_unified_persistent_kernel(const Params p) {
+template <typename WalkRay>
+__device__ __forceinline__ void per_warp(const Params& p, WalkRay walk) {
   const unsigned lane = threadIdx.x & 31u;
-  const GlobalRows<A> t{p.nodes, p.leaf_rows, p.n_tri, p.tlas_lo, p.L};
   while (true) {
     int base = 0;
     if (lane == 0) base = atomicAdd(p.counter, kFetch);
     base = __shfl_sync(kFull, base, 0);
     if (base >= p.R) return;  // warp-uniform
     const int i = base + static_cast<int>(lane);
-    if (i < p.R)
-      closest_ray<A, S>(t, p.depth, p.orig, p.dir, p.t_min, p.t_max, p.flag, p.t_out, p.prim_out,
-                        p.inst_out, p.u_out, p.v_out, i);
+    if (i < p.R) walk(i);
     __syncwarp();
   }
 }
 
+// B6c: persistent warps over B3's walk (closest_ray over GlobalRows).
+template <int A, int S>
+__global__ void __launch_bounds__(kThreads) closest_unified_persistent_kernel(const Params p) {
+  const GlobalRows<A> t{p.nodes, p.leaf_rows, p.n_tri, p.tlas_lo, p.L};
+  per_warp(p, [&](int i) {
+    closest_ray<A, S>(t, p.depth, p.orig, p.dir, p.t_min, p.t_max, p.flag, p.t_out, p.prim_out,
+                      p.inst_out, p.u_out, p.v_out, i);
+  });
+}
+
+// B6d: persistent warps over B4's walk (any_ray over GlobalRows).
 template <int A, int S>
 __global__ void __launch_bounds__(kThreads) any_unified_persistent_kernel(const Params p) {
-  persistent<true, true, A, S>(p);
+  const GlobalRows<A> t{p.nodes, p.leaf_rows, p.n_tri, p.tlas_lo, p.L};
+  per_warp(p, [&](int i) {
+    any_ray<A, S>(t, p.depth, p.orig, p.dir, p.t_min, p.t_max, p.flag, p.occluded, i);
+  });
 }
 
 // Blocks of kThreads that the current card keeps resident at once running

@@ -53,8 +53,10 @@
 // cap for 10 or 12 blocks an SM (48 or 40 registers spill; 5-16% slower),
 // the node loop run to its end (faster on primary rays, 3-4% slower on
 // bounce rays), four slots a leaf batch (16 more registers, slower on
-// bounce rays).
-// Later work: B4's walk (any_two_level) in the same shape, FMA.
+// bounce rays), and the same node loop in B4's walk (any_two_level), which
+// moved B4 within the spread of duplicate trees on those wavefronts and on
+// San Miguel's first-bounce shadow rays, and cost B5d and B6d 1-2% on
+// primary rays.
 
 #include "traverse_common.cuh"
 

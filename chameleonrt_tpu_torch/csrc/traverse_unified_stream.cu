@@ -34,8 +34,8 @@
 // that wait. The design: one thread walks one ray, so each warp has 32
 // independent row fetches in flight, the TPU kernel's K DMAs on one
 // semaphore, and no packet pays for the union of its lanes' walks, as the
-// warp packets of the first design did; the walk's node loop and the row
-// loads are B3's (traverse_unified.cu says what they took off); the grid is
+// warp packets of the first design did; the walks and the row loads are
+// B3's and B4's (traverse_unified.cu says what they took off); the grid is
 // one block of kThreads per kThreads rays, which the block scheduler hands
 // out as blocks end. Measured slower and left out (PERF.md section 6 has the ablations):
 // L2 eviction policies on the row loads, a grid of the card's resident

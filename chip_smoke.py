@@ -18,7 +18,8 @@ nor the JAX package (it asserts so at its end). Phases:
      one 1280x720 hall frame;
    - B3/B4 (two-level) on proc://instances?nx=4&ny=4&subdiv=2 at 320x180
      and on the San Miguel proxy at 1280x720, and B4 on the 10 masked
-     shadow-ray wavefronts of one 1-spp San Miguel frame at 1280x720;
+     shadow-ray wavefronts of one 1-spp San Miguel frame at 1280x720, each
+     timed beside its bound there;
    - B5a/B5b (the streamed tier, whose plain versions are B1/B2's) on
      proc://city?n=60 at 320x180, forced, and on the 6.7M-triangle
      proc://city?n=610 at 640x360, which the gate must route to them, any
@@ -34,7 +35,8 @@ nor the JAX package (it asserts so at its end). Phases:
      two-level table about three times the L2) at 1280x720, which the gate
      must route to them, any hit at both t_max factors on both wavefronts,
      with B3/B4 timed on the same rays; and B5d on the 10 masked
-     shadow-ray wavefronts of one 1-spp 1280x720 frame of it;
+     shadow-ray wavefronts of one 1-spp 1280x720 frame of it, each timed
+     beside its bound there;
    - B6a-B6d (the work-queue kernels that trace every scene with the
      slot-lane tier off, whose plain versions are B1-B4's) on every
      wavefront above: B6a/B6b on the flat and city wavefronts, B6c/B6d on
@@ -43,7 +45,9 @@ nor the JAX package (it asserts so at its end). Phases:
      outputs (and its queue's counter) allocated as sentinels that must
      not survive, and again on the first 777 rays alone (far fewer than
      the grid's threads, not a multiple of 32); and B6b / B6d on the
-     shadow-ray wavefronts of one hall / San Miguel frame;
+     shadow-ray wavefronts of one hall / San Miguel frame (B6d timed on
+     each beside its bound, and logged whether that frame's rays digest
+     as those of B4's frame);
    - B7a/B7b (the grid-packet kernels, binary rows only, whose plain
      versions are B1/B2's on the same binary table) on the hall's binary
      table: proc://hall?subdiv=2 at 320x180 and the textured hall at
@@ -321,8 +325,9 @@ def _scene_tables(torch, uri, wide=4, leaf=4):
 def _bound(table, count, active, out_bytes):
     """The least time of a kernel's call on the counted rays: the larger of
     the bytes it must move (each distinct node, leaf and entry row the rays
-    visit read once, every lane's inputs read once, its results written
-    once) over the memory rate, and its FP32 operations (the live lanes'
+    visit read once, every lane's mask byte read once and its results
+    written once, the ray of a live lane read once: a masked-out lane needs
+    no ray) over the memory rate, and its FP32 operations (the live lanes'
     reciprocals, a slab test per live child of each visited node row, a
     Moller-Trumbore per valid slot of each visited leaf row, a transform
     per instance entry) over the FP32 rate."""
@@ -330,7 +335,7 @@ def _bound(table, count, active, out_bytes):
     L = table.leaf_rows.shape[1] // 10
     row_bytes = table.nodes.shape[1] * 4
     n_bytes = (c["node_rows"] * row_bytes + c["leaf_rows"] * 10 * L * 4 + c["entry_rows"] * 14 * 4
-               + c["rays"] * (RAY_IN_BYTES + out_bytes))
+               + c["live"] * (RAY_IN_BYTES - 1) + c["rays"] * (1 + out_bytes))
     ops = (c["live"] * RAY_OPS + c["slab_tests"] * SLAB_OPS + c["mt_slots"] * MT_OPS
            + c["entry_visits"] * ENTRY_OPS)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -683,25 +688,15 @@ _ANY_COUNT = {"flat": "any", "unified": "any_unified", "stream": "any_stream",
               "unified_persistent": "any_unified_persistent", "grid_packet": "any_packet"}
 
 
-def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
-    """The any-hit kernel on a main path's own traffic: the 10 masked
-    shadow-ray wavefronts of one W x H frame at one sample per pixel (per
-    bounce, light samples and then bsdf samples toward the lights),
-    captured through the backend (on the scene's tables, already built)
-    and traced again by the plain version. Requires zero mismatches, some
-    occluded rays, and 10 launches of the path's any-hit kernel, so on a
-    streamed path the gate must have picked it. A work-queue path
-    (QUEUE's values) renders with the slot-lane tier off, the others with
-    it on; the grid-packet path renders with grid_packet=True, and its
-    plain version traces the same binary table."""
+def _shadow_calls(torch, scene, tables, W, H, spp=1, **backend):
+    """One W x H frame at spp samples a pixel through CudaBackend(**backend)
+    on the scene's tables (already built), with every trace_any call
+    captured. Returns (backend, calls): calls in call order (per bounce the
+    light samples, then the bsdf samples toward the lights), each (orig,
+    dir, t_max, mask, occluded) as the call saw and returned them."""
     from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
-    from chameleonrt_tpu_torch.engine.trace_bvh import make_trace_fns
-    from chameleonrt_tpu_torch.ops import traverse_cuda
 
-    name = _kernel_pair(path, closest=False)[0]
-    count = _ANY_COUNT[path]
-    grid_packet = path == "grid_packet"
-    b = CudaBackend(slotlane=path not in QUEUE.values(), grid_packet=grid_packet)
+    b = CudaBackend(**backend)
     b.prepare_scene = lambda _scene: tables
     b.initialize(W, H)
     b.set_scene(scene)
@@ -715,18 +710,63 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
         return occ
 
     b._trace = (trace_closest, capture)
-    pos, d, up, fov = _view(scene)
+    b.render(*_view(scene), True, readback_framebuffer=False)
+    return b, calls
+
+
+def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
+    """The any-hit kernel on a main path's own traffic: the 10 masked
+    shadow-ray wavefronts of one W x H frame at one sample per pixel
+    (_shadow_calls), captured through the backend and traced again by the
+    plain version. Requires zero mismatches, some occluded rays, and 10
+    launches of the path's any-hit kernel, so on a streamed path the gate
+    must have picked it. A work-queue path (QUEUE's values) renders with
+    the slot-lane tier off, the others with it on; the grid-packet path
+    renders with grid_packet=True, and its plain version traces the same
+    binary table. On a two-level path the kernel is also timed on each
+    wavefront (median of KERNEL_REPS) beside its bound there (_bound, from
+    the plain walk's WalkCount on those rays). rays_sha256 digests the
+    captured rays and masks, so two paths' frames can be shown to have
+    traced the same wavefronts."""
+    import hashlib
+
+    from chameleonrt_tpu_torch.engine.trace_bvh import make_trace_fns
+    from chameleonrt_tpu_torch.ops import traverse_cuda
+    from chameleonrt_tpu_torch.ops.math import EPSILON
+    from chameleonrt_tpu_torch.ops.traverse import WalkCount
+
+    name, kernel, plain = _kernel_pair(path, closest=False)
+    count = _ANY_COUNT[path]
+    grid_packet = path == "grid_packet"
     before = traverse_cuda.LAUNCHES[count]
-    b.render(pos, d, up, fov, True, readback_framebuffer=False)
+    b, calls = _shadow_calls(torch, scene, tables, W, H, spp, slotlane=path not in QUEUE.values(),
+                             grid_packet=grid_packet)
     launched = traverse_cuda.LAUNCHES[count] - before
+    two_level = path in TWO_LEVEL
     _, plain_any = make_trace_fns(b.meta, use_kernels=False, grid_packet=grid_packet)
-    per_call = []
+    table = b.flat.blas[0].any
+    per_call, timed = [], {"ms": [], "bound_ms": [], "bound_by": []}
+    digest = hashlib.sha256()
     for orig, dirs, t_max, mask, occ in calls:
-        occ_p = plain_any(b.flat, orig, dirs, t_max, mask)
+        for x in (orig, dirs, t_max, mask):
+            digest.update(x.cpu().numpy().tobytes())
+        if two_level:
+            args = (table, orig, dirs, torch.full_like(t_max, EPSILON), t_max, mask)
+            walk = WalkCount(table)
+            occ_p = plain(*args, count=walk)
+            bound = _bound(table, walk, mask, 1)
+            timed["ms"].append(_median_ms(torch, lambda: kernel(*args), KERNEL_REPS))
+            timed["bound_ms"].append(bound["bound_ms"])
+            timed["bound_by"].append(bound["bound_by"])
+        else:
+            occ_p = plain_any(b.flat, orig, dirs, t_max, mask)
         per_call.append((int(mask.sum()), int(occ.sum()), int((occ != occ_p).sum())))
     res = {"rays": W * H, "spp": spp, "calls": len(calls), "launches": launched,
            "masked_in": [c[0] for c in per_call], "occluded": [c[1] for c in per_call],
-           "occ_mismatch": sum(c[2] for c in per_call)}
+           "occ_mismatch": sum(c[2] for c in per_call), "rays_sha256": digest.hexdigest()}
+    if two_level:
+        res.update(timed)
+        res.update({f"{k}_sum": sum(v) for k, v in timed.items() if k != "bound_by"})
     res["ok"] = (len(calls) == 10 and launched == 10 and res["occ_mismatch"] == 0
                  and sum(res["occluded"]) > 0 and all(0 < c[0] < W * H for c in per_call[:2]))
     log(f"[kernels] {name} any main-path shadow rays, one {W}x{H} frame: {json.dumps(res)}")
@@ -814,7 +854,9 @@ def phase_kernels(torch, path: str):
     W, H = (CITY_W, CITY_H) if path == "stream" else (MAIN_W, MAIN_H)
     out["shadow"] = _check_any_shadow(torch, scene, (flat, meta), path, W, H)
     if path in ("flat", "unified"):
-        out["queue_shadow"] = _check_any_shadow(torch, scene, (flat, meta), QUEUE[path], W, H)
+        out["queue_shadow"] = q = _check_any_shadow(torch, scene, (flat, meta), QUEUE[path], W, H)
+        q["same_rays"] = q["rays_sha256"] == out["shadow"]["rays_sha256"]
+        log(f"[kernels] {QUEUE[path]} shadow rays equal to {path}'s: {q['same_rays']}")
     return out
 
 
@@ -1349,6 +1391,12 @@ def main() -> int:
             out.update(ms_stack128=primary["ms_stack128"], bounce_ms_stack128=bounce["ms_stack128"])
         return out
 
+    def shadow(res):
+        """A two-level any-hit kernel on one main-path frame's 10 shadow
+        wavefronts (_check_any_shadow): per call and summed."""
+        return {k: res[k] for k in ("masked_in", "occluded", "ms", "ms_sum", "bound_ms",
+                                    "bound_ms_sum", "bound_by")}
+
     kernels = []
     slotlane = "chameleonrt_tpu/ops/traverse_slotlane.py"
     for name, path, key, src, replaces in (
@@ -1385,6 +1433,8 @@ def main() -> int:
         }
         if label in bvh8:
             entry["bvh8"] = bvh8[label]
+        if key == "any" and path in TWO_LEVEL:
+            entry["shadow"] = shadow(kres[path]["shadow"])
         if path in SAME_RAYS:  # the unstreamed kernels on the same wavefronts
             other = SAME_RAYS[path]
             entry[f"{other}_kernel_ms"] = primary[f"{other}_ms"]
@@ -1408,12 +1458,12 @@ def main() -> int:
          ("unified", "unified_stream"),
          f"{packet}:1849 (_any_unified_call_persistent, stream False and True)"),
     ):
+        label = name.split()[0]
         err_key = "max_dt_common" if key == "closest" else "max_abs_err"
         errs = [r[err_key] for tier in tiers for q in kres[tier]["queue_all"][key] for r in (q, q["small"])]
         if key == "any":
             errs.append(float(kres[tiers[0]]["queue_shadow"]["occ_mismatch"] > 0))
         count = f"{key}_{qpath}"
-        label = name.split()[0]
         entry = {
             "name": name, "route": "cuda", "source": "chameleonrt_tpu_torch/csrc/traverse_persistent.cu",
             "replaces": replaces, "launches": launches[qpath][count][0],
@@ -1424,6 +1474,11 @@ def main() -> int:
         }
         if label in bvh8:
             entry["bvh8"] = bvh8[label]
+        if key == "any" and qpath in TWO_LEVEL:  # beside the tier kernel's times on its frame's rays
+            queue_shadow, tier_shadow = kres[tiers[0]]["queue_shadow"], kres[tiers[0]]["shadow"]
+            entry["shadow"] = {**shadow(queue_shadow), "same_rays": queue_shadow["same_rays"],
+                               f"{tiers[0]}_kernel_ms": tier_shadow["ms"],
+                               f"{tiers[0]}_kernel_ms_sum": tier_shadow["ms_sum"]}
         for tier in tiers:
             primary, bounce = kres[tier][key]
             times = {**shared(tier, key if tier == "flat" else f"{key}_{tier}", primary, bounce),

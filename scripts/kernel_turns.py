@@ -7,7 +7,10 @@ Each TREE is a checkout of this repository (a `git archive` of a commit, or
 a copy with its csrc/ edited). The wavefronts are made once, by this
 checkout's chip_smoke.py helpers: sorted primary rays and diffuse-bounce
 rays at 1280x720 on the San Miguel proxy, the large San Miguel proxy and a
-576-instance grid, with the plain walk's results on each. Then one worker
+576-instance grid, and on the San Miguel proxy also the two masked shadow-ray
+wavefronts (light samples, bsdf samples) of the first bounce of one 1-spp
+1280x720 frame, captured as chip_smoke.py captures a main path's shadow rays
+(any hit only), with the plain walk's results on each. Then one worker
 process a tree builds that tree's kernels and binds them through that
 tree's own wrappers, checks its six two-level kernels (B3, B4, B5c, B5d,
 B6c, B6d) against the plain results bit for bit, and times them when asked.
@@ -16,7 +19,8 @@ each visit takes the median of --reps CUDA-event timings of every kernel
 on every wavefront after a warmup, and the result is the mean of a tree's
 medians with their range. A tree that fails its check is reported and not
 timed. Any hit runs at t_max = 1.001 x the closest hit on primary rays and
-0.999 x on bounce rays, as chip_smoke.py's bounds do.
+0.999 x on bounce rays, as chip_smoke.py's bounds do, and on the shadow
+wavefronts at their own t_max and mask.
 
 Prints a table and writes every median, each tree's ptxas registers and
 spills of those kernels, and the card's name and power limit to --out.
@@ -72,9 +76,9 @@ tables = {k: UnifiedBvh(**{f: v.cuda() if torch.is_tensor(v) else v for f, v in 
 cases = {}
 for name, c in saved["cases"].items():
     table = tables[c["scene"]]
-    cases[name] = {kind: (table,) + tuple(x.cuda() for x in c[kind]) for kind in ("closest", "any")}
-    cases[name].update(want_closest=tuple(x.cuda() for x in c["want_closest"]),
-                       want_any=c["want_any"].cuda())
+    cases[name] = {kind: ((table,) + tuple(x.cuda() for x in c[kind]),
+                          tuple(x.cuda() for x in c["want_" + kind]))
+                   for kind in ("closest", "any") if kind in c}
 reply({"ready": True, "build_s": build_s, "ptxas": ptxas})
 for line in sys.stdin:
     cmd = json.loads(line)
@@ -82,19 +86,23 @@ for line in sys.stdin:
         out = {}
         for label, (wrapper, closest) in cmd["kernels"].items():
             fn = getattr(traverse_cuda, wrapper)
+            kind = "closest" if closest else "any"
             for name, c in cases.items():
-                got = fn(*c["closest" if closest else "any"])
-                want = c["want_closest"] if closest else (c["want_any"],)
-                got = got if closest else (got,)
-                out[f"{label}@{name}"] = all(torch.equal(g, w) for g, w in zip(got, want))
+                if kind in c:
+                    args, want = c[kind]
+                    got = fn(*args)
+                    got = got if closest else (got,)
+                    out[f"{label}@{name}"] = all(torch.equal(g, w) for g, w in zip(got, want))
         reply(out)
     elif cmd["op"] == "time":
         out = {}
         for label, (wrapper, closest) in cmd["kernels"].items():
             fn = getattr(traverse_cuda, wrapper)
+            kind = "closest" if closest else "any"
             for name, c in cases.items():
-                args = c["closest" if closest else "any"]
-                out[f"{label}@{name}"] = chip_smoke._median_ms(torch, lambda: fn(*args), cmd["reps"])
+                if kind in c:
+                    args = c[kind][0]
+                    out[f"{label}@{name}"] = chip_smoke._median_ms(torch, lambda: fn(*args), cmd["reps"])
         reply(out)
     else:
         break
@@ -114,7 +122,7 @@ def _cases(torch, path):
     tables, out = {}, {}
     for scene_name, uri in (("san_miguel", cs.SAN_MIGUEL), ("large_proxy", cs.SAN_MIGUEL_LARGE),
                             ("grid576", GRID_576)):
-        scene, flat, _ = cs._scene_tables(torch, uri)
+        scene, flat, meta = cs._scene_tables(torch, uri)
         table = flat.blas[0].any
         tables[scene_name] = {k: v.cpu() if torch.is_tensor(v) else int(v)
                               for k, v in table._asdict().items()}
@@ -132,13 +140,25 @@ def _cases(torch, path):
                 "scene": scene_name,
                 "closest": tuple(x.cpu() for x in (orig, dirs, t_min, active, t_max)),
                 "any": tuple(x.cpu() for x in any_args),
-                "want_closest": tuple(x.cpu() for x in want), "want_any": want_any.cpu()}
+                "want_closest": tuple(x.cpu() for x in want), "want_any": (want_any.cpu(),)}
             print(f"[cases] {scene_name} {kind}: {R} rays, {int(active.sum())} active, "
                   f"{int((want[1] >= 0).sum())} hits, {int(want_any.sum())} occluded", flush=True)
             if kind == "primary":
                 orig, dirs, active = cs._bounce_wavefront(torch, flat, orig, dirs, want[0], want[1],
                                                           want[2])
                 t_min = torch.full((R,), EPSILON, device="cuda")
+        if scene_name == "san_miguel":  # any hit only: the first bounce's two shadow wavefronts
+            _, calls = cs._shadow_calls(torch, scene, (flat, meta), cs.MAIN_W, cs.MAIN_H,
+                                        use_kernels=False)
+            for kind, (o, d, t_max, mask, occ) in zip(("shadow_light", "shadow_bsdf"), calls):
+                any_args = (o, d, torch.full_like(t_max, EPSILON), t_max, mask)
+                want_any = traverse.traverse_any_unified(table, *any_args)
+                assert torch.equal(want_any, occ)
+                out[f"{scene_name}_{kind}"] = {"scene": scene_name,
+                                               "any": tuple(x.cpu() for x in any_args),
+                                               "want_any": (want_any.cpu(),)}
+                print(f"[cases] {scene_name} {kind}: {o.shape[0]} rays, {int(mask.sum())} masked "
+                      f"in, {int(want_any.sum())} occluded", flush=True)
         del cs._TABLES[uri, 4, 4]
     torch.save({"tables": tables, "cases": out}, path)
     return sorted(out)
@@ -239,7 +259,7 @@ def main() -> int:
         for name in summary:
             cells = [f"{c}: {summary[name][f'{label}@{c}']['mean']:.4f} "
                      f"[{summary[name][f'{label}@{c}']['min']:.4f}-{summary[name][f'{label}@{c}']['max']:.4f}]"
-                     for c in cases]
+                     for c in cases if f"{label}@{c}" in summary[name]]
             print(f"  {name}: " + "; ".join(cells))
     for name, ready in result["build"].items():
         print(f"[ptxas] {name}: {json.dumps(ready.get('ptxas', ready))}")

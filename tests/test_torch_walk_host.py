@@ -2,20 +2,24 @@
 for bit against the plain walk, on the CPU.
 
 csrc/traverse_common.cuh holds the walks that B3/B4 (csrc/traverse_unified.cu),
-B5c/B5d and B6c run: closest_two_level and any_two_level over a row source.
-Here g++ compiles that header against a small shim of cuda_runtime.h
+B5c/B5d and B6c/B6d run: closest_two_level and any_two_level over a row
+source. Here g++ compiles that header against a small shim of cuda_runtime.h
 (written into the test's temporary directory: the CUDA qualifiers, float2,
 float4, __ldg, the bit casts, __popc, and an __activemask that has the
-closest walk leave its node loop early at every third node row) with
--ffp-contract=off, the
-counterpart of nvcc's -fmad=false, into a harness that runs both walks over
-GlobalRows for every ray, loaded through ctypes. The harness must equal
-ops/traverse.py's traverse_closest_unified / traverse_any_unified bit for
-bit: t, prim, instance, u and v, occlusion, ties included, on the parity
-grid (proc://instances?nx=4&ny=4&subdiv=2) at arity 2 (the binary table), 4
-and 8 and leaf sizes 4 and 5, on primary rays and on bounce rays from their
-hit points, at both stack capacities; and on a table whose certified bound
-is cut so far that the walk overflows, which gives prim = -2 or occluded.
+closest walk leave its node loop early at every third node row, and counts
+its calls) with -ffp-contract=off, the counterpart of nvcc's -fmad=false, into
+a harness that runs both walks over GlobalRows for every ray, loaded
+through ctypes. The harness must equal ops/traverse.py's
+traverse_closest_unified / traverse_any_unified bit for bit: t, prim,
+instance, u and v, occlusion, ties included, on the parity grid
+(proc://instances?nx=4&ny=4&subdiv=2) at arity 2 (the binary table), 4 and
+8 and leaf sizes 4 and 5, on primary rays, on bounce rays from their hit
+points and (any hit) on the two masked shadow-ray wavefronts of the first
+bounce of a frame that the port renders on the CPU, at both stack
+capacities, with the closest walk's node loop taken once per node row and
+left early; and on a table whose certified bound is cut so far that the walk
+overflows, which gives prim = -2 or occluded, with and without masked-out
+lanes.
 
 This is the walk's logic on the host, not the kernel: chip_smoke.py holds
 the kernels themselves to the plain walk on the card.
@@ -31,6 +35,7 @@ import torch
 
 from chameleonrt_tpu_torch import native
 from chameleonrt_tpu_torch.engine import device_scene as tds
+from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
 from chameleonrt_tpu_torch.engine import trace_bvh as ttb
 from chameleonrt_tpu_torch.ops import camera, rng
 from chameleonrt_tpu_torch.ops import traverse as plain
@@ -67,8 +72,9 @@ inline float __int_as_float(int i) { float x; memcpy(&x, &i, 4); return x; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
-// one lane of a warp alone at every third call, so that the walk's node loop
-// is left early (a lane still at a node row) as often as it runs on
+// one lane of a warp alone at every third call, so that the closest walk's
+// node loop is left early (a lane still at a node row) as often as it runs
+// on; the harness reports the calls
 static unsigned crt_calls;
 inline unsigned __activemask() { return ++crt_calls % 3 ? 0xffffffffu : 1u; }
 """
@@ -99,6 +105,8 @@ static void any_all(const float* nodes, const float* leaf_rows, int n_tri, int t
 }
 
 extern "C" {
+
+unsigned activemask_calls() { return crt_calls; }
 
 int walk_closest(const float* nodes, const float* leaf_rows, int n_tri, int tlas_lo, int arity,
                  int L, int depth, int cap, const float* orig, const float* dir,
@@ -133,12 +141,38 @@ def walks(tmp_path_factory):
     subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
                     f"-I{d}", f"-I{CSRC}", "-o", str(lib), str(d / "harness.cpp")],
                    check=True, capture_output=True, timeout=300)
-    return ctypes.CDLL(str(lib))
+    walks = ctypes.CDLL(str(lib))
+    walks.activemask_calls.restype = ctypes.c_uint
+    return walks
 
 
 @pytest.fixture(scope="module")
 def scene():
     return load_scene(PARITY)
+
+
+@pytest.fixture(scope="module")
+def shadow(scene):
+    """The two masked shadow-ray wavefronts of the first bounce (light
+    samples, then bsdf samples toward the lights) of one W x H frame of the
+    parity grid, captured from the port's renderer on the CPU as
+    chip_smoke.py captures a main path's: [(orig, dir, t_max, mask)]."""
+    b = CudaBackend(device="cpu")
+    b.initialize(W, H)
+    b.set_scene(scene)
+    trace_closest, trace_any = b._trace
+    calls = []
+
+    def capture(flat, orig, dir, t_max, mask):
+        calls.append((orig.clone(), dir.clone(), t_max.clone(), mask.clone()))
+        return trace_any(flat, orig, dir, t_max, mask)
+
+    b._trace = (trace_closest, capture)
+    cam = scene.cameras[0]
+    d = cam.center - cam.position
+    b.render(cam.position, d / np.linalg.norm(d), cam.up, cam.fov_y, True,
+             readback_framebuffer=False)
+    return calls[:2]
 
 
 def _table(scene, arity, leaf):
@@ -211,6 +245,18 @@ def _any(walks, table, orig, dirs, t_min, t_max, mask, cap):
     return occ
 
 
+def _assert_any_bit_equal(walks, table, orig, dirs, t_min, t_max, mask):
+    """any_two_level against the plain walk at both stack capacities, on a
+    wavefront whose rays take at least 3 node rows. Returns the plain
+    flags."""
+    count = plain.WalkCount(table)
+    want = plain.traverse_any_unified(table, orig, dirs, t_min, t_max, mask, count=count)
+    for cap in (64, 128):
+        assert torch.equal(_any(walks, table, orig, dirs, t_min, t_max, mask, cap), want)
+    assert int(count.visits[0]) >= 3
+    return want
+
+
 def _assert_bit_equal(got, want):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
@@ -218,47 +264,64 @@ def _assert_bit_equal(got, want):
                            w.view(torch.int32) if w.is_floating_point() else w)
 
 
-@pytest.mark.parametrize("rays", ["primary", "bounce"])
+@pytest.mark.parametrize("rays", ["primary", "bounce", "shadow"])
 @pytest.mark.parametrize("leaf", LEAVES)
 @pytest.mark.parametrize("arity", ARITIES)
-def test_walks_equal_the_plain_walk_bit_for_bit(walks, scene, arity, leaf, rays):
+def test_walks_equal_the_plain_walk_bit_for_bit(walks, scene, shadow, arity, leaf, rays):
     """closest_two_level and any_two_level over GlobalRows against the
     plain walk on the same table and rays: t, prim, instance, u, v and
     occlusion equal bit for bit (any hit at t_max = 1.001 x the closest
-    hit on primary rays, 0.999 x on bounce rays), and equal at the 64- and
-    128-entry stack capacities."""
+    hit on primary rays, 0.999 x on bounce rays, and on the renderer's own
+    masked shadow rays at their t_max), and equal at the 64- and 128-entry
+    stack capacities; the closest walk took one __activemask call (its node
+    loop's test) per node row of the plain walk, at least 3, so that the
+    shim had it leave the node loop early."""
     flat, table = _table(scene, arity, leaf)
+    if rays == "shadow":
+        for orig, dirs, t_max, mask in shadow:
+            assert 0 < int(mask.sum()) < mask.numel()
+            _assert_any_bit_equal(walks, table, orig, dirs, torch.full_like(t_max, EPSILON),
+                                  t_max, mask)
+        return
     orig, dirs, t_min, active = _primary(scene)
     t_max = torch.full((orig.shape[0],), 1e20)
     if rays == "bounce":
         t, prim, _, _, _ = plain.traverse_closest_unified(table, orig, dirs, t_min, active, t_max)
         orig, dirs, t_min, active = _bounce(orig, dirs, t, prim)
-    want = plain.traverse_closest_unified(table, orig, dirs, t_min, active, t_max)
+    count = plain.WalkCount(table)
+    want = plain.traverse_closest_unified(table, orig, dirs, t_min, active, t_max, count=count)
+    before = walks.activemask_calls()
     got = _closest(walks, table, orig, dirs, t_min, active, t_max, 64)
     _assert_bit_equal(got, want)
     _assert_bit_equal(_closest(walks, table, orig, dirs, t_min, active, t_max, 128), want)
+    calls = (walks.activemask_calls() - before) % 2**32
+    node_visits = int(count.visits[0])
+    assert calls == 2 * node_visits and node_visits >= 3
     hits = want[1] >= 0
     assert int(hits.sum()) > 50 and int(torch.unique(want[2][hits]).numel()) > 4
     factor = 1.001 if rays == "primary" else 0.999
     t_any = torch.where(want[0] < 1e19, want[0] * factor, torch.full_like(want[0], 100.0))
     a_min = torch.full_like(t_min, EPSILON)
-    occ_want = plain.traverse_any_unified(table, orig, dirs, a_min, t_any, active)
-    for cap in (64, 128):
-        assert torch.equal(_any(walks, table, orig, dirs, a_min, t_any, active, cap), occ_want)
+    occ_want = _assert_any_bit_equal(walks, table, orig, dirs, a_min, t_any, active)
     if rays == "primary":  # most hits occlude at 1.001 x their own t
         assert int(occ_want.sum()) > int(hits.sum()) // 2
 
 
+@pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("arity", ARITIES)
-def test_overflow_gives_prim_minus_two_and_occluded(walks, scene, arity):
+def test_overflow_gives_prim_minus_two_and_occluded(walks, scene, arity, masked):
     """A certified bound of 2 makes both walks' stack 3 entries deep: a push
     onto a full stack ends the closest walk with prim = -2 (t = 1e20, no
     instance, u = v = 0) and reports the any walk occluded, as the plain
-    walk does, lane for lane."""
+    walk does, lane for lane; masked: with a seeded half of the lanes
+    inactive (closest hit) and masked out (any hit), which stay a miss and
+    unoccluded."""
     _, table = _table(scene, arity, 4)
     table = table._replace(stack_bound=2)
     assert traverse_cuda.stack_depth(table) == plain.unified_stack_limit(table) == 3
     orig, dirs, t_min, active = _primary(scene)
+    if masked:
+        active = torch.from_numpy(np.random.default_rng(5).random(orig.shape[0]) < 0.5)
     t_max = torch.full((orig.shape[0],), 1e20)
     want = plain.traverse_closest_unified(table, orig, dirs, t_min, active, t_max)
     got = _closest(walks, table, orig, dirs, t_min, active, t_max, 64)
@@ -269,3 +332,5 @@ def test_overflow_gives_prim_minus_two_and_occluded(walks, scene, arity):
     occ_want = plain.traverse_any_unified(table, orig, dirs, t_min, t_max, active)
     occ = _any(walks, table, orig, dirs, t_min, t_max, active, 64)
     assert torch.equal(occ, occ_want) and bool(occ[over].all())
+    if masked:
+        assert not bool(occ[~active].any()) and bool((want[1][~active] == -1).all())
