@@ -25,16 +25,19 @@
 // any_two_level below, templates on a row source (GlobalRows). The closest
 // walk runs node rows in a loop of their own that the warp leaves once most
 // of its lanes wait at a leaf; the any walk is one loop over node rows,
-// triangle leaves and instance entries (any_two_level says why).
+// triangle leaves and instance entries (any_two_level says why). B5a and
+// B7a run the same closest walk over a flat table (FlatRows: no TLAS, no
+// instance entries, so the world-ray restore and the entry branch compile
+// away).
 //
 // Stacks: depth, the SAH build's certified bound + 1, reaches 76 on BVH8
-// tables of the main-path scenes. The per-lane kernels (B1-B4, B5c, B5d,
-// B6a-B6d) keep a local array of S entries, S a template parameter
-// instantiated at kSmallStack and kMaxStack; their C entries switch on the
-// capacity the wrapper picks (CRT_BY_STACK), the smallest that holds depth,
-// so a BVH4 table keeps the 64-entry array. The warp-packet kernels (B5a,
-// B5b, B7a, B7b) keep one stack of kMaxStack entries per warp in shared
-// memory.
+// tables of the main-path scenes. The per-lane kernels (B1-B4, B5a, B5c,
+// B5d, B6a-B6d, B7a) keep a local array of S entries, S a template
+// parameter instantiated at kSmallStack and kMaxStack; their C entries
+// switch on the capacity the wrapper picks (CRT_BY_STACK), the smallest
+// that holds depth, so a BVH4 table keeps the 64-entry array. The
+// warp-packet kernels (B5b, B7b) keep one stack of kMaxStack entries per
+// warp in shared memory.
 
 #pragma once
 
@@ -314,10 +317,13 @@ __device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,
 // and measured slower on bounce rays (PERF.md section 6).
 template <int A>
 struct GlobalRows {
+  static constexpr bool kTwoLevel = true;
   const float* nodes;
   const float* leaf_rows;
   int n_tri, tlas_lo, L;
 
+  // the walk's first row: the TLAS root
+  __device__ __forceinline__ int root() const { return tlas_lo; }
   __device__ __forceinline__ void node_row(int cur, float* row) const {
     load_row<A>(nodes, cur, row);
   }
@@ -366,14 +372,26 @@ struct GlobalRows {
   }
 };
 
+// A flat table's rows (B5a, B7a): GlobalRows with n_tri the number of
+// leaves, every leaf a triangle leaf and no TLAS. The walk starts at the
+// root row, or at leaf 0 where the table is a single leaf.
+template <int A>
+struct FlatRows : GlobalRows<A> {
+  static constexpr bool kTwoLevel = false;
+  __device__ __forceinline__ int root() const { return this->n_tri == 1 ? -1 : 0; }
+};
+
 // The closest-hit walk of one live world ray w over the rows of t (B3,
-// B5c, B6c): the rules of traverse_unified.cu's header, a stack of S
-// entries of which depth - 1 may be filled. Updates (best, best_prim,
-// best_inst, best_u, best_v) on each nearer hit; an overflow sets
-// best_prim = -2. Node rows run in a loop of their own (Aila and Laine's
-// "while-while", HPG 2009), so the lanes of a warp that are descending take
-// their node rows together, and a lane at a triangle leaf or an instance
-// entry waits at the loop's end. The warp leaves the node loop once fewer
+// B5c, B6c; over FlatRows B5a and B7a): the rules of traverse_unified.cu's
+// header, a stack of S entries of which depth - 1 may be filled. Updates
+// (best, best_prim, best_inst, best_u, best_v) on each nearer hit. An
+// overflow sets best_prim = -2: a two-level walk ends there (its result is
+// then a miss, u = v = 0), a flat one drops the pushes that do not fit and
+// walks on, as the plain walk does, whose u and v a flat overflow reports
+// (traverse_flat.cu's B1 ends at once). Node rows run in a loop of their
+// own (Aila and Laine's "while-while", HPG 2009), so the lanes of a warp
+// that are descending take their node rows together, and a lane at a
+// triangle leaf or an instance entry waits at the loop's end. The warp leaves the node loop once fewer
 // than kNodeLanes of its lanes are still in it: the waiting lanes then take
 // their leaves together, and the others resume their node rows after.
 // Where the warp took the loop to its end, its lanes waited on a few long
@@ -386,9 +404,10 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
                                                   float& best_u, float& best_v) {
   Ray r = w;
   int inst = 0;  // the instance whose object space r holds
+  bool overflow = false;  // a flat walk's dropped push
   int stack[S];
   int sp = 0;
-  int cur = t.tlas_lo;
+  int cur = t.root();
   while (cur != kDone) {
     // 0 <= cur < kDone: a node row
     while (static_cast<unsigned>(cur) < static_cast<unsigned>(kDone)) {
@@ -401,18 +420,23 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
       for (int k = A - 1; k >= 1; --k) {
         if (keys[k] < kBig) {
           if (sp >= depth - 1) {  // overflow
-            best_prim = -2;
-            return;
+            if constexpr (T::kTwoLevel) {
+              best_prim = -2;
+              return;
+            }
+            overflow = true;
+          } else {
+            stack[sp++] = codes[k];
           }
-          stack[sp++] = codes[k];
         }
       }
       cur = keys[0] < kBig ? codes[0] : (sp > 0 ? stack[--sp] : kDone);
-      if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;  // a pop onto a TLAS row
+      if constexpr (T::kTwoLevel)
+        if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;  // a pop onto a TLAS row
       if (__popc(__activemask()) < kNodeLanes) break;  // most of the warp waits
     }
     if (cur >= 0) continue;  // a node row still, or kDone
-    if (-cur - 1 < t.n_tri) {
+    if (!T::kTwoLevel || -cur - 1 < t.n_tri) {
       float lt = best, lu = 0.0f, lv = 0.0f;
       int lp = -1;
       t.leaf_slots(-cur - 1, [&](const Tri& s) {
@@ -427,8 +451,9 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
         best = lt; best_prim = lp; best_inst = inst; best_u = lu; best_v = lv;
       }
       cur = sp > 0 ? stack[--sp] : kDone;
-      if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;
-    } else {
+      if constexpr (T::kTwoLevel)
+        if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;
+    } else if constexpr (T::kTwoLevel) {
       float m[kEntryCols];
       t.entry(-cur - 1, m);
       r = enter_instance(m, w);
@@ -436,6 +461,7 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
       inst = __float_as_int(m[13]);
     }
   }
+  if (overflow) best_prim = -2;
 }
 
 // The any-hit walk of one live world ray w over the rows of t (B4, B5d,
@@ -493,7 +519,9 @@ __device__ __forceinline__ bool any_two_level(const T& t, int depth, const Ray& 
 
 // Ray i of a wavefront through closest_two_level over the rows of t, its
 // result written at i (B3, B5c, B6c): a miss, an inactive lane or an
-// overflow is (1e20, prim, -1, 0, 0) with prim -1 or -2.
+// overflow is (1e20, prim, -1, 0, 0) with prim -1 or -2. Over FlatRows (B5a,
+// B7a) there is no instance (inst_out is not written) and a flat overflow
+// keeps the u and v of its walk's nearest hit, as the plain walk does.
 template <int A, int S, typename T>
 __device__ __forceinline__ void closest_ray(const T& t, int depth, const float* orig,
                                             const float* dir, const float* t_min,
@@ -508,9 +536,14 @@ __device__ __forceinline__ void closest_ray(const T& t, int depth, const float* 
   const bool miss = best_prim < 0;
   t_out[i] = miss ? kTMax : best;
   prim_out[i] = best_prim;
-  inst_out[i] = miss ? -1 : best_inst;
-  u_out[i] = miss ? 0.0f : best_u;
-  v_out[i] = miss ? 0.0f : best_v;
+  if constexpr (T::kTwoLevel) {
+    inst_out[i] = miss ? -1 : best_inst;
+    u_out[i] = miss ? 0.0f : best_u;
+    v_out[i] = miss ? 0.0f : best_v;
+  } else {
+    u_out[i] = best_u;
+    v_out[i] = best_v;
+  }
 }
 
 // Ray i through any_two_level over the rows of t, occluded & mask written

@@ -1,6 +1,6 @@
 // Grid-packet BVH traversal for Hopper (sm_90a) over binary node rows: B7a
-// closest hit and B7b any hit, one warp per packet of 32 consecutive
-// sorted rays that share one stack.
+// closest hit, one lane per ray, and B7b any hit, one warp per packet of 32
+// consecutive sorted rays that share one stack.
 //
 // Replaces the Pallas grid-packet kernels of chameleonrt_tpu/ops/traverse_packet.py:
 // B7a = _closest_kernel (:281), launched by _closest_call (pallas_call
@@ -9,61 +9,57 @@
 // (:2432). The JAX engine reaches them for a flat scene with the slot-lane
 // tier off once both persistent VMEM gates fail (engine/trace_bvh.py
 // :680-688, :871-879); the port reaches them with grid_packet=True.
+// Binary rows (n, 16) f32: child boxes at cols 0-11, child codes at cols
+// 12-13 (traverse_common.cuh has the layouts).
 //
-// What they compute, step by step (traverse_packet.py:331-427, :486-575),
-// on binary rows (n, 16) f32: child boxes at cols 0-11, child codes at
-// cols 12-13 (traverse_common.cuh has the layouts):
-//   - B7a, node row: every live lane slab-tests both children against its
-//     own best t; the ballots give the lanes that hit each child. The
-//     packet descends first into the child with the smaller packet-minimum
-//     entry t (a warp min over the lanes that hit it; min_l <= min_r picks
-//     the left child, :343-347), not in each ray's own order, and pushes
-//     the other where both are hit. At a leaf every live lane runs
-//     Moller-Trumbore on all L slots and keeps a hit on t < its best, slot
-//     by slot (ties inside a leaf go to the lowest slot): the leaf is not
-//     culled by the lane's own box test, as the TPU kernel does not cull
-//     there. A pop from an empty stack ends the packet.
-//   - B7b: a lane that is occluded slab-tests with cap -1e30 (:494), so it
-//     enters nothing; children are pushed unordered (left visited next,
-//     right pushed, :518); at a leaf each lane that is not occluded runs
-//     Moller-Trumbore against its t_max; the packet ends as soon as every
-//     lane is occluded (__all_sync; :501, :534, :557).
-//   - Inactive lanes (and the padding past R) take part in no vote. The
-//     JAX wrapper parks them at origin 1e30 (:2395-2400) and gives them
-//     t_max = -1 in B7b (:2448-2452), so they count as occluded there. B7a
-//     writes (1e20, -1, 0, 0) for them and for a miss; B7b writes
-//     occluded & mask.
-//   - The stack of a packet holds depth - 1 entries, depth being the
-//     builder's certified binary depth plus one, at most kMaxStack as in
-//     B1-B6d. A push onto a full stack drops that child: the lanes that
-//     hit it report prim = -2 (B7a) or occluded (B7b), as B1/B2 do; a
-//     certified depth never reaches it.
-// Against the plain version (ops/traverse.py traverse_closest /
-// traverse_any on the same binary table): a prim may differ on an exact
-// tie in t, since the packet visits in another order and takes a leaf's
-// lowest tied slot, and a lane may find a nearer hit (B7a) or an occluder
-// (B7b) that the plain walk culls, where the lane's own slab test rejects a
-// box by rounding at its faces while Moller-Trumbore hits a triangle on
-// that face.
+// B7a computes the TPU kernel's function, closest hit over the binary
+// rows, in the plain walk's per-lane order: closest_ray over FlatRows at A
+// = 2 (traverse_common.cuh), B5a's walk (traverse_stream.cu), a template on
+// its stack capacity S (64 or 128) whose C entry switches on it. It is
+// bit-equal to the plain version (ops/traverse.py traverse_closest on the
+// same binary table): a hit is kept on t < best, ties inside a leaf go to
+// the highest slot, a stack overflow reports prim = -2 as there, a miss or
+// inactive lane is (1e20, -1, 0, 0). The TPU kernel's packet (:331-427)
+// descends into the child of smaller packet-minimum entry t and tests every
+// leaf the packet visits with every live lane, keeping a leaf's lowest tied
+// slot, so it can differ from the plain walk on exact ties in t and on hits
+// that a lane's own slab test culls by rounding at a box face.
 //
-// Not carried over from the TPU kernel: K = 64 resident packets of 256
-// rays interleaved across sublanes (_pack_rays), the node/leaf phase
-// alternation by LEAF_THRESH and the stale-row leaf re-tests. They
-// schedule the TPU's lockstep vector unit and VMEM; a warp that owns its
-// packet needs none of them.
+// B7b, what it computes step by step (traverse_packet.py:486-575): a lane
+// that is occluded slab-tests with cap -1e30 (:494), so it enters nothing;
+// children are pushed unordered (left visited next, right pushed, :518); at
+// a leaf each lane that is not occluded runs Moller-Trumbore against its
+// t_max; the packet ends as soon as every lane is occluded (__all_sync;
+// :501, :534, :557). Inactive lanes (and the padding past R) take part in
+// no vote; the JAX wrapper gives them t_max = -1 (:2448-2452), so they count
+// as occluded there. B7b writes occluded & mask. Its stack holds depth - 1
+// entries, depth being the SAH build's certified binary depth plus one, in
+// kMaxStack entries a warp of shared memory; a push onto a full stack
+// reports the lanes that hit the dropped child occluded, as B2 does. A lane
+// may find an occluder that its own walk culls by rounding at a box face,
+// since every lane tests every leaf the packet visits. The 64-byte node row
+// comes in one coalesced load by lanes 0-15 into the warp's node slot in
+// shared memory, a leaf row in ceil(10L / 32) coalesced loads into its
+// leaf slot. Not carried over from the TPU kernel: K = 64 resident packets
+// of 256 rays interleaved across sublanes (_pack_rays), the node/leaf phase
+// alternation by LEAF_THRESH and the stale-row leaf re-tests, which
+// schedule the TPU's lockstep vector unit and VMEM.
 //
-// Hopper design: one warp per packet, reusing B5a/B5b's machinery
-// (traverse_stream.cu): the 64-byte node row comes in one coalesced load
-// by lanes 0-15 into the warp's node slot in shared memory, a leaf row in
-// ceil(10L / 32) coalesced loads into its leaf slot, and the descent comes
-// from ballots and warp mins. The stack, the node slot and the leaf slot
-// of each warp sit in shared memory. Built with -fmad=false, like B1-B6d.
-//
-// What bounds it on the H100: the dependent row fetch of every packet
-// step, as in B5a/B5b, and the packet's union of its lanes' walks: a warp
-// visits every node that some lane enters, and every live lane runs
-// Moller-Trumbore at every leaf the packet visits. The binary table
-// doubles the node steps of BVH4 for half the bytes a row.
+// What bounds them on the H100: dependent row fetches (the hall's binary
+// table, 4 MB of nodes, stays in the L2), and for B7b the packet's union of
+// its lanes' walks: a warp visits every node that some lane enters, and
+// every live lane runs Moller-Trumbore at every leaf the packet visits. The
+// binary table doubles the node steps of BVH4 for half the bytes a row. On
+// an H100 80GB HBM3 at 700 W (scripts/kernel_turns.py, PERF.md section 6)
+// the per-lane B7a took 0.24 / 0.40 ms on the hall's sorted primary /
+// bounce wavefronts, as B1 on the same binary table, where the packet B7a
+// took 0.37 / 1.11 ms. Measured and left out: a packet with per-lane masks
+// on its stack entries, each lane testing only the leaves its own box test
+// entered, the row read by every lane as broadcast 16-byte loads (no shared
+// slot, no __syncwarp a step) and subtrees of fewer than kNodeLanes lanes
+// walked per lane: 1.3x / 2.0x the per-lane walk's time there. Built with
+// -fmad=false, like B1-B6d.
+// Later work (ROADMAP queue D): B7b as a per-lane any-hit walk.
 
 #include "traverse_common.cuh"
 
@@ -93,6 +89,9 @@ __device__ __forceinline__ void load_leaf(const float* __restrict__ leaf_rows, i
   __syncwarp();
 }
 
+// B7a: ray i walks the binary table alone, in the plain walk's order
+// (closest_ray over FlatRows at A = 2, B5a's walk).
+template <int S>
 __global__ void __launch_bounds__(kThreads)
 closest_packet_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
                       int n_leaves, int L, int depth, const float* __restrict__ orig,
@@ -100,73 +99,11 @@ closest_packet_kernel(const float* __restrict__ nodes, const float* __restrict__
                       const float* __restrict__ t_max, const uint8_t* __restrict__ active,
                       float* __restrict__ t_out, int* __restrict__ prim_out,
                       float* __restrict__ u_out, float* __restrict__ v_out, int R) {
-  __shared__ int s_stack[kWarps][kMaxStack];
-  __shared__ float s_node[kWarps][kBinRow];
-  __shared__ float s_leaf[kWarps][10 * kMaxLeaf];
-  const int lane = threadIdx.x % kWarp;
-  int* stack = s_stack[threadIdx.x / kWarp];
-  float* node = s_node[threadIdx.x / kWarp];
-  float* leaf = s_leaf[threadIdx.x / kWarp];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < R && active[i];
-  Ray r = {};
-  float best = kTMax;
-  if (i < R) best = fminf(kTMax, t_max[i]);
-  if (live) r = load_ray(orig, dir, t_min, i);
-  int best_prim = -1;
-  float best_u = 0.0f, best_v = 0.0f;
-  bool ended = false;  // a push onto the full stack dropped a child this lane hit
-  int sp = 0;
-  // a one-leaf table starts at leaf 0; a packet with no live lane at once ends
-  int cur = __any_sync(kAll, live) ? (n_leaves == 1 ? -1 : 0) : kDone;
-  while (cur != kDone) {
-    if (cur >= 0) {
-      load_node(nodes, cur, lane, node);
-      const float kl = live ? slab_child(node, 0, r, best) : kBig;
-      const float kr = live ? slab_child(node, 1, r, best) : kBig;
-      const unsigned any_l = __ballot_sync(kAll, kl < kBig);
-      const unsigned any_r = __ballot_sync(kAll, kr < kBig);
-      const int lc = __float_as_int(node[12]), rc = __float_as_int(node[13]);
-      if (any_l != 0u && any_r != 0u) {
-        // the lanes that miss a child hold kBig, above every hit's entry
-        const bool l_near = __reduce_min_sync(kAll, ordered(kl)) <=
-                            __reduce_min_sync(kAll, ordered(kr));
-        if (sp >= depth - 1) {
-          ended |= (l_near ? kr : kl) < kBig;
-        } else {
-          if (lane == 0) stack[sp] = l_near ? rc : lc;
-          ++sp;
-        }
-        cur = l_near ? lc : rc;
-        continue;
-      }
-      if ((any_l | any_r) != 0u) {
-        cur = any_l != 0u ? lc : rc;
-        continue;
-      }
-    } else {
-      load_leaf(leaf_rows, -cur - 1, L, lane, leaf);
-      if (live) {
-        for (int j = 0; j < L; ++j) {
-          float t, u, v;
-          int prim;
-          if (mt_tri(shared_tri(leaf, L, j), r, best, &t, &u, &v, &prim)) {  // t < best
-            best = t; best_prim = prim; best_u = u; best_v = v;
-          }
-        }
-      }
-    }
-    if (sp == 0) break;
-    __syncwarp();
-    cur = stack[--sp];
-  }
-  if (i < R) {
-    const int p = !live ? -1 : ended ? -2 : best_prim;
-    t_out[i] = p < 0 ? kTMax : best;
-    prim_out[i] = p;
-    u_out[i] = p < 0 ? 0.0f : best_u;
-    v_out[i] = p < 0 ? 0.0f : best_v;
-  }
+  if (i >= R) return;
+  const FlatRows<2> t{{nodes, leaf_rows, n_leaves, 0, L}};
+  closest_ray<2, S>(t, depth, orig, dir, t_min, t_max, active, t_out, prim_out, nullptr, u_out,
+                    v_out, i);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -235,18 +172,20 @@ any_packet_kernel(const float* __restrict__ nodes, const float* __restrict__ lea
 
 extern "C" {
 
-// Launch B7a on `stream` over binary node rows. Returns the cudaError_t of
-// the launch.
+// Launch B7a on `stream` over binary node rows with a stack of `cap`
+// entries (kSmallStack or kMaxStack, at least depth). Returns the
+// cudaError_t of the launch.
 int crt_traverse_closest_packet(const float* nodes, const float* leaf_rows, int n_leaves, int L,
-                                int depth, const float* orig, const float* dir,
+                                int depth, int cap, const float* orig, const float* dir,
                                 const float* t_min, const float* t_max, const uint8_t* active,
                                 float* t_out, int* prim_out, float* u_out, float* v_out, int R,
                                 void* stream) {
   if (R <= 0) return 0;
   dim3 grid((R + kThreads - 1) / kThreads);
-  closest_packet_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CRT_BY_STACK(cap, depth, closest_packet_kernel<S><<<grid, kThreads, 0, s>>>(
       nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, active, t_out, prim_out,
-      u_out, v_out, R);
+      u_out, v_out, R));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,8 +22,8 @@ take node rows of arity 2, 4 or 8 (16, 32 or 64 floats), as the TPU
 kernels do, B7a/B7b binary rows only. Every kernel sizes its stack as the
 TPU kernels do (stack_depth), up to MAX_STACK (128) entries: the per-lane
 kernels launch the instantiation of the smallest capacity that holds it
-(stack_capacity: 64, or 128), the warp-packet kernels (B5a, B5b, B7a,
-B7b) hold MAX_STACK entries a warp in shared memory. A wrapper checks its
+(stack_capacity: 64, or 128), the warp-packet kernels (B5b, B7b) hold
+MAX_STACK entries a warp in shared memory. A wrapper checks its
 inputs against what the kernel takes and raises on anything else. Then,
 on CUDA tensors, it allocates the outputs (and a work-queue kernel's
 counter), launches the kernel on the current stream without
@@ -54,11 +54,10 @@ LAUNCHES = {"closest": 0, "any": 0, "closest_unified": 0, "any_unified": 0,
 STACK_LAUNCHES = {key: {cap: 0 for cap in _build.STACK_CAPACITIES} for key in LAUNCHES}
 # floats per node row the kernels take: binary, BVH4 and BVH8 (B1-B6d)
 ROW_FLOATS = (16, 32, 64)
-# the C entries of the warp-packet kernels, whose stack of MAX_STACK entries
-# a warp sits in shared memory; every other entry takes the capacity of the
-# per-lane stack it launches with
-_SHARED_STACK = ("crt_traverse_closest_stream", "crt_traverse_any_stream",
-                 "crt_traverse_closest_packet", "crt_traverse_any_packet")
+# the C entries of the warp-packet kernels (B5b, B7b), whose stack of
+# MAX_STACK entries a warp sits in shared memory; every other entry takes
+# the capacity of the per-lane stack it launches with
+_SHARED_STACK = ("crt_traverse_any_stream", "crt_traverse_any_packet")
 
 
 def stack_depth(table) -> int:
@@ -246,13 +245,12 @@ def traverse_any(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
 
 
 def traverse_closest_stream(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
-    """B5a: closest hit of the streamed tier, one warp per packet of 32
-    consecutive rays. Returns (t, prim, u, v). Its plain version is
-    plain.traverse_closest: B5a computes the same function on the same
-    BVH4 table, as the JAX suite holds the stream=True slot-lane kernel
-    against the VMEM one (tests/test_traverse_slotlane.py). t agrees; a
-    prim may differ where two hits tie exactly in t, since the packet
-    visits in another order."""
+    """B5a: closest hit of the streamed tier, one lane per ray in the plain
+    walk's order (B3's walk over a flat table). Returns (t, prim, u, v),
+    bit-equal to its plain version, plain.traverse_closest: B5a computes
+    the same function on the same BVH4 table, as the JAX suite holds the
+    stream=True slot-lane kernel against the VMEM one
+    (tests/test_traverse_slotlane.py)."""
     return _closest("crt_traverse_closest_stream", "closest_stream",
                     pbvh, orig, dir, t_min, active, t_max)
 
@@ -386,17 +384,14 @@ def traverse_any_unified_persistent(ubvh: UnifiedBvh, orig, dir, t_min, t_max, m
 
 
 def traverse_closest_packet(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
-    """B7a: grid-packet closest hit over binary rows, one warp per packet
-    of 32 consecutive sorted rays with one shared stack, descending first
-    into the child of smaller packet-minimum entry t. Returns (t, prim, u,
-    v); a miss or inactive lane is (1e20, -1, 0, 0). Replaces
+    """B7a: closest hit over binary rows, one lane per ray in the plain
+    walk's order (B5a's walk at arity 2). Returns (t, prim, u, v); a miss
+    or inactive lane is (1e20, -1, 0, 0). Replaces
     chameleonrt_tpu/ops/traverse_packet.py traverse_closest_packet
-    (pl.pallas_call of _closest_call, traverse_packet.py:627). Its plain
-    version is plain.traverse_closest on the same binary table: a prim may
-    differ on an exact tie in t, since the packet visits in another order,
-    and a lane may find a nearer hit in a leaf whose box its own slab test
-    rejects by rounding, since every lane tests every leaf the packet
-    visits."""
+    (pl.pallas_call of _closest_call, traverse_packet.py:627), which walks
+    a packet of rays with one stack. Its plain version is
+    plain.traverse_closest on the same binary table, to which it is
+    bit-equal."""
     return _closest("crt_traverse_closest_packet", "closest_packet",
                     pbvh, orig, dir, t_min, active, t_max)
 
@@ -405,8 +400,8 @@ def traverse_any_packet(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     """B7b: grid-packet any hit over binary rows; the packet stops once
     every lane is occluded, and masked lanes count as occluded for that
     test. Returns (R,) bool occluded & mask, as plain.traverse_any on the
-    same binary table; like B7a it tests every leaf the packet visits with
-    every lane that is not yet occluded, so a lane may find an occluder
+    same binary table; it tests every leaf the packet visits with every
+    lane that is not yet occluded, so a lane may find an occluder
     that its own walk culls by rounding at a box face. Replaces
     traverse_packet.py traverse_any_packet (pl.pallas_call of _any_call,
     traverse_packet.py:660)."""

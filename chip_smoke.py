@@ -20,12 +20,14 @@ nor the JAX package (it asserts so at its end). Phases:
      and on the San Miguel proxy at 1280x720, and B4 on the 10 masked
      shadow-ray wavefronts of one 1-spp San Miguel frame at 1280x720, each
      timed beside its bound there;
-   - B5a/B5b (the streamed tier, whose plain versions are B1/B2's) on
-     proc://city?n=60 at 320x180, forced, and on the 6.7M-triangle
+   - B5a/B5b (the streamed tier, whose plain versions are B1/B2's; B5a a
+     per-lane walk held exactly, 0 mismatches and |dt| = |du| = |dv| = 0)
+     on proc://city?n=60 at 320x180, forced, and on the 6.7M-triangle
      proc://city?n=610 at 640x360, which the gate must route to them, any
      hit at both t_max factors on both wavefronts, with B1/B2 timed on the
-     same rays; and B5b on the 10 masked shadow-ray wavefronts of one
-     640x360 city frame;
+     same rays; B5b on the 10 masked shadow-ray wavefronts of one 640x360
+     city frame, and B5a, exactly, on the 5 closest-hit wavefronts of one,
+     each timed beside B1 on the same rays and beside its bound;
    - B5c/B5d (the two-level streamed tier, per-lane walks bit-equal to
      their plain versions, B3/B4's: 0 mismatches and |dt| = |du| = |dv|
      = 0, the gate of every two-level kernel) on
@@ -49,12 +51,13 @@ nor the JAX package (it asserts so at its end). Phases:
      each beside its bound, and logged whether that frame's rays digest
      as those of B4's frame);
    - B7a/B7b (the grid-packet kernels, binary rows only, whose plain
-     versions are B1/B2's on the same binary table) on the hall's binary
-     table: proc://hall?subdiv=2 at 320x180 and the textured hall at
-     1280x720, any hit at both t_max factors on both wavefronts, with B1
-     timed on the same rays on the binary table and on the BVH4 table; and
-     B7b on the 10 masked shadow-ray wavefronts of one 1280x720 hall frame
-     with grid_packet=True;
+     versions are B1/B2's on the same binary table; B7a a per-lane walk
+     held exactly) on the hall's binary table: proc://hall?subdiv=2 at
+     320x180 and the textured hall at 1280x720, any hit at both t_max
+     factors on both wavefronts, with B1 timed on the same rays on the
+     binary table and on the BVH4 table; B7b on the 10 masked shadow-ray
+     wavefronts of one 1280x720 hall frame with grid_packet=True, and B7a,
+     exactly, on the 5 closest-hit wavefronts of one, as B5a;
    - B1-B6d at every arity they take (2, 4 and 8 children a row) on the
      primary wavefronts of the parity scenes at 320x180: B1/B2 and B6a/B6b
      on proc://hall?subdiv=2, B5a/B5b (forced) on proc://city?n=60, B3/B4,
@@ -99,8 +102,9 @@ nor the JAX package (it asserts so at its end). Phases:
    under torch.profiler, which gives where its time goes: device busy
    time, the idle share of the frame, and the device time of the traversal
    kernels and of the largest other rows; every per-lane launch of these
-   BVH4 main paths must have run with the 64-entry stack, every
-   warp-packet one (B5a, B5b, B7a, B7b) with its 128-entry shared stack.
+   main paths (BVH4 tables, and the hall's binary one) must have run with
+   the 64-entry stack, every warp-packet one (B5b, B7b) with its 128-entry
+   shared stack.
 
 A gen://san_miguel URI is this script's own: _load generates the scene
 with the port's scene/pbrt_gen.py (its query string gives the generator's
@@ -214,25 +218,30 @@ def phase_toolchain(torch):
     return smi
 
 
-# a kernel instantiation in ptxas's log: its launch-count key and, for a
-# template on the node rows' arity and stack capacity, those
-# (_ZN12_GLOBAL__N_114closest_kernelILi8ELi64EEEv..., ..._packet_kernelEPKf...)
+# a kernel instantiation in ptxas's log: its launch-count key and its
+# template arguments, the node rows' arity and the stack capacity, or the
+# capacity alone (B7a, binary rows only), or none (B7b)
+# (_ZN12_GLOBAL__N_114closest_kernelILi8ELi64EEEv...,
+# ..._packet_kernelILi64EEvPKf..., ..._packet_kernelEPKf...)
 _PTXAS_KERNEL = re.compile(
     r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent|_packet)?)_kernel"
-    r"(?:ILi(\d)E(?:Li(\d+)E)?)?")
+    r"(?:ILi(\d+)E(?:Li(\d+)E)?)?")
 
 
 def _ptxas_table(log_text):
     """{(launch-count key, arity or None, stack capacity or None):
     {"registers", "spill_stores", "spill_loads", "stack_frame"}} from
-    nvcc's ptxas -v output."""
+    nvcc's ptxas -v output; B7a's instantiations are at arity 2."""
     out, key = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = _PTXAS_KERNEL.search(m.group(1))
-            key = (k.group(1), *(int(g) if g else None for g in k.groups()[1:])) if k else None
-            if key:
+            key = None
+            if k:
+                nums = [int(g) for g in k.groups()[1:] if g]
+                arity = next((n for n in nums if n <= 8), 2 if nums else None)
+                key = (k.group(1), arity, next((n for n in nums if n > 8), None))
                 out[key] = {}
             continue
         if key is None:
@@ -430,15 +439,16 @@ _PATHS = {
 }
 SAME_RAYS = {"stream": "flat", "unified_stream": "unified"}
 TWO_LEVEL = ("unified", "unified_stream", "unified_persistent")
-# the paths whose kernels walk in the plain walk's per-lane order, held to
-# exact agreement: 0 mismatches and |dt| = |du| = |dv| = 0 (B3/B4, B5c/B5d
-# and B6c/B6d, the two-level walks; the flat per-lane kernels keep the JAX
-# bench's gate, which they meet with 0)
-EXACT = ("unified", "unified_stream", "unified_persistent")
-# the paths whose kernels keep a per-lane stack of a capacity the wrapper
-# picks (traverse_cuda.stack_capacity); the others hold MAX_STACK entries a
-# warp in shared memory
-PER_LANE = ("flat", "unified", "unified_stream", "persistent", "unified_persistent")
+# the kernels that walk in the plain walk's per-lane order over
+# traverse_common.cuh's walks, held to exact agreement: 0 mismatches and
+# |dt| = |du| = |dv| = 0 (B3/B4, B5c/B5d and B6c/B6d, the two-level walks,
+# and B5a and B7a, the closest walk over a flat table; B1, B2, B6a and B6b
+# keep the JAX bench's gate, which they meet with 0)
+EXACT = ("B3", "B4", "B5a", "B5c", "B5d", "B6c", "B6d", "B7a")
+# the kernels that keep a per-lane stack of a capacity the wrapper picks
+# (traverse_cuda.stack_capacity); the others (B5b, B7b) hold MAX_STACK
+# entries a warp in shared memory
+PER_LANE = ("B1", "B2", "B3", "B4", "B5a", "B5c", "B5d", "B6a", "B6b", "B6c", "B6d", "B7a")
 # the slot-lane tiers, whose wavefronts phase 3 builds, and the work-queue
 # path that traces the same scenes with the slot-lane tier off
 TIERS = ("flat", "unified", "stream", "unified_stream")
@@ -559,8 +569,8 @@ def _check_queue(torch, path, closest, args, ref, max_stack=False):
     its time at its MAX_STACK instantiation (_time_at_max_stack). B6c/B6d
     meet the gate exactly (EXACT), B6a/B6b the JAX bench's."""
     unified = path in TWO_LEVEL
-    exact = QUEUE[path] in EXACT
     name, kernel, _ = _kernel_pair(QUEUE[path], closest)
+    exact = name in EXACT
 
     def check(call_args, want):
         with _sentinel_outputs(torch):
@@ -628,13 +638,13 @@ def _check_closest(torch, table, path, orig, dirs, t_min, active, label, plain_r
     p = plain(*args, count=count)
     pk = k[1]
     res = {"rays": R, "active": int(active.sum()), "hits": int((pk >= 0).sum()),
-           "overflows": int((pk == -2).sum()), **_closest_agreement(k, p, unified, path in EXACT)}
+           "overflows": int((pk == -2).sum()), **_closest_agreement(k, p, unified, name in EXACT)}
     if unified:
         res["instances_hit"] = int(torch.unique(k[2][pk >= 0]).numel())
     if bound:
         res.update(_bound(table, count, active, 20 if unified else 16))
     res["ms"] = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
-    if bound and path in PER_LANE:
+    if bound and name in PER_LANE:
         _time_at_max_stack(torch, res, kernel, args, k)
     _time_also(torch, res, path, True, args, also)
     if path in QUEUE:
@@ -666,11 +676,11 @@ def _check_any(torch, table, path, orig, dirs, t_closest, active, label, factor,
     count = WalkCount(table) if bound else None
     ok_p = plain(*args, count=count)
     res = {"rays": R, "t_max_factor": factor, "occluded": int(ok_k.sum()),
-           **_any_agreement(ok_k, ok_p, path in EXACT)}
+           **_any_agreement(ok_k, ok_p, name in EXACT)}
     if bound:
         res.update(_bound(table, count, active, 1))
     res["ms"] = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
-    if bound and path in PER_LANE:
+    if bound and name in PER_LANE:
         _time_at_max_stack(torch, res, kernel, args, ok_k)
     _time_also(torch, res, path, False, args, also)
     if path in QUEUE:
@@ -775,6 +785,68 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
     return res
 
 
+# the backend options of the main paths whose closest hit _check_closest_frame
+# holds on a frame's own wavefronts
+_CLOSEST_FRAME = {"stream": {}, "grid_packet": {"grid_packet": True}}
+
+
+def _check_closest_frame(torch, scene, tables, path, W, H):
+    """A flat closest-hit kernel (B5a, B7a) on its main path's own traffic:
+    the 5 closest-hit wavefronts of one W x H frame at one sample per pixel,
+    captured at the kernel's wrapper as the backend calls it (the stream
+    path's gate must route the scene there), each held exactly against the
+    plain walk on the same table and rays, and timed (median of
+    KERNEL_REPS) beside B1 on the same rays and beside its bound there
+    (_bound, from the plain walk's WalkCount)."""
+    from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
+    from chameleonrt_tpu_torch.ops import traverse, traverse_cuda
+
+    name, wrapper, _ = _PATHS[path][0]
+    real = getattr(traverse_cuda, wrapper)
+    calls = []
+
+    def capture(table, *args):
+        out = real(table, *args)
+        calls.append((table, tuple(a.clone() for a in args), tuple(x.clone() for x in out)))
+        return out
+
+    setattr(traverse_cuda, wrapper, capture)
+    try:
+        b = CudaBackend(**_CLOSEST_FRAME[path])
+        b.prepare_scene = lambda _scene: tables
+        b.initialize(W, H)
+        b.set_scene(scene)
+        b.render(*_view(scene), True, readback_framebuffer=False)
+    finally:
+        setattr(traverse_cuda, wrapper, real)
+    res = {"rays": W * H, "calls": len(calls), "active": [], "hits": [], "prim_mismatch": 0,
+           "max_dt_common": 0.0, "max_duv_common": 0.0, "exact": True, "ms": [], "flat_ms": [],
+           "bound_ms": [], "bound_by": []}
+    for table, args, got in calls:
+        walk = traverse.WalkCount(table)
+        want = traverse.traverse_closest(table, *args, count=walk)
+        agree = _closest_agreement(got, want, False, exact=True)
+        res["active"].append(int(args[3].sum()))
+        res["hits"].append(int((want[1] >= 0).sum()))
+        res["prim_mismatch"] += agree["prim_mismatch"]
+        res["max_dt_common"] = max(res["max_dt_common"], agree["max_dt_common"])
+        res["max_duv_common"] = max(res["max_duv_common"], agree["max_duv_common"])
+        res["exact"] = res["exact"] and all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        bound = _bound(table, walk, args[3], 16)
+        res["ms"].append(_median_ms(torch, lambda: real(table, *args), KERNEL_REPS))
+        res["flat_ms"].append(_median_ms(torch, lambda: traverse_cuda.traverse_closest(table, *args),
+                                         KERNEL_REPS))
+        res["bound_ms"].append(bound["bound_ms"])
+        res["bound_by"].append(bound["bound_by"])
+    res.update({f"{k}_sum": sum(res[k]) for k in ("ms", "flat_ms", "bound_ms")})
+    res["ok"] = len(calls) == 5 and res["exact"] and sum(res["hits"]) > 0
+    log(f"[kernels] {name} closest main-path wavefronts, one {W}x{H} frame: {json.dumps(res)}")
+    if not res["ok"]:
+        raise AssertionError(f"{name} differs from the plain walk on the main path's closest-hit "
+                             f"wavefronts: {res}")
+    return res
+
+
 def phase_kernels(torch, path: str):
     """The closest- and any-hit kernels of one path against their plain
     versions on two scenes, with kernel and plain times and, on the main
@@ -853,6 +925,8 @@ def phase_kernels(torch, path: str):
     # the last case is the main path's scene: its tables serve the shadow check
     W, H = (CITY_W, CITY_H) if path == "stream" else (MAIN_W, MAIN_H)
     out["shadow"] = _check_any_shadow(torch, scene, (flat, meta), path, W, H)
+    if path in _CLOSEST_FRAME:
+        out["frame"] = _check_closest_frame(torch, scene, (flat, meta), path, W, H)
     if path in ("flat", "unified"):
         out["queue_shadow"] = q = _check_any_shadow(torch, scene, (flat, meta), QUEUE[path], W, H)
         q["same_rays"] = q["rays_sha256"] == out["shadow"]["rays_sha256"]
@@ -905,6 +979,7 @@ def phase_packet(torch):
               for f in (1.001, 0.999)]
         out = {"closest": (r1, r3), "any": (a1[0], a2[-1]), "any_all": a1 + a2}
     out["shadow"] = _check_any_shadow(torch, scene, (flat, meta), "grid_packet", MAIN_W, MAIN_H)
+    out["frame"] = _check_closest_frame(torch, scene, (flat, meta), "grid_packet", MAIN_W, MAIN_H)
     return out
 
 
@@ -930,7 +1005,7 @@ def phase_arities(torch):
     CHAMELEONRT_WIDE_ARITY=8), each path's closest-hit kernel against the
     plain closest hit on the same table, and its any-hit kernel against the
     plain any hit at t_max = 1.001 x that hit, under the gates of phase 3
-    (the two-level kernels exact). Returns {label: {arity: {"max_abs_err", "mismatch",
+    (EXACT's kernels exact). Returns {label: {arity: {"max_abs_err", "mismatch",
     "ms"}}}: the worst |dt| (closest hit) or flag difference (any hit) over
     the scenes of the kernel."""
     from chameleonrt_tpu_torch.ops.intersect import T_MAX
@@ -961,10 +1036,10 @@ def phase_arities(torch):
                     got = kernel(*args)
                     torch.cuda.synchronize()
                     if closest:
-                        agree = _closest_agreement(got, p, path in TWO_LEVEL, path in EXACT)
+                        agree = _closest_agreement(got, p, path in TWO_LEVEL, name in EXACT)
                         err, mism = agree["max_dt_common"], agree["prim_mismatch"]
                     else:
-                        agree = _any_agreement(got, occ_p, path in EXACT)
+                        agree = _any_agreement(got, occ_p, name in EXACT)
                         err, mism = agree["max_abs_err"], agree["occ_mismatch"]
                     ms = _median_ms(torch, lambda: kernel(*args), KERNEL_REPS)
                     line[name] = {"max_abs_err": err, "mismatch": mism, "ms": ms}
@@ -1052,7 +1127,7 @@ def phase_bvh8(torch):
                 before = _snapshot_stacks()
                 got = kernel(*args)
                 torch.cuda.synchronize()
-                exact = path in EXACT
+                exact = name in EXACT
                 agree = (_closest_agreement(got, p, path in TWO_LEVEL, exact) if closest
                          else _any_agreement(got, occ_p, exact))
                 res[name] = {**agree, "stack_launches": _stack_launches(before),
@@ -1263,10 +1338,11 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     want = {k: expect.get(k, 0) * n_frames for k in launches}
     if launches != want:
         raise AssertionError(f"expected {want} launches over {n_frames} frames, got {launches}")
-    # the BVH4 tables keep the 64-entry per-lane stacks; the warp-packet
-    # kernels hold MAX_STACK entries a warp in shared memory
-    want_cap = {k: {128 if k in ("closest_stream", "any_stream", "closest_packet", "any_packet")
-                    else 64: n} for k, n in launches.items() if n}
+    # the BVH4 tables and the hall's binary one keep the 64-entry per-lane
+    # stacks; the warp-packet kernels hold MAX_STACK entries a warp in shared
+    # memory
+    want_cap = {k: {128 if k in ("any_stream", "any_packet") else 64: n}
+                for k, n in launches.items() if n}
     if stacks != want_cap:
         raise AssertionError(f"expected launches by stack capacity {want_cap}, got {stacks}")
     accum = backend._accum
@@ -1397,6 +1473,14 @@ def main() -> int:
         return {k: res[k] for k in ("masked_in", "occluded", "ms", "ms_sum", "bound_ms",
                                     "bound_ms_sum", "bound_by")}
 
+    def frame(res):
+        """A flat closest-hit kernel on one main-path frame's 5 closest-hit
+        wavefronts (_check_closest_frame): per call and summed, B1 on the
+        same rays beside it."""
+        return {k: res[k] for k in ("active", "prim_mismatch", "max_dt_common", "exact", "ms",
+                                    "ms_sum", "flat_ms", "flat_ms_sum", "bound_ms",
+                                    "bound_ms_sum", "bound_by")}
+
     kernels = []
     slotlane = "chameleonrt_tpu/ops/traverse_slotlane.py"
     for name, path, key, src, replaces in (
@@ -1428,13 +1512,15 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": f"chameleonrt_tpu_torch/csrc/{src}",
             "replaces": replaces, "max_abs_err": err, **shared(path, count, primary, bounce),
-            "stack_capacities": list(STACK_CAPACITIES) if path in PER_LANE else [STACK_CAPACITIES[-1]],
+            "stack_capacities": list(STACK_CAPACITIES) if label in PER_LANE else [STACK_CAPACITIES[-1]],
             "arities": arities(label, count, err),
         }
         if label in bvh8:
             entry["bvh8"] = bvh8[label]
         if key == "any" and path in TWO_LEVEL:
             entry["shadow"] = shadow(kres[path]["shadow"])
+        if key == "closest" and path in _CLOSEST_FRAME:
+            entry["main_path_frame"] = frame(kres[path]["frame"])
         if path in SAME_RAYS:  # the unstreamed kernels on the same wavefronts
             other = SAME_RAYS[path]
             entry[f"{other}_kernel_ms"] = primary[f"{other}_ms"]
@@ -1509,19 +1595,25 @@ def main() -> int:
         if key == "any":
             err = max(err, float(pres["shadow"]["occ_mismatch"] > 0))
         count = f"{key}_packet"
+        label = name.split()[0]
+        per_lane = label in PER_LANE
         entry = {
             "name": name, "route": "cuda", "source": "chameleonrt_tpu_torch/csrc/traverse_packet.cu",
             "replaces": replaces, "max_abs_err": err, **shared("grid_packet", count, primary, bounce),
-            "stack_capacities": [STACK_CAPACITIES[-1]],
+            "stack_capacities": list(STACK_CAPACITIES) if per_lane else [STACK_CAPACITIES[-1]],
             "flat_binary_kernel_ms": primary["flat_binary_ms"],
             "flat_binary_kernel_bounce_ms": bounce["flat_binary_ms"],
             "flat_kernel_ms": primary["flat_ms"], "flat_kernel_bounce_ms": bounce["flat_ms"],
             "mismatch": [r.get("prim_mismatch", r.get("occ_mismatch")) for r in checked],
-            **ptxas.get((count, None, None), {}),
         }
+        if per_lane:  # binary rows: its instantiations at arity 2
+            entry.update({f"stack{cap}": ptxas[count, 2, cap] for cap in STACK_CAPACITIES})
+        else:
+            entry.update(ptxas.get((count, None, None), {}))
         if key == "closest":
             for kind in ("kernel_only_hits", "tied_t_mismatch", "kernel_nearer", "plain_nearer"):
                 entry[kind] = [r[kind] for r in checked]
+            entry["main_path_frame"] = frame(pres["frame"])
         kernels.append(entry)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(build {build_s:.1f} s)")

@@ -1,29 +1,38 @@
 #!/usr/bin/env python3
-"""Time the two-level traversal kernels of several checkouts in turns on one GPU.
+"""Time the traversal kernels of several checkouts in turns on one GPU.
 
     python3 scripts/kernel_turns.py --out chiprun_out/turns.json TREE [TREE ...]
 
 Each TREE is a checkout of this repository (a `git archive` of a commit, or
 a copy with its csrc/ edited). The wavefronts are made once, by this
-checkout's chip_smoke.py helpers: sorted primary rays and diffuse-bounce
-rays at 1280x720 on the San Miguel proxy, the large San Miguel proxy and a
-576-instance grid, and on the San Miguel proxy also the two masked shadow-ray
-wavefronts (light samples, bsdf samples) of the first bounce of one 1-spp
-1280x720 frame, captured as chip_smoke.py captures a main path's shadow rays
-(any hit only), with the plain walk's results on each. Then one worker
-process a tree builds that tree's kernels and binds them through that
-tree's own wrappers, checks its six two-level kernels (B3, B4, B5c, B5d,
-B6c, B6d) against the plain results bit for bit, and times them when asked.
-The trees are visited in turns, 1-2-...-n-n-...-2-1, for --rounds rounds;
-each visit takes the median of --reps CUDA-event timings of every kernel
-on every wavefront after a warmup, and the result is the mean of a tree's
-medians with their range. A tree that fails its check is reported and not
-timed. Any hit runs at t_max = 1.001 x the closest hit on primary rays and
-0.999 x on bounce rays, as chip_smoke.py's bounds do, and on the shadow
-wavefronts at their own t_max and mask.
+checkout's chip_smoke.py helpers, with the plain walk's results on each:
+- two-level tables: sorted primary rays and diffuse-bounce rays at
+  1280x720 on the San Miguel proxy, the large San Miguel proxy and a
+  576-instance grid, and on the San Miguel proxy also the two masked
+  shadow-ray wavefronts (light samples, bsdf samples) of the first bounce
+  of one 1-spp 1280x720 frame, captured as chip_smoke.py captures a main
+  path's shadow rays (any hit only); kernels B3, B4, B5c, B5d, B6c, B6d;
+- flat tables: sorted primary and diffuse-bounce rays on the city
+  proc://city?n=610 at 640x360 (its BVH4 table, 10x the L2: B5a, B5b and
+  B1 on the same rays) and on the textured hall at 1280x720 (its binary
+  table: B7a, B7b and B1 on the same rays).
+--tables picks one of the two sets or both. Then one worker process a tree
+builds that tree's kernels and binds them through that tree's own
+wrappers, checks every kernel against the plain results, and times them
+when asked. The check holds the per-lane kernels (B1, B3, B4, B5c, B5d,
+B6c, B6d) bit for bit; B5a, B5b, B7a and B7b must meet the JAX bench's gate
+(prim or occlusion mismatches <= max(2, R / 50000), |dt|, |du|, |dv| <=
+1e-5), and whether they are bit-equal is reported beside it. The trees are
+visited in turns, 1-2-...-n-n-...-2-1, for --rounds rounds; each visit
+takes the median of --reps CUDA-event timings of every kernel on every
+wavefront after a warmup, and the result is the mean of a tree's medians
+with their range. A tree that fails its check is reported and not timed.
+Any hit runs at t_max = 1.001 x the closest hit on primary rays and 0.999 x
+on bounce rays, as chip_smoke.py's bounds do, and on the shadow wavefronts
+at their own t_max and mask.
 
 Prints a table and writes every median, each tree's ptxas registers and
-spills of those kernels, and the card's name and power limit to --out.
+spills, and the card's name and power limit to --out.
 """
 
 from __future__ import annotations
@@ -39,14 +48,25 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRID_576 = "proc://instances?nx=24&ny=24"
 BUILD_AT_ONCE = 3
-KERNELS = {  # label: (wrapper, closest hit?)
-    "B3": ("traverse_closest_unified", True),
-    "B5c": ("traverse_closest_unified_stream", True),
-    "B6c": ("traverse_closest_unified_persistent", True),
-    "B4": ("traverse_any_unified", False),
-    "B5d": ("traverse_any_unified_stream", False),
-    "B6d": ("traverse_any_unified_persistent", False),
+KERNELS = {  # label: (wrapper, closest hit?, the tables it traces)
+    "B3": ("traverse_closest_unified", True, ("two_level",)),
+    "B5c": ("traverse_closest_unified_stream", True, ("two_level",)),
+    "B6c": ("traverse_closest_unified_persistent", True, ("two_level",)),
+    "B4": ("traverse_any_unified", False, ("two_level",)),
+    "B5d": ("traverse_any_unified_stream", False, ("two_level",)),
+    "B6d": ("traverse_any_unified_persistent", False, ("two_level",)),
+    "B1": ("traverse_closest", True, ("bvh4", "binary")),
+    "B5a": ("traverse_closest_stream", True, ("bvh4",)),
+    "B5b": ("traverse_any_stream", False, ("bvh4",)),
+    "B7a": ("traverse_closest_packet", True, ("binary",)),
+    "B7b": ("traverse_any_packet", False, ("binary",)),
 }
+# the kernels held to the JAX bench's gate, not bit for bit: warp packets
+# in some tree (bit-equality is reported beside the gate)
+GATED = ("B5a", "B5b", "B7a", "B7b")
+# the table kinds of each --tables choice
+TABLE_SETS = {"two_level": ("two_level",), "flat": ("bvh4", "binary"),
+              "all": ("two_level", "bvh4", "binary")}
 
 # One tree's worker: builds and binds the tree's kernels, then answers one
 # JSON command a line on stdin with one JSON line on stdout.
@@ -56,7 +76,7 @@ tree, cases_path = sys.argv[1], sys.argv[2]
 sys.path.insert(0, tree)
 import torch
 from chameleonrt_tpu_torch import _build
-from chameleonrt_tpu_torch.engine.device_scene import UnifiedBvh
+from chameleonrt_tpu_torch.engine.device_scene import PackedBvh, UnifiedBvh
 from chameleonrt_tpu_torch.ops import traverse_cuda
 import chip_smoke
 
@@ -69,97 +89,131 @@ _build.kernels()
 build_s = time.perf_counter() - t0
 with open(_build.kernel_library_path()[: -len(".so")] + ".log") as f:
     ptxas = chip_smoke._ptxas_table(f.read())
-ptxas = {"@".join(map(str, k)): v for k, v in ptxas.items() if "unified" in k[0]}
+ptxas = {"@".join(map(str, k)): v for k, v in ptxas.items()}
 saved = torch.load(cases_path)
-tables = {k: UnifiedBvh(**{f: v.cuda() if torch.is_tensor(v) else v for f, v in t.items()})
-          for k, t in saved["tables"].items()}
+tables = {}
+for k, t in saved["tables"].items():
+    fields = {f: v.cuda() if torch.is_tensor(v) else v for f, v in t["fields"].items()}
+    tables[k] = (UnifiedBvh if t["kind"] == "two_level" else PackedBvh)(**fields), t["kind"]
 cases = {}
 for name, c in saved["cases"].items():
-    table = tables[c["scene"]]
-    cases[name] = {kind: ((table,) + tuple(x.cuda() for x in c[kind]),
-                          tuple(x.cuda() for x in c["want_" + kind]))
-                   for kind in ("closest", "any") if kind in c}
+    table, kind = tables[c["scene"]]
+    cases[name] = (kind, {hit: ((table,) + tuple(x.cuda() for x in c[hit]),
+                                tuple(x.cuda() for x in c["want_" + hit]))
+                          for hit in ("closest", "any") if hit in c})
+del saved
+
+def calls(kernels):
+    for label, (wrapper, closest, kinds) in kernels.items():
+        fn = getattr(traverse_cuda, wrapper)
+        hit = "closest" if closest else "any"
+        for name, (kind, c) in cases.items():
+            if kind in kinds and hit in c:
+                yield f"{label}@{name}", fn, closest, kind, c[hit]
+
 reply({"ready": True, "build_s": build_s, "ptxas": ptxas})
 for line in sys.stdin:
     cmd = json.loads(line)
     if cmd["op"] == "check":
         out = {}
-        for label, (wrapper, closest) in cmd["kernels"].items():
-            fn = getattr(traverse_cuda, wrapper)
-            kind = "closest" if closest else "any"
-            for name, c in cases.items():
-                if kind in c:
-                    args, want = c[kind]
-                    got = fn(*args)
-                    got = got if closest else (got,)
-                    out[f"{label}@{name}"] = all(torch.equal(g, w) for g, w in zip(got, want))
+        for key, fn, closest, kind, (args, want) in calls(cmd["kernels"]):
+            got = fn(*args)
+            got = got if closest else (got,)
+            torch.cuda.synchronize()
+            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            agree = (chip_smoke._closest_agreement(got, want, kind == "two_level") if closest
+                     else chip_smoke._any_agreement(got[0], want[0]))
+            out[key] = {"exact": exact, "gate": agree["ok"],
+                        "mismatch": agree.get("prim_mismatch", agree.get("occ_mismatch"))}
         reply(out)
     elif cmd["op"] == "time":
         out = {}
-        for label, (wrapper, closest) in cmd["kernels"].items():
-            fn = getattr(traverse_cuda, wrapper)
-            kind = "closest" if closest else "any"
-            for name, c in cases.items():
-                if kind in c:
-                    args = c[kind][0]
-                    out[f"{label}@{name}"] = chip_smoke._median_ms(torch, lambda: fn(*args), cmd["reps"])
+        for key, fn, _, _, (args, _) in calls(cmd["kernels"]):
+            out[key] = chip_smoke._median_ms(torch, lambda: fn(*args), cmd["reps"])
         reply(out)
     else:
         break
 """
 
 
-def _cases(torch, path):
-    """Make the wavefronts and the plain results, and save them (on the CPU)
-    at path: {"tables": {scene: UnifiedBvh fields}, "cases": {case: {"scene",
-    "closest", "any", "want_closest", "want_any"}}}."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
-    from chameleonrt_tpu_torch.ops import traverse
+def _save_table(torch, tables, name, kind, table):
+    tables[name] = {"kind": kind, "fields": {k: v.cpu() if torch.is_tensor(v) else int(v)
+                                             for k, v in table._asdict().items()}}
+
+
+def _closest_and_any(torch, out, scene_name, table, closest, any_, orig, dirs, t_min, active, kind,
+                     factor):
+    """One wavefront's case: the plain closest hit, then the plain any hit at
+    t_max = factor x that hit (100 on a miss). Returns the plain closest
+    result."""
     from chameleonrt_tpu_torch.ops.intersect import T_MAX
     from chameleonrt_tpu_torch.ops.math import EPSILON
 
+    R = orig.shape[0]
+    t_max = torch.full((R,), T_MAX, device="cuda")
+    want = closest(table, orig, dirs, t_min, active, t_max)
+    t_any = torch.where(want[0] < 1e19, want[0] * factor, torch.full_like(want[0], 100.0))
+    any_args = (orig, dirs, torch.full((R,), EPSILON, device="cuda"), t_any, active)
+    want_any = any_(table, *any_args)
+    out[f"{scene_name}_{kind}"] = {
+        "scene": scene_name,
+        "closest": tuple(x.cpu() for x in (orig, dirs, t_min, active, t_max)),
+        "any": tuple(x.cpu() for x in any_args),
+        "want_closest": tuple(x.cpu() for x in want), "want_any": (want_any.cpu(),)}
+    print(f"[cases] {scene_name} {kind}: {R} rays, {int(active.sum())} active, "
+          f"{int((want[1] >= 0).sum())} hits, {int(want_any.sum())} occluded", flush=True)
+    return want
+
+
+def _cases(torch, path, kinds):
+    """Make the wavefronts of the table kinds asked for and the plain
+    results, and save them (on the CPU) at path: {"tables": {scene:
+    {"kind", "fields"}}, "cases": {case: {"scene", "closest", "any",
+    "want_closest", "want_any"}}}."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from chameleonrt_tpu_torch.ops import traverse
+    from chameleonrt_tpu_torch.ops.math import EPSILON
+
     tables, out = {}, {}
-    for scene_name, uri in (("san_miguel", cs.SAN_MIGUEL), ("large_proxy", cs.SAN_MIGUEL_LARGE),
-                            ("grid576", GRID_576)):
+    scenes = []
+    if "two_level" in kinds:
+        scenes += [("san_miguel", cs.SAN_MIGUEL, "two_level", cs.MAIN_W, cs.MAIN_H),
+                   ("large_proxy", cs.SAN_MIGUEL_LARGE, "two_level", cs.MAIN_W, cs.MAIN_H),
+                   ("grid576", GRID_576, "two_level", cs.MAIN_W, cs.MAIN_H)]
+    if "bvh4" in kinds:
+        scenes.append(("city", cs.CITY_SCENE, "bvh4", cs.CITY_W, cs.CITY_H))
+    if "binary" in kinds:
+        scenes.append(("hall", cs.HALL_SCENE, "binary", cs.MAIN_W, cs.MAIN_H))
+    for scene_name, uri, kind, W, H in scenes:
         scene, flat, meta = cs._scene_tables(torch, uri)
-        table = flat.blas[0].any
-        tables[scene_name] = {k: v.cpu() if torch.is_tensor(v) else int(v)
-                              for k, v in table._asdict().items()}
-        orig, dirs, active = cs._primary_wavefront(torch, scene, cs.MAIN_W, cs.MAIN_H)
+        two_level = kind == "two_level"
+        table = flat.blas[0].closest if kind == "binary" else flat.blas[0].any
+        closest = traverse.traverse_closest_unified if two_level else traverse.traverse_closest
+        any_ = traverse.traverse_any_unified if two_level else traverse.traverse_any
+        _save_table(torch, tables, scene_name, kind, table)
+        orig, dirs, active = cs._primary_wavefront(torch, scene, W, H)
         R = orig.shape[0]
-        t_min = torch.zeros((R,), device="cuda")
-        for kind, factor in (("primary", 1.001), ("bounce", 0.999)):
-            t_max = torch.full((R,), T_MAX, device="cuda")
-            want = traverse.traverse_closest_unified(table, orig, dirs, t_min, active, t_max)
-            t_any = torch.where(want[0] < 1e19, want[0] * factor, torch.full_like(want[0], 100.0))
-            eps = torch.full((R,), EPSILON, device="cuda")
-            any_args = (orig, dirs, eps, t_any, active)
-            want_any = traverse.traverse_any_unified(table, *any_args)
-            out[f"{scene_name}_{kind}"] = {
-                "scene": scene_name,
-                "closest": tuple(x.cpu() for x in (orig, dirs, t_min, active, t_max)),
-                "any": tuple(x.cpu() for x in any_args),
-                "want_closest": tuple(x.cpu() for x in want), "want_any": (want_any.cpu(),)}
-            print(f"[cases] {scene_name} {kind}: {R} rays, {int(active.sum())} active, "
-                  f"{int((want[1] >= 0).sum())} hits, {int(want_any.sum())} occluded", flush=True)
-            if kind == "primary":
-                orig, dirs, active = cs._bounce_wavefront(torch, flat, orig, dirs, want[0], want[1],
-                                                          want[2])
-                t_min = torch.full((R,), EPSILON, device="cuda")
+        want = _closest_and_any(torch, out, scene_name, table, closest, any_, orig, dirs,
+                                torch.zeros((R,), device="cuda"), active, "primary", 1.001)
+        orig, dirs, active = cs._bounce_wavefront(torch, flat, orig, dirs, want[0], want[1],
+                                                  want[2] if two_level else None)
+        _closest_and_any(torch, out, scene_name, table, closest, any_, orig, dirs,
+                         torch.full((R,), EPSILON, device="cuda"), active, "bounce", 0.999)
         if scene_name == "san_miguel":  # any hit only: the first bounce's two shadow wavefronts
             _, calls = cs._shadow_calls(torch, scene, (flat, meta), cs.MAIN_W, cs.MAIN_H,
                                         use_kernels=False)
-            for kind, (o, d, t_max, mask, occ) in zip(("shadow_light", "shadow_bsdf"), calls):
+            for shadow, (o, d, t_max, mask, occ) in zip(("shadow_light", "shadow_bsdf"), calls):
                 any_args = (o, d, torch.full_like(t_max, EPSILON), t_max, mask)
                 want_any = traverse.traverse_any_unified(table, *any_args)
                 assert torch.equal(want_any, occ)
-                out[f"{scene_name}_{kind}"] = {"scene": scene_name,
-                                               "any": tuple(x.cpu() for x in any_args),
-                                               "want_any": (want_any.cpu(),)}
-                print(f"[cases] {scene_name} {kind}: {o.shape[0]} rays, {int(mask.sum())} masked "
-                      f"in, {int(want_any.sum())} occluded", flush=True)
-        del cs._TABLES[uri, 4, 4]
+                out[f"{scene_name}_{shadow}"] = {"scene": scene_name,
+                                                 "any": tuple(x.cpu() for x in any_args),
+                                                 "want_any": (want_any.cpu(),)}
+                print(f"[cases] {scene_name} {shadow}: {o.shape[0]} rays, {int(mask.sum())} "
+                      f"masked in, {int(want_any.sum())} occluded", flush=True)
+        del cs._TABLES[uri, 4, 4], scene, flat, meta, table
+        torch.cuda.empty_cache()
     torch.save({"tables": tables, "cases": out}, path)
     return sorted(out)
 
@@ -196,7 +250,11 @@ def main() -> int:
     ap.add_argument("--out", required=True, help="JSON file for every median")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--tables", choices=sorted(TABLE_SETS), default="all",
+                    help="the wavefronts: two-level tables, flat tables, or both")
     args = ap.parse_args()
+    kinds = TABLE_SETS[args.tables]
+    kernels = {label: k for label, k in KERNELS.items() if set(k[2]) & set(kinds)}
     import torch
 
     if not torch.cuda.is_available():
@@ -209,9 +267,9 @@ def main() -> int:
     names = [os.path.basename(t.rstrip("/")) for t in trees]
     tmp = tempfile.mkdtemp(prefix="kernel_turns_")
     cases_path = os.path.join(tmp, "cases.pt")
-    cases = _cases(torch, cases_path)
+    cases = _cases(torch, cases_path, kinds)
     torch.cuda.empty_cache()
-    result = {"device": smi, "trees": names, "cases": cases, "rounds": args.rounds,
+    result = {"device": smi, "trees": names, "tables": args.tables, "cases": cases, "rounds": args.rounds,
               "reps": args.reps, "build": {}, "check": {}, "medians": {}}
     workers, live = [], []
     try:
@@ -223,23 +281,27 @@ def main() -> int:
             for name, w in batch:
                 try:
                     ready = w.ask()
-                    check = w.ask({"op": "check", "kernels": KERNELS})
+                    check = w.ask({"op": "check", "kernels": kernels})
                 except RuntimeError as e:  # a build or a launch that failed
                     result["build"][name] = {"error": str(e)}
                     print(f"[check] {name}: {e}", flush=True)
                     continue
                 result["build"][name] = ready
                 result["check"][name] = check
-                bad = sorted(k for k, ok in check.items() if not ok)
+                bad = sorted(k for k, c in check.items()
+                             if not (c["gate"] if k.split("@")[0] in GATED else c["exact"]))
+                gated = sorted(k for k, c in check.items() if not c["exact"])
                 print(f"[check] {name}: built in {ready['build_s']:.1f} s; "
-                      f"{'bit-equal to plain everywhere' if not bad else 'DIFFERS on ' + ', '.join(bad)}",
+                      f"{'passes' if not bad else 'FAILS on ' + ', '.join(bad)}; "
+                      f"bit-equal to plain {'everywhere' if not gated else 'except ' + ', '.join(gated)}"
+                      f" ({json.dumps({k: c['mismatch'] for k, c in check.items() if not c['exact']})})",
                       flush=True)
                 if not bad:
                     live.append((name, w))
         order = live + live[::-1]
         for r in range(args.rounds):
             for name, w in order:
-                got = w.ask({"op": "time", "kernels": KERNELS, "reps": args.reps})
+                got = w.ask({"op": "time", "kernels": kernels, "reps": args.reps})
                 for key, ms in got.items():
                     result["medians"].setdefault(name, {}).setdefault(key, []).append(ms)
             print(f"[turns] round {r + 1} of {args.rounds} done", flush=True)
@@ -254,7 +316,7 @@ def main() -> int:
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
-    for label in KERNELS:
+    for label in kernels:
         print(f"[{label}] mean of medians, ms [range], by case:")
         for name in summary:
             cells = [f"{c}: {summary[name][f'{label}@{c}']['mean']:.4f} "

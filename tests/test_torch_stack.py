@@ -105,8 +105,7 @@ WRAPPERS = {
     "traverse_closest_packet": ("closest_packet", "crt_traverse_closest_packet", True, "binary"),
     "traverse_any_packet": ("any_packet", "crt_traverse_any_packet", False, "binary"),
 }
-SHARED_STACK = ("traverse_closest_stream", "traverse_any_stream", "traverse_closest_packet",
-                "traverse_any_packet")
+SHARED_STACK = ("traverse_any_stream", "traverse_any_packet")
 
 
 def _table_for(tables, kind, arity=4):
@@ -195,7 +194,7 @@ def test_c_entries_get_the_capacity_and_shared_rows(tables, name, depth, monkeyp
     """On a device other than the CPU each wrapper calls its C entry with
     as many arguments as its binding declares: after the depth, a per-lane
     kernel's stack capacity (64 at depth 64, 128 at 65), the warp-packet
-    kernels' (B5a, B5b, B7a, B7b) none. The launch counts move by one,
+    kernels' (B5b, B7b) none. The launch counts move by one,
     under the capacity the launch ran with (MAX_STACK for the warp-packet
     kernels)."""
     key, entry, _, kind = WRAPPERS[name]

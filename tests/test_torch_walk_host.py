@@ -21,6 +21,17 @@ left early; and on a table whose certified bound is cut so far that the walk
 overflows, which gives prim = -2 or occluded, with and without masked-out
 lanes.
 
+The same closest walk over a flat table (FlatRows: B5a in
+csrc/traverse_stream.cu, and B7a in csrc/traverse_packet.cu at arity 2) must
+equal ops/traverse.py's traverse_closest bit for bit: t, prim, u and v on
+the flat parity hall (proc://hall?subdiv=2) at arities 2, 4 and 8 and leaf
+sizes 4 and 5, on primary rays, bounce rays and primary rays whose t_max
+stops half of them short of their hit, at both stack capacities with the
+node loop left early; on an overflow (prim = -2, t = 1e20, and the u, v of
+the nearest hit the walk found on, as the plain walk keeps them), with and
+without inactive lanes; and on one-leaf tables, which the walk starts at
+leaf 0.
+
 This is the walk's logic on the host, not the kernel: chip_smoke.py holds
 the kernels themselves to the plain walk on the card.
 """
@@ -48,6 +59,7 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.skipif(native.get_lib() is None, reason="native SAH library unavailable")
 
 PARITY = "proc://instances?nx=4&ny=4&subdiv=2"
+FLAT_PARITY = "proc://hall?subdiv=2"
 W, H = 64, 40
 ARITIES = (2, 4, 8)
 LEAVES = (4, 5)
@@ -104,9 +116,31 @@ static void any_all(const float* nodes, const float* leaf_rows, int n_tri, int t
   for (int i = 0; i < R; ++i) any_ray<A, S>(t, depth, orig, dir, t_min, t_max, mask, occluded, i);
 }
 
+// B5a's and B7a's kernels (csrc/traverse_stream.cu, traverse_packet.cu): the
+// same closest walk over a flat table
+template <int A, int S>
+static void flat_closest_all(const float* nodes, const float* leaf_rows, int n_leaves, int L,
+                             int depth, const float* orig, const float* dir, const float* t_min,
+                             const float* t_max, const uint8_t* active, float* t_out,
+                             int* prim_out, float* u_out, float* v_out, int R) {
+  const FlatRows<A> t{{nodes, leaf_rows, n_leaves, 0, L}};
+  for (int i = 0; i < R; ++i)
+    closest_ray<A, S>(t, depth, orig, dir, t_min, t_max, active, t_out, prim_out, nullptr, u_out,
+                      v_out, i);
+}
+
 extern "C" {
 
 unsigned activemask_calls() { return crt_calls; }
+
+int walk_flat_closest(const float* nodes, const float* leaf_rows, int n_leaves, int arity, int L,
+                      int depth, int cap, const float* orig, const float* dir, const float* t_min,
+                      const float* t_max, const uint8_t* active, float* t_out, int* prim_out,
+                      float* u_out, float* v_out, int R) {
+  CRT_BY_ARITY_STACK(arity, cap, depth, flat_closest_all<A, S>(
+      nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, active, t_out, prim_out,
+      u_out, v_out, R));
+}
 
 int walk_closest(const float* nodes, const float* leaf_rows, int n_tri, int tlas_lo, int arity,
                  int L, int depth, int cap, const float* orig, const float* dir,
@@ -334,3 +368,127 @@ def test_overflow_gives_prim_minus_two_and_occluded(walks, scene, arity, masked)
     assert torch.equal(occ, occ_want) and bool(occ[over].all())
     if masked:
         assert not bool(occ[~active].any()) and bool((want[1][~active] == -1).all())
+
+
+@pytest.fixture(scope="module")
+def flat_scene():
+    return load_scene(FLAT_PARITY)
+
+
+def _flat_table(scene, arity, leaf):
+    """The flat parity hall's table of the given arity (2: the binary
+    closest-hit table, which B7a takes) at leaf size leaf."""
+    flat, table = _table(scene, arity, leaf)
+    assert isinstance(table, tds.PackedBvh)
+    return flat, table
+
+
+def _flat_closest(walks, table, orig, dirs, t_min, active, t_max, cap):
+    R = orig.shape[0]
+    t, u, v = (torch.empty((R,)) for _ in range(3))
+    prim = torch.empty((R,), dtype=torch.int32)
+    depth = traverse_cuda.stack_depth(table)
+    err = walks.walk_flat_closest(_ptr(table.nodes), _ptr(table.leaf_rows), table.num_leaves,
+                                  table.arity, table.leaf_size, depth, cap,
+                                  *map(_ptr, (orig, dirs, t_min, t_max, active, t, prim, u, v)), R)
+    assert err == 0
+    return t, prim, u, v
+
+
+@pytest.mark.parametrize("rays", ["primary", "bounce", "capped"])
+@pytest.mark.parametrize("leaf", LEAVES)
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_walk_equals_the_plain_walk_bit_for_bit(walks, flat_scene, arity, leaf, rays):
+    """closest_two_level over FlatRows (B5a's and B7a's walk) against
+    plain.traverse_closest on the same flat table and rays: t, prim, u and
+    v equal bit for bit at the 64- and 128-entry stack capacities, on
+    primary rays, on bounce rays from their hits, and on primary rays whose
+    t_max is 0.999 x the hit on every other lane (those lanes then miss);
+    the walk took one __activemask call per node row of the plain walk, at
+    least 3, so that the shim had it leave the node loop early."""
+    _, table = _flat_table(flat_scene, arity, leaf)
+    orig, dirs, t_min, active = _primary(flat_scene)
+    R = orig.shape[0]
+    t_max = torch.full((R,), 1e20)
+    if rays != "primary":
+        t, prim, _, _ = plain.traverse_closest(table, orig, dirs, t_min, active, t_max)
+        if rays == "bounce":
+            orig, dirs, t_min, active = _bounce(orig, dirs, t, prim)
+        else:
+            t_max = torch.where((torch.arange(R) % 2 == 0) & (prim >= 0), t * 0.999, t_max)
+    count = plain.WalkCount(table)
+    want = plain.traverse_closest(table, orig, dirs, t_min, active, t_max, count=count)
+    before = walks.activemask_calls()
+    _assert_bit_equal(_flat_closest(walks, table, orig, dirs, t_min, active, t_max, 64), want)
+    _assert_bit_equal(_flat_closest(walks, table, orig, dirs, t_min, active, t_max, 128), want)
+    calls = (walks.activemask_calls() - before) % 2**32
+    node_visits = int(count.visits[0])
+    assert calls == 2 * node_visits and node_visits >= 3
+    hits = want[1] >= 0
+    assert int(hits.sum()) > 50
+    if rays == "capped":  # the capped lanes stop short of their hit
+        assert not bool(hits[::2].any()) and int(hits[1::2].sum()) > 50
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_overflow_gives_prim_minus_two_and_the_plain_walks_uv(walks, flat_scene, arity,
+                                                                   masked):
+    """A certified depth of 2 makes the flat walk's stack 3 entries deep: a
+    push onto a full stack is dropped and the walk goes on, as the plain
+    walk's does, and the lane reports prim = -2 and t = 1e20 with the u, v
+    of the nearest hit it found, bit for bit as the plain walk; masked: a
+    seeded half of the lanes inactive, which stay (1e20, -1, 0, 0)."""
+    _, table = _flat_table(flat_scene, arity, 4)
+    table = table._replace(max_depth=2)
+    assert traverse_cuda.stack_depth(table) == plain.stack_limit(table) == 3
+    orig, dirs, t_min, active = _primary(flat_scene)
+    if masked:
+        active = torch.from_numpy(np.random.default_rng(5).random(orig.shape[0]) < 0.5)
+    t_max = torch.full((orig.shape[0],), 1e20)
+    want = plain.traverse_closest(table, orig, dirs, t_min, active, t_max)
+    _assert_bit_equal(_flat_closest(walks, table, orig, dirs, t_min, active, t_max, 64), want)
+    over = want[1] == -2
+    assert int(over.sum()) > 0 and bool((want[0][over] == 1e20).all())
+    assert bool((want[2][over] != 0).any())  # the u of a hit found after the overflow
+    if masked:
+        off = ~active
+        assert bool((want[1][off] == -1).all() and (want[2][off] == 0).all())
+
+
+@pytest.mark.parametrize("leaf", LEAVES)
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_walk_on_a_one_leaf_table(walks, flat_scene, arity, leaf):
+    """A table of one leaf (three triangles, the native build's leaf row)
+    starts the walk at leaf 0, never at a node row: its one node row is
+    replaced by empty slots (boxes at 1e30, which every ray misses), and
+    the walk equals the plain walk bit for bit on seeded rays aimed at the
+    triangles, a quarter of them inactive, with hits."""
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("CHAMELEONRT_LEAF_SIZE", str(leaf))
+        mp.setenv("CHAMELEONRT_WIDE_ARITY", "8" if arity == 8 else "4")
+        flat, meta = tds.build_device_scene(flat_scene, torch.device("cpu"))
+        v0, e1, e2 = ttb.host_triangles(flat)
+        nodes2, nodes_w, leaf_rows, depth2, stack_w = ttb._native_build(
+            v0[:3], e1[:3], e2[:3], leaf, ttb.wide_arity())
+    finally:
+        mp.undo()
+    nodes = np.full_like(nodes2 if arity == 2 else nodes_w, 1e30)
+    table = tds.PackedBvh(torch.as_tensor(nodes), torch.as_tensor(leaf_rows),
+                          depth2 if arity == 2 else stack_w)
+    assert table.num_leaves == 1 and table.arity == arity and table.leaf_size == leaf
+    rng = np.random.default_rng(7)
+    R = 512
+    centre = (v0[:3] + (e1[:3] + e2[:3]) / 3.0)[rng.integers(0, 3, R)]
+    orig = centre + rng.normal(size=(R, 3)) * 2.0
+    target = centre + rng.normal(size=(R, 3)) * 0.05
+    dirs = target - orig
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    orig, dirs = (torch.from_numpy(x.astype(np.float32)).contiguous() for x in (orig, dirs))
+    t_min = torch.zeros((R,))
+    active = torch.from_numpy(rng.random(R) < 0.75)
+    t_max = torch.full((R,), 1e20)
+    want = plain.traverse_closest(table, orig, dirs, t_min, active, t_max)
+    _assert_bit_equal(_flat_closest(walks, table, orig, dirs, t_min, active, t_max, 64), want)
+    assert 20 < int((want[1] >= 0).sum()) < int(active.sum())
