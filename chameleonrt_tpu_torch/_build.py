@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # what the traversal kernels hold (kSmallStack, kMaxStack, kMaxLeaf in
-# csrc/traverse_common.cuh): the per-lane kernels are instantiated at each
+# csrc/traverse_common.cuh): every kernel is instantiated at each
 # stack capacity; kernels() checks the library against the largest
 STACK_CAPACITIES = (64, 128)
 MAX_STACK = STACK_CAPACITIES[-1]
@@ -137,19 +137,18 @@ def kernel_library_path() -> str:
 def load_library(path: str) -> ctypes.CDLL:
     """The traversal kernels' library at path, loaded and bound. Every
     entry of B1-B6d takes the node rows' arity (2, 4 or 8) before the leaf
-    size; those of the per-lane kernels (B1-B4, B5a, B5c, B5d, B6a-B6d, B7a)
-    take the stack capacity after the depth; B5b and B7b keep a stack of
-    MAX_STACK entries in shared memory, and B7a/B7b take binary rows only."""
+    size, and every entry the stack capacity after the depth; B7a/B7b take
+    binary rows only."""
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     # B1 / B5a: nodes, leaf rows, leaves, arity, L, depth, capacity, rays..., R, stream
     flat_closest = [p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p, i, p]
     lib.crt_traverse_closest.argtypes = flat_closest
     lib.crt_traverse_closest_stream.argtypes = flat_closest
-    # B5b: no capacity; B2: the stack capacity after the depth
-    flat_any = [p, p, i, i, i, i, p, p, p, p, p, p, i, p]
+    # B2 / B5b: nodes, leaf rows, leaves, arity, L, depth, capacity, rays..., R, stream
+    flat_any = [p, p, i, i, i, i, i, p, p, p, p, p, p, i, p]
+    lib.crt_traverse_any.argtypes = flat_any
     lib.crt_traverse_any_stream.argtypes = flat_any
-    lib.crt_traverse_any.argtypes = flat_any[:6] + [i] + flat_any[6:]
     # B3 / B4, B5c / B5d: nodes, leaf rows, n_tri, tlas_lo, arity, L, depth, capacity, rays...,
     # R, stream
     unified_closest = [p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p]

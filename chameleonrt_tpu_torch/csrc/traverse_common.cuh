@@ -26,18 +26,16 @@
 // walk runs node rows in a loop of their own that the warp leaves once most
 // of its lanes wait at a leaf; the any walk is one loop over node rows,
 // triangle leaves and instance entries (any_two_level says why). B5a and
-// B7a run the same closest walk over a flat table (FlatRows: no TLAS, no
-// instance entries, so the world-ray restore and the entry branch compile
-// away).
+// B7a run the same closest walk, B5b and B7b the same any walk, over a flat
+// table (FlatRows: no TLAS, no instance entries, so the world-ray restore
+// and the entry branch compile away).
 //
 // Stacks: depth, the SAH build's certified bound + 1, reaches 76 on BVH8
-// tables of the main-path scenes. The per-lane kernels (B1-B4, B5a, B5c,
-// B5d, B6a-B6d, B7a) keep a local array of S entries, S a template
-// parameter instantiated at kSmallStack and kMaxStack; their C entries
-// switch on the capacity the wrapper picks (CRT_BY_STACK), the smallest
-// that holds depth, so a BVH4 table keeps the 64-entry array. The
-// warp-packet kernels (B5b, B7b) keep one stack of kMaxStack entries per
-// warp in shared memory.
+// tables of the main-path scenes. Every kernel walks one ray a lane and
+// keeps a local array of S entries, S a template parameter instantiated at
+// kSmallStack and kMaxStack; its C entry switches on the capacity the
+// wrapper picks (CRT_BY_STACK), the smallest that holds depth, so a BVH4
+// table keeps the 64-entry array.
 
 #pragma once
 
@@ -51,7 +49,7 @@ constexpr int kSmallStack = 64;   // _build.STACK_CAPACITIES[0]
 constexpr int kMaxStack = 128;    // _build.MAX_STACK
 constexpr int kMaxLeaf = 16;      // _build.MAX_LEAF
 constexpr int kThreads = 128;
-constexpr int kNodeLanes = 8;  // closest_two_level's node loop: lanes that keep it going
+constexpr int kNodeLanes = 8;  // the walks' node loops: lanes that keep one going
 constexpr int kDone = 0x7FFFFFFF;
 constexpr float kTMax = 1e20f;
 constexpr float kBig = 1e30f;
@@ -166,13 +164,6 @@ __device__ __forceinline__ void node_step(const float* __restrict__ nodes, int c
   sort_children<A>(keys, codes);
 }
 
-// Order-preserving map of a float onto unsigned bits, for a warp min of
-// entry distances (__reduce_min_sync takes integers).
-__device__ __forceinline__ unsigned ordered(float x) {
-  unsigned u = __float_as_uint(x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
 // One triangle slot of a leaf row: v0, e1, e2 and the prim id.
 struct Tri {
   float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
@@ -186,16 +177,6 @@ __device__ __forceinline__ Tri load_tri(const float* __restrict__ lrow, int L, i
   s.e1x = __ldg(lrow + 3 * L + j); s.e1y = __ldg(lrow + 4 * L + j); s.e1z = __ldg(lrow + 5 * L + j);
   s.e2x = __ldg(lrow + 6 * L + j); s.e2y = __ldg(lrow + 7 * L + j); s.e2z = __ldg(lrow + 8 * L + j);
   s.prim = __float_as_int(__ldg(lrow + 9 * L + j));
-  return s;
-}
-
-// Slot j of a component-major leaf row already in shared memory.
-__device__ __forceinline__ Tri shared_tri(const float* lrow, int L, int j) {
-  Tri s;
-  s.v0x = lrow[0 * L + j]; s.v0y = lrow[1 * L + j]; s.v0z = lrow[2 * L + j];
-  s.e1x = lrow[3 * L + j]; s.e1y = lrow[4 * L + j]; s.e1z = lrow[5 * L + j];
-  s.e2x = lrow[6 * L + j]; s.e2y = lrow[7 * L + j]; s.e2z = lrow[8 * L + j];
-  s.prim = __float_as_int(lrow[9 * L + j]);
   return s;
 }
 
@@ -275,7 +256,7 @@ __device__ __forceinline__ bool in_world(int cur, int n_tri, int tlas_lo) {
   }                                                               \
   return static_cast<int>(cudaGetLastError())
 
-// The per-lane kernels' switch onto their stack capacity, inside
+// The kernels' switch onto their stack capacity, inside
 // CRT_BY_ARITY: runs the statement given with the constant S set to cap
 // (kSmallStack or kMaxStack); a depth outside [2, cap], or any other
 // capacity, returns cudaErrorInvalidValue and launches nothing.
@@ -372,7 +353,7 @@ struct GlobalRows {
   }
 };
 
-// A flat table's rows (B5a, B7a): GlobalRows with n_tri the number of
+// A flat table's rows (B5a, B5b, B7a, B7b): GlobalRows with n_tri the number of
 // leaves, every leaf a triangle leaf and no TLAS. The walk starts at the
 // root row, or at leaf 0 where the table is a single leaf.
 template <int A>
@@ -465,37 +446,51 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
 }
 
 // The any-hit walk of one live world ray w over the rows of t (B4, B5d,
-// B6d): whether some t_min < t < tmax hit exists; an overflow is occluded.
-// One loop over node rows, triangle leaves and instance entries. Measured
-// against it on an H100 80GB HBM3 at 700 W and left out: closest_two_level's
-// node loop, left once fewer than 8 (or 16, or 4) lanes are in it. It took
-// 1-4% off B6d's bounce and shadow rays but cost B6d's and B5d's primary
-// rays 1-2%, beyond the spread of duplicate trees, and moved B4 within that
-// spread (San Miguel's and the large proxy's sorted 921,600-ray wavefronts
-// and San Miguel's first-bounce shadow rays; scripts/kernel_turns.py,
-// PERF.md section 6), where it took 10-18% off the closest walk.
+// B6d; over FlatRows B5b and B7b): whether some t_min < t < tmax hit
+// exists; an overflow is occluded at the push that does not fit, as the
+// plain walk reports it. One loop over node rows, triangle leaves and
+// instance entries; over FlatRows the world-ray restore and the entry
+// branch compile away. Over binary FlatRows (A = 2, B7b and B5b's binary
+// instantiation) node rows run in a loop of their own that the warp leaves
+// once fewer than kNodeLanes of its lanes are in it, as in
+// closest_two_level: a binary leaf costs about twice the node steps of a
+// BVH4 one. Measured on an H100 80GB HBM3 at 700 W (scripts/kernel_turns.py,
+// PERF.md section 6), that loop took 4.6-6% off B7b on the hall's primary
+// rays and moved its bounce and shadow rays within the spread of duplicate
+// trees; at A = 4 it cost B5b 4% on the city's bounce rays, and on the
+// two-level walk it cost B6d's and B5d's primary rays 1-2% (while taking
+// 1-4% off B6d's bounce and shadow rays), so A = 4 and 8 and the two-level
+// walk keep one loop.
 template <int A, int S, typename T>
 __device__ __forceinline__ bool any_two_level(const T& t, int depth, const Ray& w, float tmax) {
   Ray r = w;
   int stack[S];
   int sp = 0;
-  int cur = t.tlas_lo;
+  int cur = t.root();
   while (cur != kDone) {
     if (cur >= 0) {
-      float row[row_floats<A>()];
-      t.node_row(cur, row);
-      float keys[A];
-      int codes[A];
-      slab_children<A>(row, r, tmax, keys, codes);
-      sort_children<A>(keys, codes);
-      for (int k = A - 1; k >= 1; --k) {
-        if (keys[k] < kBig) {
-          if (sp >= depth - 1) return true;  // overflow reports occluded
-          stack[sp++] = codes[k];
+      // 0 <= cur < kDone: a node row
+      while (static_cast<unsigned>(cur) < static_cast<unsigned>(kDone)) {
+        float row[row_floats<A>()];
+        t.node_row(cur, row);
+        float keys[A];
+        int codes[A];
+        slab_children<A>(row, r, tmax, keys, codes);
+        sort_children<A>(keys, codes);
+        for (int k = A - 1; k >= 1; --k) {
+          if (keys[k] < kBig) {
+            if (sp >= depth - 1) return true;  // overflow reports occluded
+            stack[sp++] = codes[k];
+          }
+        }
+        cur = keys[0] < kBig ? codes[0] : (sp > 0 ? stack[--sp] : kDone);
+        if constexpr (T::kTwoLevel || A != 2) {
+          break;  // one node row a pass
+        } else if (__popc(__activemask()) < kNodeLanes) {
+          break;  // most of the warp waits
         }
       }
-      cur = keys[0] < kBig ? codes[0] : (sp > 0 ? stack[--sp] : kDone);
-    } else if (-cur - 1 < t.n_tri) {
+    } else if (!T::kTwoLevel || -cur - 1 < t.n_tri) {
       bool occ = false;
       t.leaf_slots(-cur - 1, [&](const Tri& s) {
         float tt, u, v;
@@ -505,14 +500,15 @@ __device__ __forceinline__ bool any_two_level(const T& t, int depth, const Ray& 
       });
       if (occ) return true;
       cur = sp > 0 ? stack[--sp] : kDone;
-    } else {
+    } else if constexpr (T::kTwoLevel) {
       float m[kEntryCols];
       t.entry(-cur - 1, m);
       r = enter_instance(m, w);
       cur = __float_as_int(m[12]);
       continue;
     }
-    if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;
+    if constexpr (T::kTwoLevel)
+      if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;
   }
   return false;
 }
@@ -547,7 +543,7 @@ __device__ __forceinline__ void closest_ray(const T& t, int depth, const float* 
 }
 
 // Ray i through any_two_level over the rows of t, occluded & mask written
-// at i (B4, B5d, B6d).
+// at i (B4, B5d, B6d; over FlatRows B5b and B7b).
 template <int A, int S, typename T>
 __device__ __forceinline__ void any_ray(const T& t, int depth, const float* orig, const float* dir,
                                         const float* t_min, const float* t_max,

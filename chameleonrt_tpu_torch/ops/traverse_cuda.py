@@ -20,10 +20,9 @@ with either `stream` value); B7a/B7b the grid-packet kernels of
 traverse_packet.py (traverse_closest_packet, traverse_any_packet). B1-B6d
 take node rows of arity 2, 4 or 8 (16, 32 or 64 floats), as the TPU
 kernels do, B7a/B7b binary rows only. Every kernel sizes its stack as the
-TPU kernels do (stack_depth), up to MAX_STACK (128) entries: the per-lane
-kernels launch the instantiation of the smallest capacity that holds it
-(stack_capacity: 64, or 128), the warp-packet kernels (B5b, B7b) hold
-MAX_STACK entries a warp in shared memory. A wrapper checks its
+TPU kernels do (stack_depth), up to MAX_STACK (128) entries, and launches
+the instantiation of the smallest capacity that holds it (stack_capacity:
+64, or 128). Every kernel walks one ray a lane. A wrapper checks its
 inputs against what the kernel takes and raises on anything else. Then,
 on CUDA tensors, it allocates the outputs (and a work-queue kernel's
 counter), launches the kernel on the current stream without
@@ -54,10 +53,6 @@ LAUNCHES = {"closest": 0, "any": 0, "closest_unified": 0, "any_unified": 0,
 STACK_LAUNCHES = {key: {cap: 0 for cap in _build.STACK_CAPACITIES} for key in LAUNCHES}
 # floats per node row the kernels take: binary, BVH4 and BVH8 (B1-B6d)
 ROW_FLOATS = (16, 32, 64)
-# the C entries of the warp-packet kernels (B5b, B7b), whose stack of
-# MAX_STACK entries a warp sits in shared memory; every other entry takes
-# the capacity of the per-lane stack it launches with
-_SHARED_STACK = ("crt_traverse_any_stream", "crt_traverse_any_packet")
 
 
 def stack_depth(table) -> int:
@@ -72,8 +67,8 @@ def stack_depth(table) -> int:
 
 
 def stack_capacity(depth: int) -> int:
-    """The stack capacity of the per-lane kernels' instantiation that a
-    stack of depth entries launches: the smallest of
+    """The stack capacity of the kernels' instantiation that a stack of
+    depth entries launches: the smallest of
     _build.STACK_CAPACITIES (64, 128) that holds it, so BVH4 tables keep
     the 64-entry array. Raises above MAX_STACK."""
     for cap in _build.STACK_CAPACITIES:
@@ -165,18 +160,6 @@ def _arity_arg(entry: str, arity: int) -> list:
     return [] if entry.endswith("_packet") else [arity]
 
 
-def _stack_cap(entry: str, depth: int) -> int:
-    """The stack capacity a C entry launches with: the per-lane kernels'
-    stack_capacity, or the warp-packet kernels' MAX_STACK."""
-    return _build.MAX_STACK if entry in _SHARED_STACK else stack_capacity(depth)
-
-
-def _stack_args(entry: str, cap: int) -> list:
-    """The argument a C entry takes after the depth: a per-lane kernel's
-    stack capacity cap, none for a warp-packet kernel."""
-    return [] if entry in _SHARED_STACK else [cap]
-
-
 def _count(key: str, cap: int):
     LAUNCHES[key] += 1
     STACK_LAUNCHES[key][cap] += 1
@@ -186,7 +169,7 @@ def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_
     """A flat closest-hit kernel (B1, B5a, B6a or B7a) through its C entry point."""
     check = _check_packet if entry.endswith("_packet") else _check
     arity, L, depth = check(pbvh, orig, dir, t_min, t_max, active)
-    cap = _stack_cap(entry, depth)
+    cap = stack_capacity(depth)
     if orig.device.type == "cpu":
         return plain.traverse_closest(pbvh, orig, dir, t_min, active, t_max)
     lib = _build.kernels()
@@ -200,7 +183,7 @@ def _closest(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, active, t_
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves,
-        *_arity_arg(entry, arity), L, depth, *_stack_args(entry, cap),
+        *_arity_arg(entry, arity), L, depth, cap,
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         active.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
         *[q.data_ptr() for q in queue], R, _stream(orig),
@@ -214,7 +197,7 @@ def _any(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     """A flat any-hit kernel (B2, B5b, B6b or B7b) through its C entry point."""
     check = _check_packet if entry.endswith("_packet") else _check
     arity, L, depth = check(pbvh, orig, dir, t_min, t_max, mask)
-    cap = _stack_cap(entry, depth)
+    cap = stack_capacity(depth)
     if orig.device.type == "cpu":
         return plain.traverse_any(pbvh, orig, dir, t_min, t_max, mask)
     lib = _build.kernels()
@@ -225,7 +208,7 @@ def _any(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         pbvh.nodes.data_ptr(), pbvh.leaf_rows.data_ptr(), pbvh.num_leaves,
-        *_arity_arg(entry, arity), L, depth, *_stack_args(entry, cap),
+        *_arity_arg(entry, arity), L, depth, cap,
         orig.data_ptr(), dir.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         mask.data_ptr(), occ.data_ptr(), *[q.data_ptr() for q in queue], R, _stream(orig),
     )
@@ -256,16 +239,16 @@ def traverse_closest_stream(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
 
 
 def traverse_any_stream(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
-    """B5b: any hit of the streamed tier, one warp per packet. Returns (R,)
-    bool occluded & mask; its plain version is plain.traverse_any, with
-    which it agrees lane for lane."""
+    """B5b: any hit of the streamed tier, one lane per ray in the plain
+    walk's order (B4's walk over a flat table). Returns (R,) bool occluded
+    & mask, bit-equal to its plain version, plain.traverse_any."""
     return _any("crt_traverse_any_stream", "any_stream", pbvh, orig, dir, t_min, t_max, mask)
 
 
 def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, active, t_max):
     """A two-level closest-hit kernel (B3, B5c or B6c) through its C entry point."""
     arity, L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, active)
-    cap = _stack_cap(entry, depth)
+    cap = stack_capacity(depth)
     if orig.device.type == "cpu":
         return plain.traverse_closest_unified(ubvh, orig, dir, t_min, active, t_max)
     lib = _build.kernels()
@@ -280,7 +263,7 @@ def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, a
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, arity,
-        L, depth, *_stack_args(entry, cap), orig.data_ptr(), dir.data_ptr(),
+        L, depth, cap, orig.data_ptr(), dir.data_ptr(),
         t_min.data_ptr(), t_max.data_ptr(), active.data_ptr(), t.data_ptr(), prim.data_ptr(),
         inst.data_ptr(), u.data_ptr(), v.data_ptr(), *[q.data_ptr() for q in queue], R,
         _stream(orig),
@@ -293,7 +276,7 @@ def _closest_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, a
 def _any_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask):
     """A two-level any-hit kernel (B4, B5d or B6d) through its C entry point."""
     arity, L, depth = _check_unified(ubvh, orig, dir, t_min, t_max, mask)
-    cap = _stack_cap(entry, depth)
+    cap = stack_capacity(depth)
     if orig.device.type == "cpu":
         return plain.traverse_any_unified(ubvh, orig, dir, t_min, t_max, mask)
     lib = _build.kernels()
@@ -304,7 +287,7 @@ def _any_unified(entry: str, key: str, ubvh: UnifiedBvh, orig, dir, t_min, t_max
     queue = _queue(entry, orig)
     err = getattr(lib, entry)(
         ubvh.nodes.data_ptr(), ubvh.leaf_rows.data_ptr(), ubvh.n_tri_leaves, ubvh.tlas_lo, arity,
-        L, depth, *_stack_args(entry, cap), orig.data_ptr(), dir.data_ptr(),
+        L, depth, cap, orig.data_ptr(), dir.data_ptr(),
         t_min.data_ptr(), t_max.data_ptr(), mask.data_ptr(), occ.data_ptr(),
         *[q.data_ptr() for q in queue], R, _stream(orig),
     )
@@ -397,12 +380,11 @@ def traverse_closest_packet(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
 
 
 def traverse_any_packet(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
-    """B7b: grid-packet any hit over binary rows; the packet stops once
-    every lane is occluded, and masked lanes count as occluded for that
-    test. Returns (R,) bool occluded & mask, as plain.traverse_any on the
-    same binary table; it tests every leaf the packet visits with every
-    lane that is not yet occluded, so a lane may find an occluder
-    that its own walk culls by rounding at a box face. Replaces
-    traverse_packet.py traverse_any_packet (pl.pallas_call of _any_call,
-    traverse_packet.py:660)."""
+    """B7b: any hit over binary rows, one lane per ray in the plain walk's
+    order (B5b's walk at arity 2). Returns (R,) bool occluded & mask.
+    Replaces traverse_packet.py traverse_any_packet (pl.pallas_call of
+    _any_call, traverse_packet.py:660), which walks a packet of rays with
+    one stack and tests every leaf the packet visits with every live lane.
+    Its plain version is plain.traverse_any on the same binary table, to
+    which it is bit-equal."""
     return _any("crt_traverse_any_packet", "any_packet", pbvh, orig, dir, t_min, t_max, mask)

@@ -9,7 +9,7 @@ nor the JAX package (it asserts so at its end). Phases:
    torch, CUDA and nvcc versions;
 2. build: the traversal kernels (csrc/*.cu, one nvcc each, in parallel),
    with ptxas's registers and spills for each kernel, arity and stack
-   capacity (the per-lane kernels at 64 and 128 entries);
+   capacity (every kernel at 64 and 128 entries);
 3. kernels against their plain torch versions on the card, each with
    kernel and plain times on a sorted primary wavefront and a
    diffuse-bounce wavefront from its hit points:
@@ -20,14 +20,15 @@ nor the JAX package (it asserts so at its end). Phases:
      and on the San Miguel proxy at 1280x720, and B4 on the 10 masked
      shadow-ray wavefronts of one 1-spp San Miguel frame at 1280x720, each
      timed beside its bound there;
-   - B5a/B5b (the streamed tier, whose plain versions are B1/B2's; B5a a
-     per-lane walk held exactly, 0 mismatches and |dt| = |du| = |dv| = 0)
-     on proc://city?n=60 at 320x180, forced, and on the 6.7M-triangle
+   - B5a/B5b (the streamed tier, whose plain versions are B1/B2's; per-lane
+     walks held exactly, 0 mismatches and |dt| = |du| = |dv| = 0) on
+     proc://city?n=60 at 320x180, forced, and on the 6.7M-triangle
      proc://city?n=610 at 640x360, which the gate must route to them, any
      hit at both t_max factors on both wavefronts, with B1/B2 timed on the
-     same rays; B5b on the 10 masked shadow-ray wavefronts of one 640x360
-     city frame, and B5a, exactly, on the 5 closest-hit wavefronts of one,
-     each timed beside B1 on the same rays and beside its bound;
+     same rays; B5b, exactly, on the 10 masked shadow-ray wavefronts of one
+     640x360 city frame, beside B2, and B5a, exactly, on the 5 closest-hit
+     wavefronts of one, beside B1, each timed on the same rays and beside
+     its bound;
    - B5c/B5d (the two-level streamed tier, per-lane walks bit-equal to
      their plain versions, B3/B4's: 0 mismatches and |dt| = |du| = |dv|
      = 0, the gate of every two-level kernel) on
@@ -51,13 +52,14 @@ nor the JAX package (it asserts so at its end). Phases:
      each beside its bound, and logged whether that frame's rays digest
      as those of B4's frame);
    - B7a/B7b (the grid-packet kernels, binary rows only, whose plain
-     versions are B1/B2's on the same binary table; B7a a per-lane walk
-     held exactly) on the hall's binary table: proc://hall?subdiv=2 at
-     320x180 and the textured hall at 1280x720, any hit at both t_max
-     factors on both wavefronts, with B1 timed on the same rays on the
-     binary table and on the BVH4 table; B7b on the 10 masked shadow-ray
-     wavefronts of one 1280x720 hall frame with grid_packet=True, and B7a,
-     exactly, on the 5 closest-hit wavefronts of one, as B5a;
+     versions are B1/B2's on the same binary table; per-lane walks held
+     exactly) on the hall's binary table: proc://hall?subdiv=2 at 320x180
+     and the textured hall at 1280x720, any hit at both t_max factors on
+     both wavefronts, with B1/B2 timed on the same rays on the binary table
+     and on the BVH4 table; B7b, exactly, on the 10 masked shadow-ray
+     wavefronts of one 1280x720 hall frame with grid_packet=True, beside B2
+     on the binary table, and B7a, exactly, on the 5 closest-hit wavefronts
+     of one, as B5a;
    - B1-B6d at every arity they take (2, 4 and 8 children a row) on the
      primary wavefronts of the parity scenes at 320x180: B1/B2 and B6a/B6b
      on proc://hall?subdiv=2, B5a/B5b (forced) on proc://city?n=60, B3/B4,
@@ -70,15 +72,18 @@ nor the JAX package (it asserts so at its end). Phases:
      (CHAMELEONRT_WIDE_ARITY=8; all but the hall's exceed 64), and on those
      tables B3/B4 and B6c/B6d (San Miguel), B5c/B5d (the large proxy) and
      B5a/B5b (the city) against the plain walk on the main-path primary
-     wavefront, with the stack capacity each launch ran with (128), and a
+     wavefront (B3-B7b exactly), with the stack capacity each launch ran
+     with (128), and a
      BVH8 San Miguel image against the plain walk;
    each kernel's least time on its main-path primary and bounce wavefronts
    (bound_ms, bounce_bound_ms) comes from the distinct rows and the
    operations that wavefront's rays need, counted by the plain walk
    (ops/traverse.py WalkCount); B6a-B6d compute the same functions on the
    same rays as B1-B4 and share their bounds; on the main-path wavefronts
-   each per-lane kernel is also timed at its 128-entry instantiation
-   (ms_stack128), whose result must equal the 64-entry one's;
+   each kernel is also timed at its 128-entry instantiation
+   (ms_stack128), whose result must equal the 64-entry one's; every
+   any-hit kernel is timed on its main-path frame's 10 shadow wavefronts
+   beside its bound there;
 4. images through the kernels against images through the plain traversal
    (textured hall, proc://instances?nx=6&ny=6&subdiv=3, with stream=True
    proc://city?n=60 and proc://instances?nx=6&ny=6&subdiv=3, with
@@ -101,10 +106,9 @@ nor the JAX package (it asserts so at its end). Phases:
    (B7a/B7b) at 1280x720, 1 spp; each path's last frame runs
    under torch.profiler, which gives where its time goes: device busy
    time, the idle share of the frame, and the device time of the traversal
-   kernels and of the largest other rows; every per-lane launch of these
-   main paths (BVH4 tables, and the hall's binary one) must have run with
-   the 64-entry stack, every warp-packet one (B5b, B7b) with its 128-entry
-   shared stack.
+   kernels and of the largest other rows; every launch of these main
+   paths (BVH4 tables, and the hall's binary one) must have run with the
+   64-entry stack.
 
 A gen://san_miguel URI is this script's own: _load generates the scene
 with the port's scene/pbrt_gen.py (its query string gives the generator's
@@ -220,7 +224,7 @@ def phase_toolchain(torch):
 
 # a kernel instantiation in ptxas's log: its launch-count key and its
 # template arguments, the node rows' arity and the stack capacity, or the
-# capacity alone (B7a, binary rows only), or none (B7b)
+# capacity alone (B7a, B7b: binary rows only)
 # (_ZN12_GLOBAL__N_114closest_kernelILi8ELi64EEEv...,
 # ..._packet_kernelILi64EEvPKf..., ..._packet_kernelEPKf...)
 _PTXAS_KERNEL = re.compile(
@@ -442,13 +446,13 @@ TWO_LEVEL = ("unified", "unified_stream", "unified_persistent")
 # the kernels that walk in the plain walk's per-lane order over
 # traverse_common.cuh's walks, held to exact agreement: 0 mismatches and
 # |dt| = |du| = |dv| = 0 (B3/B4, B5c/B5d and B6c/B6d, the two-level walks,
-# and B5a and B7a, the closest walk over a flat table; B1, B2, B6a and B6b
-# keep the JAX bench's gate, which they meet with 0)
-EXACT = ("B3", "B4", "B5a", "B5c", "B5d", "B6c", "B6d", "B7a")
+# and B5a/B5b and B7a/B7b, the closest and any walks over a flat table; B1,
+# B2, B6a and B6b keep the JAX bench's gate, which they meet with 0)
+EXACT = ("B3", "B4", "B5a", "B5b", "B5c", "B5d", "B6c", "B6d", "B7a", "B7b")
 # the kernels that keep a per-lane stack of a capacity the wrapper picks
-# (traverse_cuda.stack_capacity); the others (B5b, B7b) hold MAX_STACK
-# entries a warp in shared memory
-PER_LANE = ("B1", "B2", "B3", "B4", "B5a", "B5c", "B5d", "B6a", "B6b", "B6c", "B6d", "B7a")
+# (traverse_cuda.stack_capacity): all of them
+PER_LANE = ("B1", "B2", "B3", "B4", "B5a", "B5b", "B5c", "B5d", "B6a", "B6b", "B6c", "B6d", "B7a",
+            "B7b")
 # the slot-lane tiers, whose wavefronts phase 3 builds, and the work-queue
 # path that traces the same scenes with the slot-lane tier off
 TIERS = ("flat", "unified", "stream", "unified_stream")
@@ -728,19 +732,19 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
     """The any-hit kernel on a main path's own traffic: the 10 masked
     shadow-ray wavefronts of one W x H frame at one sample per pixel
     (_shadow_calls), captured through the backend and traced again by the
-    plain version. Requires zero mismatches, some occluded rays, and 10
-    launches of the path's any-hit kernel, so on a streamed path the gate
-    must have picked it. A work-queue path (QUEUE's values) renders with
-    the slot-lane tier off, the others with it on; the grid-packet path
-    renders with grid_packet=True, and its plain version traces the same
-    binary table. On a two-level path the kernel is also timed on each
-    wavefront (median of KERNEL_REPS) beside its bound there (_bound, from
-    the plain walk's WalkCount on those rays). rays_sha256 digests the
-    captured rays and masks, so two paths' frames can be shown to have
-    traced the same wavefronts."""
+    plain version on the same table. Requires zero mismatches, some
+    occluded rays, and 10 launches of the path's any-hit kernel, so on a
+    streamed path the gate must have picked it. A work-queue path (QUEUE's
+    values) renders with the slot-lane tier off, the others with it on; the
+    grid-packet path renders with grid_packet=True, and traces the binary
+    table. The kernel is also timed on each wavefront (median of
+    KERNEL_REPS) beside its bound there (_bound, from the plain walk's
+    WalkCount on those rays), and a streamed or grid-packet flat kernel
+    (B5b, B7b) beside B2 on the same table and rays (flat_ms). rays_sha256
+    digests the captured rays and masks, so two paths' frames can be shown
+    to have traced the same wavefronts."""
     import hashlib
 
-    from chameleonrt_tpu_torch.engine.trace_bvh import make_trace_fns
     from chameleonrt_tpu_torch.ops import traverse_cuda
     from chameleonrt_tpu_torch.ops.math import EPSILON
     from chameleonrt_tpu_torch.ops.traverse import WalkCount
@@ -752,31 +756,30 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
     b, calls = _shadow_calls(torch, scene, tables, W, H, spp, slotlane=path not in QUEUE.values(),
                              grid_packet=grid_packet)
     launched = traverse_cuda.LAUNCHES[count] - before
-    two_level = path in TWO_LEVEL
-    _, plain_any = make_trace_fns(b.meta, use_kernels=False, grid_packet=grid_packet)
-    table = b.flat.blas[0].any
+    table = b.flat.blas[0].closest if grid_packet else b.flat.blas[0].any
+    beside_b2 = path in ("stream", "grid_packet")
     per_call, timed = [], {"ms": [], "bound_ms": [], "bound_by": []}
+    if beside_b2:
+        timed["flat_ms"] = []
     digest = hashlib.sha256()
     for orig, dirs, t_max, mask, occ in calls:
         for x in (orig, dirs, t_max, mask):
             digest.update(x.cpu().numpy().tobytes())
-        if two_level:
-            args = (table, orig, dirs, torch.full_like(t_max, EPSILON), t_max, mask)
-            walk = WalkCount(table)
-            occ_p = plain(*args, count=walk)
-            bound = _bound(table, walk, mask, 1)
-            timed["ms"].append(_median_ms(torch, lambda: kernel(*args), KERNEL_REPS))
-            timed["bound_ms"].append(bound["bound_ms"])
-            timed["bound_by"].append(bound["bound_by"])
-        else:
-            occ_p = plain_any(b.flat, orig, dirs, t_max, mask)
+        args = (table, orig, dirs, torch.full_like(t_max, EPSILON), t_max, mask)
+        walk = WalkCount(table)
+        occ_p = plain(*args, count=walk)
+        bound = _bound(table, walk, mask, 1)
+        timed["ms"].append(_median_ms(torch, lambda: kernel(*args), KERNEL_REPS))
+        timed["bound_ms"].append(bound["bound_ms"])
+        timed["bound_by"].append(bound["bound_by"])
+        if beside_b2:
+            timed["flat_ms"].append(_median_ms(torch, lambda: traverse_cuda.traverse_any(*args),
+                                               KERNEL_REPS))
         per_call.append((int(mask.sum()), int(occ.sum()), int((occ != occ_p).sum())))
     res = {"rays": W * H, "spp": spp, "calls": len(calls), "launches": launched,
            "masked_in": [c[0] for c in per_call], "occluded": [c[1] for c in per_call],
-           "occ_mismatch": sum(c[2] for c in per_call), "rays_sha256": digest.hexdigest()}
-    if two_level:
-        res.update(timed)
-        res.update({f"{k}_sum": sum(v) for k, v in timed.items() if k != "bound_by"})
+           "occ_mismatch": sum(c[2] for c in per_call), "rays_sha256": digest.hexdigest(), **timed}
+    res.update({f"{k}_sum": sum(v) for k, v in timed.items() if k != "bound_by"})
     res["ok"] = (len(calls) == 10 and launched == 10 and res["occ_mismatch"] == 0
                  and sum(res["occluded"]) > 0 and all(0 < c[0] < W * H for c in per_call[:2]))
     log(f"[kernels] {name} any main-path shadow rays, one {W}x{H} frame: {json.dumps(res)}")
@@ -938,10 +941,11 @@ def phase_packet(torch):
     """The grid-packet kernels B7a/B7b against their plain versions on the
     hall's binary table (flat.blas[0].closest): the parity hall at 320x180
     and the main-path hall at 1280x720, closest hit and any hit at both
-    t_max factors on the primary and the bounce wavefront, with B1 timed on
-    the same rays on the binary table (flat_binary_ms) and on the BVH4 table
-    (flat_ms), and the kernels' least times on the main-path primary
-    wavefront; then B7b on the shadow rays of one grid_packet=True frame.
+    t_max factors on the primary and the bounce wavefront, with B1 (closest
+    hit) and B2 (any hit) timed on the same rays on the binary table
+    (flat_binary_ms) and on the BVH4 table (flat_ms), and the kernels' least
+    times on the main-path primary wavefront; then B7b on the shadow rays of
+    one grid_packet=True frame, beside B2 on the binary table.
     Returns phase_kernels' form: {"closest": (primary, bounce), "any":
     (primary, bounce), "any_all": [...], "shadow": ...}."""
     from chameleonrt_tpu_torch.ops import traverse_cuda
@@ -1090,7 +1094,7 @@ def phase_bvh8(torch):
     scenes, whose BVH8 stacks exceed 64, each path's closest-hit kernel
     against the plain walk on the main-path primary wavefront, and its
     any-hit kernel at t_max = 1.001 x that hit, under phase 3's gates
-    (B3/B4, B5c/B5d and B6c/B6d meet them exactly), with the stack
+    (EXACT's kernels meet them exactly), with the stack
     capacity each launch ran with; then a BVH8 San Miguel image (phase 4's
     size) against the plain walk. Returns {"stacks": {scene: need},
     "cases": {label: {kernel: {...}}}}."""
@@ -1338,11 +1342,8 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     want = {k: expect.get(k, 0) * n_frames for k in launches}
     if launches != want:
         raise AssertionError(f"expected {want} launches over {n_frames} frames, got {launches}")
-    # the BVH4 tables and the hall's binary one keep the 64-entry per-lane
-    # stacks; the warp-packet kernels hold MAX_STACK entries a warp in shared
-    # memory
-    want_cap = {k: {128 if k in ("any_stream", "any_packet") else 64: n}
-                for k, n in launches.items() if n}
+    # the BVH4 tables and the hall's binary one keep the 64-entry stacks
+    want_cap = {k: {64: n} for k, n in launches.items() if n}
     if stacks != want_cap:
         raise AssertionError(f"expected launches by stack capacity {want_cap}, got {stacks}")
     accum = backend._accum
@@ -1437,13 +1438,12 @@ def main() -> int:
 
     def arities(label, count, err4):
         """An entry's worst error, times and ptxas counts at each arity
-        (phase_arities; the entry's own error joins A = 4), the counts of a
-        per-lane kernel at each stack capacity."""
+        (phase_arities; the entry's own error joins A = 4) and stack
+        capacity."""
         out = {}
         for a in ARITIES:
             r = ares[label][a]
-            ptx = {f"stack{cap}": ptxas[count, a, cap] for cap in STACK_CAPACITIES
-                   if (count, a, cap) in ptxas} or ptxas.get((count, a, None), {})
+            ptx = {f"stack{cap}": ptxas[count, a, cap] for cap in STACK_CAPACITIES}
             out[str(a)] = {"max_abs_err": max(r["max_abs_err"], err4) if a == 4 else r["max_abs_err"],
                            "mismatch": r["mismatch"], "ms": r["ms"], **ptx}
         return out
@@ -1468,10 +1468,12 @@ def main() -> int:
         return out
 
     def shadow(res):
-        """A two-level any-hit kernel on one main-path frame's 10 shadow
-        wavefronts (_check_any_shadow): per call and summed."""
-        return {k: res[k] for k in ("masked_in", "occluded", "ms", "ms_sum", "bound_ms",
-                                    "bound_ms_sum", "bound_by")}
+        """An any-hit kernel on one main-path frame's 10 shadow wavefronts
+        (_check_any_shadow): per call and summed, B2 on the same rays beside
+        B5b and B7b."""
+        return {k: res[k] for k in ("masked_in", "occluded", "occ_mismatch", "ms", "ms_sum",
+                                    "bound_ms", "bound_ms_sum", "bound_by", "flat_ms",
+                                    "flat_ms_sum") if k in res}
 
     def frame(res):
         """A flat closest-hit kernel on one main-path frame's 5 closest-hit
@@ -1512,12 +1514,12 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": f"chameleonrt_tpu_torch/csrc/{src}",
             "replaces": replaces, "max_abs_err": err, **shared(path, count, primary, bounce),
-            "stack_capacities": list(STACK_CAPACITIES) if label in PER_LANE else [STACK_CAPACITIES[-1]],
+            "stack_capacities": list(STACK_CAPACITIES),
             "arities": arities(label, count, err),
         }
         if label in bvh8:
             entry["bvh8"] = bvh8[label]
-        if key == "any" and path in TWO_LEVEL:
+        if key == "any":
             entry["shadow"] = shadow(kres[path]["shadow"])
         if key == "closest" and path in _CLOSEST_FRAME:
             entry["main_path_frame"] = frame(kres[path]["frame"])
@@ -1560,7 +1562,7 @@ def main() -> int:
         }
         if label in bvh8:
             entry["bvh8"] = bvh8[label]
-        if key == "any" and qpath in TWO_LEVEL:  # beside the tier kernel's times on its frame's rays
+        if key == "any":  # beside the tier kernel's times on its frame's rays
             queue_shadow, tier_shadow = kres[tiers[0]]["queue_shadow"], kres[tiers[0]]["shadow"]
             entry["shadow"] = {**shadow(queue_shadow), "same_rays": queue_shadow["same_rays"],
                                f"{tiers[0]}_kernel_ms": tier_shadow["ms"],
@@ -1595,25 +1597,23 @@ def main() -> int:
         if key == "any":
             err = max(err, float(pres["shadow"]["occ_mismatch"] > 0))
         count = f"{key}_packet"
-        label = name.split()[0]
-        per_lane = label in PER_LANE
         entry = {
             "name": name, "route": "cuda", "source": "chameleonrt_tpu_torch/csrc/traverse_packet.cu",
             "replaces": replaces, "max_abs_err": err, **shared("grid_packet", count, primary, bounce),
-            "stack_capacities": list(STACK_CAPACITIES) if per_lane else [STACK_CAPACITIES[-1]],
+            "stack_capacities": list(STACK_CAPACITIES),
             "flat_binary_kernel_ms": primary["flat_binary_ms"],
             "flat_binary_kernel_bounce_ms": bounce["flat_binary_ms"],
             "flat_kernel_ms": primary["flat_ms"], "flat_kernel_bounce_ms": bounce["flat_ms"],
             "mismatch": [r.get("prim_mismatch", r.get("occ_mismatch")) for r in checked],
         }
-        if per_lane:  # binary rows: its instantiations at arity 2
-            entry.update({f"stack{cap}": ptxas[count, 2, cap] for cap in STACK_CAPACITIES})
-        else:
-            entry.update(ptxas.get((count, None, None), {}))
+        # binary rows: its instantiations at arity 2
+        entry.update({f"stack{cap}": ptxas[count, 2, cap] for cap in STACK_CAPACITIES})
         if key == "closest":
             for kind in ("kernel_only_hits", "tied_t_mismatch", "kernel_nearer", "plain_nearer"):
                 entry[kind] = [r[kind] for r in checked]
             entry["main_path_frame"] = frame(pres["frame"])
+        else:
+            entry["shadow"] = shadow(pres["shadow"])
         kernels.append(entry)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(build {build_s:.1f} s)")

@@ -13,16 +13,19 @@ checkout's chip_smoke.py helpers, with the plain walk's results on each:
   of one 1-spp 1280x720 frame, captured as chip_smoke.py captures a main
   path's shadow rays (any hit only); kernels B3, B4, B5c, B5d, B6c, B6d;
 - flat tables: sorted primary and diffuse-bounce rays on the city
-  proc://city?n=610 at 640x360 (its BVH4 table, 10x the L2: B5a, B5b and
-  B1 on the same rays) and on the textured hall at 1280x720 (its binary
-  table: B7a, B7b and B1 on the same rays).
+  proc://city?n=610 at 640x360 (its BVH4 table, 10x the L2: B5a, B5b, B1
+  and B2 on the same rays) and on the textured hall at 1280x720 (its binary
+  table: B7a, B7b, B1 and B2 on the same rays), and on each the two masked
+  shadow-ray wavefronts of the first bounce of one 1-spp frame, captured
+  as on San Miguel (the hall's with grid_packet=True; any hit only: B5b /
+  B7b and B2).
 --tables picks one of the two sets or both. Then one worker process a tree
 builds that tree's kernels and binds them through that tree's own
 wrappers, checks every kernel against the plain results, and times them
-when asked. The check holds the per-lane kernels (B1, B3, B4, B5c, B5d,
-B6c, B6d) bit for bit; B5a, B5b, B7a and B7b must meet the JAX bench's gate
-(prim or occlusion mismatches <= max(2, R / 50000), |dt|, |du|, |dv| <=
-1e-5), and whether they are bit-equal is reported beside it. The trees are
+when asked. The check holds the per-lane kernels bit for bit; B5b and B7b,
+which some trees walk as warp packets, must meet the JAX bench's gate
+(occlusion mismatches <= max(2, R / 50000)), and whether they are
+bit-equal is reported beside it. The trees are
 visited in turns, 1-2-...-n-n-...-2-1, for --rounds rounds; each visit
 takes the median of --reps CUDA-event timings of every kernel on every
 wavefront after a warmup, and the result is the mean of a tree's medians
@@ -56,6 +59,7 @@ KERNELS = {  # label: (wrapper, closest hit?, the tables it traces)
     "B5d": ("traverse_any_unified_stream", False, ("two_level",)),
     "B6d": ("traverse_any_unified_persistent", False, ("two_level",)),
     "B1": ("traverse_closest", True, ("bvh4", "binary")),
+    "B2": ("traverse_any", False, ("bvh4", "binary")),
     "B5a": ("traverse_closest_stream", True, ("bvh4",)),
     "B5b": ("traverse_any_stream", False, ("bvh4",)),
     "B7a": ("traverse_closest_packet", True, ("binary",)),
@@ -63,7 +67,7 @@ KERNELS = {  # label: (wrapper, closest hit?, the tables it traces)
 }
 # the kernels held to the JAX bench's gate, not bit for bit: warp packets
 # in some tree (bit-equality is reported beside the gate)
-GATED = ("B5a", "B5b", "B7a", "B7b")
+GATED = ("B5b", "B7b")
 # the table kinds of each --tables choice
 TABLE_SETS = {"two_level": ("two_level",), "flat": ("bvh4", "binary"),
               "all": ("two_level", "bvh4", "binary")}
@@ -200,12 +204,13 @@ def _cases(torch, path, kinds):
                                                   want[2] if two_level else None)
         _closest_and_any(torch, out, scene_name, table, closest, any_, orig, dirs,
                          torch.full((R,), EPSILON, device="cuda"), active, "bounce", 0.999)
-        if scene_name == "san_miguel":  # any hit only: the first bounce's two shadow wavefronts
-            _, calls = cs._shadow_calls(torch, scene, (flat, meta), cs.MAIN_W, cs.MAIN_H,
-                                        use_kernels=False)
+        if scene_name in ("san_miguel", "city", "hall"):
+            # any hit only: the first bounce's two shadow wavefronts
+            _, calls = cs._shadow_calls(torch, scene, (flat, meta), W, H, use_kernels=False,
+                                        grid_packet=kind == "binary")
             for shadow, (o, d, t_max, mask, occ) in zip(("shadow_light", "shadow_bsdf"), calls):
                 any_args = (o, d, torch.full_like(t_max, EPSILON), t_max, mask)
-                want_any = traverse.traverse_any_unified(table, *any_args)
+                want_any = any_(table, *any_args)
                 assert torch.equal(want_any, occ)
                 out[f"{scene_name}_{shadow}"] = {"scene": scene_name,
                                                  "any": tuple(x.cpu() for x in any_args),

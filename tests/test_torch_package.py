@@ -164,10 +164,10 @@ def test_chip_smoke_knows_the_grid_packet_path_and_every_arity():
 
 
 def test_chip_smoke_holds_the_per_lane_walks_exactly():
-    """B5a and B7a walk per lane (the closest walk over a flat table): they
-    are among the kernels held exactly and among those whose per-lane stack
-    the wrapper sizes, and only the warp packets B5b and B7b are not;
-    ptxas's names of B7a's instantiations (a template on the stack
+    """B5a/B5b and B7a/B7b walk per lane (the closest and the any walk over
+    a flat table): they are among the kernels held exactly, and every
+    kernel is among those whose per-lane stack the wrapper sizes; ptxas's
+    names of B7a's and B7b's instantiations (templates on the stack
     capacity alone, binary rows) read as arity 2 at that capacity."""
     sys.path.insert(0, ROOT)
     try:
@@ -175,11 +175,13 @@ def test_chip_smoke_holds_the_per_lane_walks_exactly():
     finally:
         sys.path.remove(ROOT)
     labels = {label for pair in chip_smoke._PATHS.values() for label, _, _ in pair}
-    assert set(chip_smoke.PER_LANE) == labels - {"B5b", "B7b"}
-    assert {"B5a", "B7a"} <= set(chip_smoke.EXACT) <= set(chip_smoke.PER_LANE)
+    assert set(chip_smoke.PER_LANE) == labels
+    assert {"B5a", "B5b", "B7a", "B7b"} <= set(chip_smoke.EXACT) <= set(chip_smoke.PER_LANE)
     assert not {"B1", "B2", "B6a", "B6b"} & set(chip_smoke.EXACT)
     log = "\n".join(
-        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121closest_packet_kernelILi{cap}EEEvPKfS2_' "
-        f"for 'sm_90a'\nptxas info    : Used {cap // 2} registers" for cap in (64, 128))
-    assert chip_smoke._ptxas_table(log) == {("closest_packet", 2, 64): {"registers": 32},
-                                            ("closest_packet", 2, 128): {"registers": 64}}
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(k) + 7}{k}_kernelILi{cap}EEEvPKfS2_' "
+        f"for 'sm_90a'\nptxas info    : Used {cap // 2 + len(k)} registers"
+        for k in ("closest_packet", "any_packet") for cap in (64, 128))
+    assert chip_smoke._ptxas_table(log) == {
+        ("closest_packet", 2, 64): {"registers": 46}, ("closest_packet", 2, 128): {"registers": 78},
+        ("any_packet", 2, 64): {"registers": 42}, ("any_packet", 2, 128): {"registers": 74}}

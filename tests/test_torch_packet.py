@@ -19,6 +19,12 @@ traverse_closest_packet / traverse_any_packet) and their route
 Tolerances are those of tests/test_torch_traverse.py (XLA on the CPU fuses
 multiply-adds, the port does not): t within rtol 1e-5, u/v within 2e-5;
 prims and occlusion flags equal.
+
+The JAX kernels walk a packet of rays with one stack and test every leaf
+the packet visits with every live lane; on the card B7a and B7b walk one
+ray a lane in the plain walk's order, bit-equal to it (chip_smoke.py holds
+them so there, tests/test_torch_walk_host.py holds their walks on the
+host), so their plain version is the wrappers' CPU route here.
 """
 
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """The kernels' stack capacities (C3) and their C entries' arguments, on the CPU.
 
-- Every per-lane kernel (B1-B4, B5c, B5d, B6a-B6d) launches the
+- Every kernel (B1-B7b, one ray a lane) launches the
   instantiation of the smallest stack capacity that holds the table's
   certified stack + 1 (traverse_cuda.stack_capacity: 64, else 128), at
   every arity; the input check takes stacks up to MAX_STACK = 128 and
@@ -105,7 +105,6 @@ WRAPPERS = {
     "traverse_closest_packet": ("closest_packet", "crt_traverse_closest_packet", True, "binary"),
     "traverse_any_packet": ("any_packet", "crt_traverse_any_packet", False, "binary"),
 }
-SHARED_STACK = ("traverse_any_stream", "traverse_any_packet")
 
 
 def _table_for(tables, kind, arity=4):
@@ -192,11 +191,9 @@ class _Library:
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 def test_c_entries_get_the_capacity_and_shared_rows(tables, name, depth, monkeypatch):
     """On a device other than the CPU each wrapper calls its C entry with
-    as many arguments as its binding declares: after the depth, a per-lane
-    kernel's stack capacity (64 at depth 64, 128 at 65), the warp-packet
-    kernels' (B5b, B7b) none. The launch counts move by one,
-    under the capacity the launch ran with (MAX_STACK for the warp-packet
-    kernels)."""
+    as many arguments as its binding declares: after the depth, the
+    kernel's stack capacity (64 at depth 64, 128 at 65). The launch counts
+    move by one, under the capacity the launch ran with."""
     key, entry, _, kind = WRAPPERS[name]
     monkeypatch.setattr(_build.ctypes, "CDLL", _Library)
     lib = _build.load_library("stand-in")
@@ -220,11 +217,7 @@ def test_c_entries_get_the_capacity_and_shared_rows(tables, name, depth, monkeyp
     assert list(lead) == head
     rest = list(args[2 + len(head):])
     cap = 64 if depth <= 64 else 128
-    if name in SHARED_STACK:
-        assert rest[0] == 0  # the rays' pointer: no capacity
-        cap = _build.MAX_STACK
-    else:
-        assert rest[0] == cap and rest[1] == 0  # the capacity, then the rays' pointer
+    assert rest[0] == cap and rest[1] == 0  # the capacity, then the rays' pointer
     assert args[-2:] == (40, 0)  # R, the stream
     assert traverse_cuda.LAUNCHES[key] == launches[key] + 1
     assert traverse_cuda.STACK_LAUNCHES[key] == {**stacks[key], cap: stacks[key][cap] + 1}

@@ -20,6 +20,12 @@ Tolerances are those of test_torch_traverse.py (XLA on the CPU fuses
 multiply-adds, the port does not): t within rtol 1e-5, u/v within 2e-5,
 prims equal except on at most max(2, R / 50000) lanes (exact-t ties);
 occlusion flags equal.
+
+The JAX stream=True kernels DMA one row per packet slot of 32 sorted rays;
+on the card B5a and B5b walk one ray a lane in the plain walk's order,
+bit-equal to it (chip_smoke.py holds them so there,
+tests/test_torch_walk_host.py holds their walks on the host), so their
+plain version is the wrappers' CPU route here.
 """
 
 import jax.numpy as jnp

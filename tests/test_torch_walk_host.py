@@ -1,13 +1,12 @@
-"""The two-level walks of the CUDA kernels, built for the host and held bit
-for bit against the plain walk, on the CPU.
+"""The walks of the CUDA kernels, built for the host and held bit for bit
+against the plain walk, on the CPU.
 
 csrc/traverse_common.cuh holds the walks that B3/B4 (csrc/traverse_unified.cu),
 B5c/B5d and B6c/B6d run: closest_two_level and any_two_level over a row
 source. Here g++ compiles that header against a small shim of cuda_runtime.h
 (written into the test's temporary directory: the CUDA qualifiers, float2,
-float4, __ldg, the bit casts, __popc, and an __activemask that has the
-closest walk leave its node loop early at every third node row, and counts
-its calls) with -ffp-contract=off, the counterpart of nvcc's -fmad=false, into
+float4, __ldg, the bit casts, __popc, and an __activemask that has a walk
+leave its node loop early at every third node row, and counts its calls) with -ffp-contract=off, the counterpart of nvcc's -fmad=false, into
 a harness that runs both walks over GlobalRows for every ray, loaded
 through ctypes. The harness must equal ops/traverse.py's
 traverse_closest_unified / traverse_any_unified bit for bit: t, prim,
@@ -31,6 +30,17 @@ node loop left early; on an overflow (prim = -2, t = 1e20, and the u, v of
 the nearest hit the walk found on, as the plain walk keeps them), with and
 without inactive lanes; and on one-leaf tables, which the walk starts at
 leaf 0.
+
+The any walk over a flat table (FlatRows: B5b in csrc/traverse_stream.cu,
+and B7b in csrc/traverse_packet.cu at arity 2) must equal ops/traverse.py's
+traverse_any bit for bit on the flat parity hall at arities 2, 4 and 8 and
+leaf sizes 4 and 5: on primary rays at t_max = 1.001 x the closest hit, on
+bounce rays at 0.999 x, and on the two masked shadow-ray wavefronts of the
+first bounce of a frame of the hall that the port renders on the CPU, at
+both stack capacities, its node loop (binary rows only) left early; on a
+cut-bound table whose overflow reports the ray
+occluded at the push that does not fit, with and without masked-out lanes;
+and on one-leaf tables.
 
 This is the walk's logic on the host, not the kernel: chip_smoke.py holds
 the kernels themselves to the plain walk on the card.
@@ -84,9 +94,9 @@ inline float __int_as_float(int i) { float x; memcpy(&x, &i, 4); return x; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
-// one lane of a warp alone at every third call, so that the closest walk's
-// node loop is left early (a lane still at a node row) as often as it runs
-// on; the harness reports the calls
+// one lane of a warp alone at every third call, so that a walk's node loop
+// is left early (a lane still at a node row) as often as it runs on; the
+// harness reports the calls
 static unsigned crt_calls;
 inline unsigned __activemask() { return ++crt_calls % 3 ? 0xffffffffu : 1u; }
 """
@@ -129,9 +139,25 @@ static void flat_closest_all(const float* nodes, const float* leaf_rows, int n_l
                       v_out, i);
 }
 
+// B5b's and B7b's kernels: the same any walk over a flat table
+template <int A, int S>
+static void flat_any_all(const float* nodes, const float* leaf_rows, int n_leaves, int L,
+                         int depth, const float* orig, const float* dir, const float* t_min,
+                         const float* t_max, const uint8_t* mask, uint8_t* occluded, int R) {
+  const FlatRows<A> t{{nodes, leaf_rows, n_leaves, 0, L}};
+  for (int i = 0; i < R; ++i) any_ray<A, S>(t, depth, orig, dir, t_min, t_max, mask, occluded, i);
+}
+
 extern "C" {
 
 unsigned activemask_calls() { return crt_calls; }
+
+int walk_flat_any(const float* nodes, const float* leaf_rows, int n_leaves, int arity, int L,
+                  int depth, int cap, const float* orig, const float* dir, const float* t_min,
+                  const float* t_max, const uint8_t* mask, uint8_t* occluded, int R) {
+  CRT_BY_ARITY_STACK(arity, cap, depth, flat_any_all<A, S>(
+      nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, mask, occluded, R));
+}
 
 int walk_flat_closest(const float* nodes, const float* leaf_rows, int n_leaves, int arity, int L,
                       int depth, int cap, const float* orig, const float* dir, const float* t_min,
@@ -187,10 +213,16 @@ def scene():
 
 @pytest.fixture(scope="module")
 def shadow(scene):
+    """The two masked shadow-ray wavefronts of the first bounce of one W x H
+    frame of the parity grid (_shadow_rays)."""
+    return _shadow_rays(scene)
+
+
+def _shadow_rays(scene):
     """The two masked shadow-ray wavefronts of the first bounce (light
     samples, then bsdf samples toward the lights) of one W x H frame of the
-    parity grid, captured from the port's renderer on the CPU as
-    chip_smoke.py captures a main path's: [(orig, dir, t_max, mask)]."""
+    scene, captured from the port's renderer on the CPU as chip_smoke.py
+    captures a main path's: [(orig, dir, t_max, mask)]."""
     b = CudaBackend(device="cpu")
     b.initialize(W, H)
     b.set_scene(scene)
@@ -456,14 +488,11 @@ def test_flat_overflow_gives_prim_minus_two_and_the_plain_walks_uv(walks, flat_s
         assert bool((want[1][off] == -1).all() and (want[2][off] == 0).all())
 
 
-@pytest.mark.parametrize("leaf", LEAVES)
-@pytest.mark.parametrize("arity", ARITIES)
-def test_flat_walk_on_a_one_leaf_table(walks, flat_scene, arity, leaf):
-    """A table of one leaf (three triangles, the native build's leaf row)
-    starts the walk at leaf 0, never at a node row: its one node row is
-    replaced by empty slots (boxes at 1e30, which every ray misses), and
-    the walk equals the plain walk bit for bit on seeded rays aimed at the
-    triangles, a quarter of them inactive, with hits."""
+def _one_leaf(flat_scene, arity, leaf):
+    """A table of one leaf (three triangles of the scene, the native build's
+    leaf row) whose one node row is replaced by empty slots (boxes at 1e30,
+    which every ray misses), and 512 seeded rays aimed at the triangles, a
+    quarter of them inactive: (table, orig, dirs, t_min, active)."""
     mp = pytest.MonkeyPatch()
     try:
         mp.setenv("CHAMELEONRT_LEAF_SIZE", str(leaf))
@@ -486,9 +515,140 @@ def test_flat_walk_on_a_one_leaf_table(walks, flat_scene, arity, leaf):
     dirs = target - orig
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
     orig, dirs = (torch.from_numpy(x.astype(np.float32)).contiguous() for x in (orig, dirs))
-    t_min = torch.zeros((R,))
-    active = torch.from_numpy(rng.random(R) < 0.75)
-    t_max = torch.full((R,), 1e20)
+    return table, orig, dirs, torch.zeros((R,)), torch.from_numpy(rng.random(R) < 0.75)
+
+
+@pytest.mark.parametrize("leaf", LEAVES)
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_walk_on_a_one_leaf_table(walks, flat_scene, arity, leaf):
+    """A table of one leaf (_one_leaf) starts the walk at leaf 0, never at a
+    node row, and the walk equals the plain walk bit for bit on seeded rays
+    aimed at the triangles, a quarter of them inactive, with hits."""
+    table, orig, dirs, t_min, active = _one_leaf(flat_scene, arity, leaf)
+    t_max = torch.full((orig.shape[0],), 1e20)
     want = plain.traverse_closest(table, orig, dirs, t_min, active, t_max)
     _assert_bit_equal(_flat_closest(walks, table, orig, dirs, t_min, active, t_max, 64), want)
     assert 20 < int((want[1] >= 0).sum()) < int(active.sum())
+
+
+@pytest.fixture(scope="module")
+def flat_shadow(flat_scene):
+    """The two masked shadow-ray wavefronts of the first bounce of one W x H
+    frame of the flat parity hall (_shadow_rays)."""
+    return _shadow_rays(flat_scene)
+
+
+def _flat_any(walks, table, orig, dirs, t_min, t_max, mask, cap):
+    R = orig.shape[0]
+    occ = torch.empty((R,), dtype=torch.bool)
+    depth = traverse_cuda.stack_depth(table)
+    err = walks.walk_flat_any(_ptr(table.nodes), _ptr(table.leaf_rows), table.num_leaves,
+                              table.arity, table.leaf_size, depth, cap,
+                              *map(_ptr, (orig, dirs, t_min, t_max, mask, occ)), R)
+    assert err == 0
+    return occ
+
+
+def _assert_flat_any_bit_equal(walks, table, orig, dirs, t_min, t_max, mask):
+    """any_two_level over FlatRows against plain.traverse_any at both stack
+    capacities. Returns the plain flags, the plain walk's node visits and
+    the walk's __activemask calls (its binary node loop's test)."""
+    count = plain.WalkCount(table)
+    want = plain.traverse_any(table, orig, dirs, t_min, t_max, mask, count=count)
+    before = walks.activemask_calls()
+    for cap in (64, 128):
+        assert torch.equal(_flat_any(walks, table, orig, dirs, t_min, t_max, mask, cap), want)
+    calls = (walks.activemask_calls() - before) % 2**32
+    return want, int(count.visits[0]), calls
+
+
+@pytest.mark.parametrize("rays", ["primary", "bounce", "shadow"])
+@pytest.mark.parametrize("leaf", LEAVES)
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_any_walk_equals_the_plain_walk_bit_for_bit(walks, flat_scene, flat_shadow, arity,
+                                                         leaf, rays):
+    """any_two_level over FlatRows (B5b's and B7b's walk) against
+    plain.traverse_any on the same flat table and rays: the occlusion flags
+    equal bit for bit at the 64- and 128-entry stack capacities, at t_max =
+    1.001 x the closest hit on primary rays (most of them occluded, mostly
+    by that very triangle), at 0.999 x on bounce rays from their hits (a
+    ray walks every box in front of its hit), and on the renderer's own
+    masked shadow rays of the first bounce at their t_max; each wavefront
+    takes at least 3 node rows of the plain walk. On binary rows the walk
+    took one __activemask call (its node loop's test) per node row of the
+    plain walk, so that the shim had it leave the node loop early; at
+    arities 4 and 8 none (one loop)."""
+    _, table = _flat_table(flat_scene, arity, leaf)
+
+    def node_loop_tests(calls, visits):
+        assert visits >= 3 and calls == (2 * visits if arity == 2 else 0)
+
+    if rays == "shadow":
+        for orig, dirs, t_max, mask in flat_shadow:
+            assert 0 < int(mask.sum()) < mask.numel()
+            occ, visits, calls = _assert_flat_any_bit_equal(
+                walks, table, orig, dirs, torch.full_like(t_max, EPSILON), t_max, mask)
+            node_loop_tests(calls, visits)
+            assert not bool(occ[~mask].any())
+        return
+    orig, dirs, t_min, active = _primary(flat_scene)
+    t_inf = torch.full((orig.shape[0],), 1e20)
+    t, prim, _, _ = plain.traverse_closest(table, orig, dirs, t_min, active, t_inf)
+    if rays == "bounce":
+        orig, dirs, t_min, active = _bounce(orig, dirs, t, prim)
+        t, prim, _, _ = plain.traverse_closest(table, orig, dirs, t_min, active, t_inf)
+    factor = 1.001 if rays == "primary" else 0.999
+    t_any = torch.where(prim >= 0, t * factor, torch.full_like(t, 100.0))
+    occ, visits, calls = _assert_flat_any_bit_equal(walks, table, orig, dirs,
+                                                    torch.full_like(t_min, EPSILON), t_any, active)
+    node_loop_tests(calls, visits)
+    hits = int((prim >= 0).sum())
+    assert hits > 50
+    if rays == "primary":
+        assert int(occ.sum()) > hits // 2
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_any_overflow_is_occluded_at_the_push(walks, flat_scene, arity, masked):
+    """A certified depth of 2 makes the flat any walk's stack 3 entries
+    deep: a push onto a full stack reports the ray occluded there, as the
+    plain walk does, bit for bit, on primary rays at t_max = 0.999 x their
+    closest hit, which without the cut are rarely occluded: so some lanes
+    are occluded by the overflow alone; masked: a seeded half of the lanes
+    masked out, which stay unoccluded."""
+    _, table = _flat_table(flat_scene, arity, 4)
+    cut = table._replace(max_depth=2)
+    assert traverse_cuda.stack_depth(cut) == plain.stack_limit(cut) == 3
+    orig, dirs, t_min, active = _primary(flat_scene)
+    t, prim, _, _ = plain.traverse_closest(table, orig, dirs, t_min, active,
+                                           torch.full((orig.shape[0],), 1e20))
+    if masked:
+        active = torch.from_numpy(np.random.default_rng(5).random(orig.shape[0]) < 0.5)
+    t_any = torch.where(prim >= 0, t * 0.999, torch.full_like(t, 100.0))
+    a_min = torch.full_like(t_min, EPSILON)
+    occ, _, _ = _assert_flat_any_bit_equal(walks, cut, orig, dirs, a_min, t_any, active)
+    uncut = plain.traverse_any(table, orig, dirs, a_min, t_any, active)
+    assert int((occ & ~uncut).sum()) > 0
+    if masked:
+        assert not bool(occ[~active].any())
+
+
+@pytest.mark.parametrize("leaf", LEAVES)
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_any_walk_on_a_one_leaf_table(walks, flat_scene, arity, leaf):
+    """The flat any walk on a table of one leaf (_one_leaf) starts at leaf
+    0, never at a node row, and equals the plain walk bit for bit on the
+    seeded rays, a quarter of them masked out, at t_max = 1.001 x the
+    closest hit on even lanes and 0.999 x on odd ones: occluded where the
+    cap lies past the hit, not where it stops short."""
+    table, orig, dirs, t_min, active = _one_leaf(flat_scene, arity, leaf)
+    R = orig.shape[0]
+    t, prim, _, _ = plain.traverse_closest(table, orig, dirs, t_min, active,
+                                           torch.full((R,), 1e20))
+    even = torch.arange(R) % 2 == 0
+    t_any = torch.where(prim >= 0, t * torch.where(even, 1.001, 0.999), torch.full_like(t, 100.0))
+    occ, _, _ = _assert_flat_any_bit_equal(walks, table, orig, dirs, torch.full_like(t, EPSILON),
+                                           t_any, active)
+    hit = prim >= 0
+    assert int((occ & hit & even).sum()) > 10 and not bool((occ & ~even).any())
