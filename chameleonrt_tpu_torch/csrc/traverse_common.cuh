@@ -25,17 +25,20 @@
 // any_two_level below, templates on a row source (GlobalRows). The closest
 // walk runs node rows in a loop of their own that the warp leaves once most
 // of its lanes wait at a leaf; the any walk is one loop over node rows,
-// triangle leaves and instance entries (any_two_level says why). B5a and
-// B7a run the same closest walk, B5b and B7b the same any walk, over a flat
-// table (FlatRows: no TLAS, no instance entries, so the world-ray restore
-// and the entry branch compile away).
+// triangle leaves and instance entries (any_two_level says why). B1, B5a,
+// B6a and B7a run the same closest walk, B5b and B7b the same any walk,
+// over a flat table (FlatRows: no TLAS, no instance entries, so the
+// world-ray restore and the entry branch compile away). B2 and B6b keep
+// walks of their own (traverse_flat.cu, traverse_persistent.cu).
 //
 // Stacks: depth, the SAH build's certified bound + 1, reaches 76 on BVH8
 // tables of the main-path scenes. Every kernel walks one ray a lane and
 // keeps a local array of S entries, S a template parameter instantiated at
 // kSmallStack and kMaxStack; its C entry switches on the capacity the
 // wrapper picks (CRT_BY_STACK), the smallest that holds depth, so a BVH4
-// table keeps the 64-entry array.
+// table keeps the 64-entry array. The closest walk over a flat table (B1,
+// B5a, B6a, B7a) keeps its top kShortStack entries in shared memory
+// instead, 4 KB a block of kThreads (closest_two_level says why only there).
 
 #pragma once
 
@@ -50,6 +53,9 @@ constexpr int kMaxStack = 128;    // _build.MAX_STACK
 constexpr int kMaxLeaf = 16;      // _build.MAX_LEAF
 constexpr int kThreads = 128;
 constexpr int kNodeLanes = 8;  // the walks' node loops: lanes that keep one going
+// the top stack entries that the closest walk keeps in shared memory over a
+// flat table (ring_column; B1, B5a, B6a, B7a)
+constexpr int kShortStack = 8;
 constexpr int kDone = 0x7FFFFFFF;
 constexpr float kTMax = 1e20f;
 constexpr float kBig = 1e30f;
@@ -353,7 +359,7 @@ struct GlobalRows {
   }
 };
 
-// A flat table's rows (B5a, B5b, B7a, B7b): GlobalRows with n_tri the number of
+// A flat table's rows (B1, B5a, B5b, B6a, B7a, B7b): GlobalRows with n_tri the number of
 // leaves, every leaf a triangle leaf and no TLAS. The walk starts at the
 // root row, or at leaf 0 where the table is a single leaf.
 template <int A>
@@ -362,17 +368,73 @@ struct FlatRows : GlobalRows<A> {
   __device__ __forceinline__ int root() const { return this->n_tri == 1 ? -1 : 0; }
 };
 
-// The closest-hit walk of one live world ray w over the rows of t (B3,
-// B5c, B6c; over FlatRows B5a and B7a): the rules of traverse_unified.cu's
-// header, a stack of S entries of which depth - 1 may be filled. Updates
-// (best, best_prim, best_inst, best_u, best_v) on each nearer hit. An
-// overflow sets best_prim = -2: a two-level walk ends there (its result is
-// then a miss, u = v = 0), a flat one drops the pushes that do not fit and
-// walks on, as the plain walk does, whose u and v a flat overflow reports
-// (traverse_flat.cu's B1 ends at once). Node rows run in a loop of their
-// own (Aila and Laine's "while-while", HPG 2009), so the lanes of a warp
-// that are descending take their node rows together, and a lane at a
-// triangle leaf or an instance entry waits at the loop's end. The warp leaves the node loop once fewer
+// The closest walk's stack: a local array of S entries, of which depth - 1
+// may be filled, pushed and popped in LIFO order (sp entries). With K > 0
+// (a power of two) its top K entries sit in shared memory instead, in a
+// ring of K slots a thread laid out [slot][threadIdx.x] (ring_column), so
+// at kThreads = 128 every lane of a warp reads its own bank: entries
+// [0, lo) are in the local array at their own index, [lo, sp) in the ring
+// at slot index mod K. A push onto a full ring first spills the ring's
+// oldest entry to the local array; a pop on an empty ring takes the local
+// array's top. K = 0 is the local array alone.
+template <int K>
+__device__ __forceinline__ int* ring_column() {
+  if constexpr (K > 0) {
+    static_assert((K & (K - 1)) == 0, "the ring holds a power of two of entries");
+    __shared__ int rings[K * kThreads];
+    return rings + threadIdx.x;
+  } else {
+    return nullptr;
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void push_entry(int* stack, int& sp, int& lo, int* ring, int code) {
+  if constexpr (K > 0) {
+    if (sp - lo == K) {
+      stack[lo] = ring[(lo & (K - 1)) * kThreads];
+      ++lo;
+    }
+    ring[(sp & (K - 1)) * kThreads] = code;
+    ++sp;
+  } else {
+    stack[sp++] = code;
+  }
+}
+
+// the top entry, or kDone on an empty stack
+template <int K>
+__device__ __forceinline__ int pop_entry(const int* stack, int& sp, int& lo, const int* ring) {
+  if constexpr (K > 0) {
+    if (sp == 0) return kDone;
+    --sp;
+    if (sp < lo) {
+      lo = sp;
+      return stack[sp];
+    }
+    return ring[(sp & (K - 1)) * kThreads];
+  } else {
+    return sp > 0 ? stack[--sp] : kDone;
+  }
+}
+
+// The closest-hit walk of one live world ray w over the rows of t (B1, B3,
+// B5a, B5c, B6a, B6c, B7a; over FlatRows B1, B5a, B6a and B7a): the rules
+// of traverse_unified.cu's header, a stack of S entries of which depth - 1
+// may be filled. Over FlatRows its top kShortStack entries sit in shared
+// memory (ring_column): on an H100 80GB HBM3 at 700 W
+// (scripts/kernel_turns.py, PERF.md section 6) that took 5-21% off the
+// flat walks on the hall's and the city's wavefronts, where over
+// GlobalRows it cost B3, B5c and B6c 4-11% on the San Miguel proxies', so the
+// two-level walk keeps its stack in local memory.
+// Updates (best, best_prim, best_inst, best_u, best_v) on each nearer hit.
+// An overflow sets best_prim = -2: a two-level walk ends there (its result
+// is then a miss, u = v = 0), a flat one drops the pushes that do not fit
+// and walks on, as the plain walk does, whose u and v a flat overflow
+// reports. Node rows run in a loop of their own (Aila and Laine's
+// "while-while", HPG 2009), so the lanes of a warp that are descending take
+// their node rows together, and a lane at a triangle leaf or an instance
+// entry waits at the loop's end. The warp leaves the node loop once fewer
 // than kNodeLanes of its lanes are still in it: the waiting lanes then take
 // their leaves together, and the others resume their node rows after.
 // Where the warp took the loop to its end, its lanes waited on a few long
@@ -383,11 +445,14 @@ template <int A, int S, typename T>
 __device__ __forceinline__ void closest_two_level(const T& t, int depth, const Ray& w,
                                                   float& best, int& best_prim, int& best_inst,
                                                   float& best_u, float& best_v) {
+  constexpr int K = T::kTwoLevel ? 0 : kShortStack;
   Ray r = w;
   int inst = 0;  // the instance whose object space r holds
   bool overflow = false;  // a flat walk's dropped push
   int stack[S];
   int sp = 0;
+  [[maybe_unused]] int lo = 0;  // K > 0: entries below lo are in stack, the others in ring
+  [[maybe_unused]] int* const ring = ring_column<K>();
   int cur = t.root();
   while (cur != kDone) {
     // 0 <= cur < kDone: a node row
@@ -407,11 +472,11 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
             }
             overflow = true;
           } else {
-            stack[sp++] = codes[k];
+            push_entry<K>(stack, sp, lo, ring, codes[k]);
           }
         }
       }
-      cur = keys[0] < kBig ? codes[0] : (sp > 0 ? stack[--sp] : kDone);
+      cur = keys[0] < kBig ? codes[0] : pop_entry<K>(stack, sp, lo, ring);
       if constexpr (T::kTwoLevel)
         if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;  // a pop onto a TLAS row
       if (__popc(__activemask()) < kNodeLanes) break;  // most of the warp waits
@@ -431,7 +496,7 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
       if (lp >= 0) {  // some slot hit, so lt < best
         best = lt; best_prim = lp; best_inst = inst; best_u = lu; best_v = lv;
       }
-      cur = sp > 0 ? stack[--sp] : kDone;
+      cur = pop_entry<K>(stack, sp, lo, ring);
       if constexpr (T::kTwoLevel)
         if (in_world(cur, t.n_tri, t.tlas_lo)) r = w;
     } else if constexpr (T::kTwoLevel) {
@@ -515,9 +580,10 @@ __device__ __forceinline__ bool any_two_level(const T& t, int depth, const Ray& 
 
 // Ray i of a wavefront through closest_two_level over the rows of t, its
 // result written at i (B3, B5c, B6c): a miss, an inactive lane or an
-// overflow is (1e20, prim, -1, 0, 0) with prim -1 or -2. Over FlatRows (B5a,
-// B7a) there is no instance (inst_out is not written) and a flat overflow
-// keeps the u and v of its walk's nearest hit, as the plain walk does.
+// overflow is (1e20, prim, -1, 0, 0) with prim -1 or -2. Over FlatRows (B1,
+// B5a, B6a, B7a) there is no instance (inst_out is not written) and a flat
+// overflow keeps the u and v of its walk's nearest hit, as the plain walk
+// does.
 template <int A, int S, typename T>
 __device__ __forceinline__ void closest_ray(const T& t, int depth, const float* orig,
                                             const float* dir, const float* t_min,

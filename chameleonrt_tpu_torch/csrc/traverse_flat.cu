@@ -14,24 +14,44 @@
 // plain version are in traverse_common.cuh; each kernel is a template on
 // the node rows' arity A (2, 4 or 8), as the Pallas kernel takes any arity
 // of its sorting networks (traverse_slotlane.py:994), and on its stack
-// capacity S (64 or 128); its C entry switches on both. Here:
-//   - B1 keeps a hit on t < best (ties inside a leaf go to the highest
-//     slot); on a stack overflow it reports prim = -2, t = 1e20;
-//   - B2 stops at the first t_min < t < t_max; an overflow is occluded;
-//   - a miss or inactive lane is (1e20, -1, 0, 0); B2 writes occluded & mask.
+// capacity S (64 or 128); its C entry switches on both.
+//   - B1 is closest_ray over FlatRows (traverse_common.cuh), the walk of B5a
+//     and B7a under its own name, so that launch counts and profiles tell
+//     the tiers apart: node rows in a loop the warp leaves once fewer than
+//     kNodeLanes of its lanes are in it, a leaf's slots two at a time, and
+//     the top kShortStack = 8 stack entries in shared memory ([slot][thread],
+//     older entries spilled to the local array of S). It is bit-equal to
+//     the plain walk: a hit is kept on t < best, ties inside a leaf go to
+//     the highest slot, a stack overflow drops the pushes that do not fit
+//     and reports prim = -2, t = 1e20 with the walk's u, v, and a miss or
+//     inactive lane is (1e20, -1, 0, 0);
+//   - B2 walks on its own (one loop over node rows and leaves, a leaf slot
+//     by slot, a local stack), stops at the first t_min < t < t_max, and
+//     reports an overflow occluded; it writes occluded & mask.
 // Built with -fmad=false, so t agrees with the plain version bit for bit.
 //
-// What bounds it on the H100: dependent row fetches. Each step of a ray
+// What bounds them on the H100: dependent row fetches. Each step of a ray
 // waits on one node row (64, 128 or 256 bytes at A = 2, 4, 8) or one
-// 160-byte leaf row whose address
-// came from the previous fetch, so the kernel is latency bound; the hall's
-// tables (224K triangles, a few MB) stay resident in the 50 MB L2, so the
-// fetches are L2 hits, not HBM traffic. Rays diverge inside a warp, so a
-// warp pays the union of its rays' steps.
-// Later work: warp-coherent packets (one row fetch shared by a warp on
-// the sorted wavefront), FMA contraction and the stack in shared memory.
-// Persistent threads pulling rays from an atomic counter are B6a-B6d
-// (traverse_persistent.cu), the same per-lane walk fed from a work queue.
+// 160-byte leaf row whose address came from the previous fetch, so the
+// kernels are latency bound; the hall's tables (224K triangles, 13.8 MB)
+// stay resident in the 50 MB L2, so the fetches are L2 hits, not HBM
+// traffic. Rays diverge inside a warp, so a warp pays the union of its
+// rays' steps. On an H100 80GB HBM3 at 700 W (scripts/kernel_turns.py,
+// PERF.md section 6), on the hall's BVH4 table, B1's own walk took 0.227 /
+// 0.353 ms on the sorted primary / bounce wavefronts; B3's walk over
+// FlatRows 0.223 / 0.340 with its stack in local memory, and 0.208 / 0.284
+// with its top 8 entries in shared memory, which also took 16-17% off the
+// later closest-hit wavefronts of a hall frame (a pop feeds the next row's
+// address; the likely cause, not measured, is that shared memory answers
+// it sooner than the L1, where the local stack sat beside the rows). 16
+// shared entries read within the
+// spread of duplicate trees of 8 and take twice the shared memory; the
+// two-level walk (B3, B5c, B6c) measured 4-11% slower with either and keeps
+// its local stack.
+// Later work (ROADMAP queue B): B2 onto the flat any walk (any_ray over
+// FlatRows, B5b's). Persistent warps pulling rays from an atomic counter
+// are B6a-B6d (traverse_persistent.cu), the same per-lane walks fed from a
+// work queue.
 
 #include "traverse_common.cuh"
 
@@ -39,6 +59,9 @@ namespace {
 
 using namespace crt;
 
+// B1: ray i walks the flat table alone, in the plain walk's order
+// (closest_ray over FlatRows: B3's walk with the two-level branches
+// compiled away; B5a's code under B1's name).
 template <int A, int S>
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
@@ -47,53 +70,11 @@ closest_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_r
                const float* __restrict__ t_max, const uint8_t* __restrict__ active,
                float* __restrict__ t_out, int* __restrict__ prim_out,
                float* __restrict__ u_out, float* __restrict__ v_out, int R) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  float best = fminf(kTMax, t_max[i]);
-  int best_prim = -1;
-  float best_u = 0.0f, best_v = 0.0f;
-  if (active[i]) {
-    Ray r = load_ray(orig, dir, t_min, i);
-    int stack[S];
-    int sp = 0;
-    bool overflow = false;
-    int cur = n_leaves == 1 ? -1 : 0;  // a one-leaf table starts at leaf 0
-    while (cur != kDone) {
-      if (cur >= 0) {
-        float keys[A];
-        int codes[A];
-        node_step<A>(nodes, cur, r, best, keys, codes);
-        for (int k = A - 1; k >= 1; --k) {
-          if (keys[k] < kBig) {
-            if (sp >= depth - 1) { overflow = true; break; }
-            stack[sp++] = codes[k];
-          }
-        }
-        if (overflow) break;
-        if (keys[0] < kBig) { cur = codes[0]; continue; }
-      } else {
-        const float* lrow = leaf_rows + (size_t)(-cur - 1) * 10 * L;
-        float lt = best, lu = 0.0f, lv = 0.0f;
-        int lp = -1;
-        for (int j = 0; j < L; ++j) {
-          float t, u, v;
-          int prim;
-          if (mt_slot(lrow, L, j, r, best, &t, &u, &v, &prim) && t <= lt) {
-            lt = t; lu = u; lv = v; lp = prim;
-          }
-        }
-        if (lp >= 0) {  // some slot hit, so lt < best
-          best = lt; best_prim = lp; best_u = lu; best_v = lv;
-        }
-      }
-      cur = sp > 0 ? stack[--sp] : kDone;
-    }
-    if (overflow) best_prim = -2;
-  }
-  t_out[i] = best_prim < 0 ? kTMax : best;
-  prim_out[i] = best_prim;
-  u_out[i] = best_u;
-  v_out[i] = best_v;
+  const FlatRows<A> t{{nodes, leaf_rows, n_leaves, 0, L}};
+  closest_ray<A, S>(t, depth, orig, dir, t_min, t_max, active, t_out, prim_out, nullptr, u_out,
+                    v_out, i);
 }
 
 template <int A, int S>

@@ -15,7 +15,8 @@
 // walk's per-lane order, over FlatRows at A = 2 (traverse_common.cuh), each
 // a template on its stack capacity S (64 or 128) whose C entry switches on
 // it:
-//   - B7a, closest hit: closest_ray, B5a's walk (traverse_stream.cu). It is
+//   - B7a, closest hit: closest_ray, B5a's walk (traverse_stream.cu; the
+//     top kShortStack stack entries in shared memory). It is
 //     bit-equal to ops/traverse.py traverse_closest on the same binary
 //     table: a hit is kept on t < best, ties inside a leaf go to the
 //     highest slot, a stack overflow reports prim = -2 as there, a miss or
@@ -41,7 +42,9 @@
 // steps of BVH4 for half the bytes a row. On an H100 80GB HBM3 at 700 W
 // (scripts/kernel_turns.py, PERF.md section 6) the per-lane B7a took 0.24 /
 // 0.40 ms on the hall's sorted primary / bounce wavefronts, as B1 on the
-// same binary table, where the packet B7a took 0.37 / 1.11 ms. The per-lane
+// same binary table, where the packet B7a took 0.37 / 1.11 ms; the top 8
+// stack entries in shared memory took 11% / 21% off it (0.229 / 0.382 ms
+// with a local stack, 0.205 / 0.304 with them). The per-lane
 // B7b took 0.19 / 0.21 ms there and 0.15 / 0.11 ms on the first-bounce
 // light / bsdf shadow rays of a grid_packet=True frame, where the packet
 // B7b took 0.28 / 0.48 and 0.25 / 0.13 ms, and B2 on the same binary table
@@ -53,8 +56,8 @@
 // every lane as broadcast 16-byte loads (no shared slot, no __syncwarp a
 // step) and subtrees of fewer than kNodeLanes lanes walked per lane: 1.3x /
 // 2.0x the per-lane B7a's time there. Built with -fmad=false, like B1-B6d.
-// Later work (ROADMAP queue B): none for these two; B1/B2 may take the same
-// flat walks.
+// Later work (ROADMAP queue B): none for these two; B1 and B6a run B7a's
+// walk at every arity.
 
 #include "traverse_common.cuh"
 

@@ -19,30 +19,34 @@
 //   - a device counter, reset in stream order before each launch, hands out
 //     ray indices, kFetch consecutive ones to a warp with one atomic;
 //   - each lane walks its own ray in the plain walk's per-lane order
-//     (near-first through the sorting network, leaves as it meets them, a
-//     local-memory stack of `depth` entries).
+//     (near-first through the sorting network, leaves as it meets them).
 // Two schedules share that queue:
-//   - B6c and B6d fetch per warp (per_warp), as the TPU kernel's slot pulls
-//     its next packet: the warp's 32 lanes take 32 consecutive sorted rays,
-//     each walks its ray to the end with the two-level walk of B3 or B4
-//     (closest_ray / any_ray over GlobalRows, traverse_common.cuh: leaf
-//     slots two at a time, entry rows 16 bytes at a time, and for closest
-//     hit node rows in a loop the warp leaves once most of its lanes wait),
-//     and the warp meets at __syncwarp() before its next fetch. A warp's
-//     lanes always hold neighbours in the sorted wavefront, and no ballot or
-//     refill runs between two row steps;
-//   - B6a and B6b refill per lane (persistent): a lane whose ray ends takes
-//     the next index of the warp's batch at once (handed out by a ballot, in
+//   - B6a, B6c and B6d fetch per warp (per_warp), as the TPU kernel's slot
+//     pulls its next packet: the warp's 32 lanes take 32 consecutive sorted
+//     rays, each walks its ray to the end with the walk of B1, B3 or B4
+//     (traverse_common.cuh: closest_ray over FlatRows for B6a, with the top
+//     kShortStack = 8 stack entries in shared memory; closest_ray / any_ray
+//     over GlobalRows for B6c / B6d, with local stacks: leaf slots two at a
+//     time, entry rows 16 bytes at a time, and for closest hit node rows in
+//     a loop the warp leaves once most of its lanes wait), and the warp
+//     meets at __syncwarp() before its next fetch. A warp's lanes always
+//     hold neighbours in the sorted wavefront, and no ballot or refill runs
+//     between two row steps;
+//   - B6b refills per lane (persistent): a lane whose ray ends takes the
+//     next index of the warp's batch at once (handed out by a ballot, in
 //     lane order), and every row step (step) runs inside a warp-wide ballot,
-//     an any-vote and the refill bookkeeping.
+//     an any-vote and the refill bookkeeping; its walk is B2's, a local
+//     stack and a leaf's slots one at a time.
 // The TPU kernel's phase alternation, deferred leaf FIFO, merged phase,
 // pinned tree top and VMEM gates schedule a lockstep vector unit and are
 // not carried over. Every table sits in global memory behind the L2, so one
 // kernel per variant serves both `stream` values. Results keep the plain
 // version's contract (chameleonrt_tpu_torch/ops/traverse.py) and are written
 // by ray index:
-//   - B6a (t, prim, u, v), B6c (t, prim, inst, u, v): a miss or inactive
-//     lane is (1e20, -1, [-1,] 0, 0), a stack overflow prim = -2, as B1/B3;
+//   - B6a (t, prim, u, v), B6c (t, prim, inst, u, v): bit-equal to the plain
+//     walk, as B1/B3: a miss or inactive lane is (1e20, -1, [-1,] 0, 0), a
+//     stack overflow prim = -2 (B6a with the u, v of the hits its walk finds
+//     on, as the plain flat walk);
 //   - B6b, B6d: occluded & mask; the walk stops at the first
 //     t_min < t < t_max, and an overflow is occluded, as B2/B4.
 // Like B1-B4, each kernel is a template on the node rows' arity A (2, 4
@@ -57,15 +61,20 @@
 // for its longest ray; the price is coherence, since a warp's lanes soon
 // hold rays from different parts of the sorted wavefront, and a ballot, an
 // any-vote and the refill each row step. On an H100 80GB HBM3 at 700 W the
-// price was the larger: B6a-B6d took 0.97-1.37x the time of B1-B4 on the
-// same 921,600-ray wavefronts (chip_smoke.py, phase 3). Fetching per warp
-// took 17-20% off B6c and 9-22% off B6d on the same walks, shadow rays
-// included (scripts/kernel_turns.py; PERF.md section 6). Measured for B6d
-// and left out: packing a batch's masked-in rays into lanes, up to 2 or 4
-// fetches a round, which lost 5-20% to the plain per-warp fetch on the
-// main path's shadow rays and 0-3% on the others (lanes then hold rays
-// further apart, and a sparse wavefront's time is that of its longest
-// walks).
+// price was the larger: the refilling B6a-B6d took 0.97-1.37x the time of
+// B1-B4 on the same 921,600-ray wavefronts (chip_smoke.py, phase 3).
+// Fetching per warp took 17-20% off B6c and 9-22% off B6d on the same
+// walks, shadow rays included, and 12-21% off B6a on the hall's BVH4 table
+// (0.302 / 0.401 ms on its primary / bounce rays with the refill, 0.237 /
+// 0.352 per warp over B1's walk), where the shared stack entries took a
+// further 5-17% (0.215 / 0.285 ms; scripts/kernel_turns.py, PERF.md
+// section 6). Measured for B6d and left out: packing a batch's masked-in
+// rays into lanes, up to 2 or 4 fetches a round, which lost 5-20% to the
+// plain per-warp fetch on the main path's shadow rays and 0-3% on the
+// others (lanes then hold rays further apart, and a sparse wavefront's time
+// is that of its longest walks).
+// Later work (ROADMAP queue B): B6b per warp over the flat any walk; the
+// refill then has no user left.
 
 #include "traverse_common.cuh"
 
@@ -97,22 +106,17 @@ struct Params {
   int R;
 };
 
-// One lane's walk (B6a, B6b).
+// One lane's any-hit walk (B6b).
 struct Walk {
   Ray r;
-  float tmax;  // closest hit: the best t so far; any hit: t_max
-  float u, v;
-  int prim;    // closest hit: the best prim so far (-2 after an overflow)
+  float tmax;
   int cur, sp;
-  bool occ;    // any hit
+  bool occ;
 };
 
-template <bool kAny>
 __device__ __forceinline__ void start(const Params& p, Walk& s, int i) {
   s.r = load_ray(p.orig, p.dir, p.t_min, i);
-  s.tmax = kAny ? p.t_max[i] : fminf(kTMax, p.t_max[i]);
-  s.u = 0.0f; s.v = 0.0f;
-  s.prim = -1;
+  s.tmax = p.t_max[i];
   s.sp = 0;
   s.occ = false;
   if (!p.flag[i]) s.cur = kDone;
@@ -124,7 +128,7 @@ __device__ __forceinline__ int pop(Walk& s, const int* stack) {
 }
 
 // One row of the walk at s.cur (not kDone); ends the walk with s.cur = kDone.
-template <bool kAny, int A>
+template <int A>
 __device__ __forceinline__ void step(const Params& p, Walk& s, int* stack) {
   const int cur = s.cur;
   if (cur >= 0) {
@@ -133,9 +137,8 @@ __device__ __forceinline__ void step(const Params& p, Walk& s, int* stack) {
     node_step<A>(p.nodes, cur, s.r, s.tmax, keys, codes);
     for (int k = A - 1; k >= 1; --k) {
       if (keys[k] < kBig) {
-        if (s.sp >= p.depth - 1) {  // overflow: closest hit reports -2, any hit occluded
-          if (kAny) s.occ = true;
-          else s.prim = -2;
+        if (s.sp >= p.depth - 1) {  // overflow reports occluded
+          s.occ = true;
           s.cur = kDone;
           return;
         }
@@ -146,50 +149,22 @@ __device__ __forceinline__ void step(const Params& p, Walk& s, int* stack) {
     return;
   }
   const float* lrow = p.leaf_rows + (size_t)(-cur - 1) * 10 * p.L;
-  if (kAny) {
-    for (int j = 0; j < p.L; ++j) {
-      float t, u, v;
-      int prim;
-      if (mt_slot(lrow, p.L, j, s.r, s.tmax, &t, &u, &v, &prim)) {
-        s.occ = true;
-        s.cur = kDone;
-        return;
-      }
-    }
-  } else {
-    float lt = s.tmax, lu = 0.0f, lv = 0.0f;
-    int lp = -1;
-    for (int j = 0; j < p.L; ++j) {
-      float t, u, v;
-      int prim;
-      if (mt_slot(lrow, p.L, j, s.r, s.tmax, &t, &u, &v, &prim) && t <= lt) {
-        lt = t; lu = u; lv = v; lp = prim;
-      }
-    }
-    if (lp >= 0) {  // some slot hit, so lt < the best t
-      s.tmax = lt; s.prim = lp; s.u = lu; s.v = lv;
+  for (int j = 0; j < p.L; ++j) {
+    float t, u, v;
+    int prim;
+    if (mt_slot(lrow, p.L, j, s.r, s.tmax, &t, &u, &v, &prim)) {
+      s.occ = true;
+      s.cur = kDone;
+      return;
     }
   }
   s.cur = pop(s, stack);
 }
 
-// The ended walk's result, at its ray's index.
-template <bool kAny>
-__device__ __forceinline__ void finish(const Params& p, const Walk& s, int i) {
-  if (kAny) {
-    p.occluded[i] = s.occ ? 1 : 0;
-  } else {  // B1's outputs, u and v included
-    p.t_out[i] = s.prim < 0 ? kTMax : s.tmax;
-    p.prim_out[i] = s.prim;
-    p.u_out[i] = s.u;
-    p.v_out[i] = s.v;
-  }
-}
-
-// The persistent loop. Every lane of a warp stays in it until a warp-wide
-// vote finds no lane with a ray after the refill, which happens only once
-// the queue is empty, so every *_sync intrinsic sees all 32 lanes.
-template <bool kAny, int A, int S>
+// The per-lane refill (B6b). Every lane of a warp stays in the loop until a
+// warp-wide vote finds no lane with a ray after the refill, which happens
+// only once the queue is empty, so every *_sync intrinsic sees all 32 lanes.
+template <int A, int S>
 __device__ __forceinline__ void persistent(const Params& p) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
@@ -213,15 +188,15 @@ __device__ __forceinline__ void persistent(const Params& p) {
       const int rank = __popc(idle & below);
       if (ray < 0 && rank < q_end - q_next) {
         ray = q_next + rank;
-        start<kAny>(p, s, ray);
+        start(p, s, ray);
       }
       q_next = min(q_next + __popc(idle), q_end);
     }
     if (!__any_sync(kFull, ray >= 0)) break;
     if (ray >= 0) {
-      if (s.cur != kDone) step<kAny, A>(p, s, stack);
+      if (s.cur != kDone) step<A>(p, s, stack);
       if (s.cur == kDone) {
-        finish<kAny>(p, s, ray);
+        p.occluded[ray] = s.occ ? 1 : 0;
         ray = -1;
       }
     }
@@ -229,16 +204,11 @@ __device__ __forceinline__ void persistent(const Params& p) {
 }
 
 template <int A, int S>
-__global__ void __launch_bounds__(kThreads) closest_persistent_kernel(const Params p) {
-  persistent<false, A, S>(p);
-}
-
-template <int A, int S>
 __global__ void __launch_bounds__(kThreads) any_persistent_kernel(const Params p) {
-  persistent<true, A, S>(p);
+  persistent<A, S>(p);
 }
 
-// Persistent warps (B6c, B6d): lane 0 takes kFetch consecutive ray indices
+// Persistent warps (B6a, B6c, B6d): lane 0 takes kFetch consecutive ray indices
 // with one atomic and the warp shares them by a shuffle; each lane runs
 // walk(i) on its index, and the warp meets at __syncwarp() and fetches again
 // until the counter passes R. Every lane reaches each fetch; a lane past R
@@ -255,6 +225,16 @@ __device__ __forceinline__ void per_warp(const Params& p, WalkRay walk) {
     if (i < p.R) walk(i);
     __syncwarp();
   }
+}
+
+// B6a: persistent warps over B1's walk (closest_ray over FlatRows).
+template <int A, int S>
+__global__ void __launch_bounds__(kThreads) closest_persistent_kernel(const Params p) {
+  const FlatRows<A> t{{p.nodes, p.leaf_rows, p.n_tri, 0, p.L}};
+  per_warp(p, [&](int i) {
+    closest_ray<A, S>(t, p.depth, p.orig, p.dir, p.t_min, p.t_max, p.flag, p.t_out, p.prim_out,
+                      nullptr, p.u_out, p.v_out, i);
+  });
 }
 
 // B6c: persistent warps over B3's walk (closest_ray over GlobalRows).

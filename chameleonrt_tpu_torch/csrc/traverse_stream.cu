@@ -15,10 +15,11 @@
 // B5a: ray i walks in the plain walk's order with B3's closest walk
 // (closest_ray over FlatRows, traverse_common.cuh: node rows in a loop the
 // warp leaves once fewer than kNodeLanes of its lanes are in it, a leaf's
-// slots two at a time, a local stack of S = 64 or 128 entries). B5b: ray i
-// walks with B4's any walk (any_ray over FlatRows: one loop over node rows
-// and leaves, 16-byte node loads, a leaf's slots two at a time, the same
-// local stack, and at A = 2 node rows in a loop of their own as in B5a; it
+// slots two at a time, a stack of S = 64 or 128 entries whose top
+// kShortStack = 8 sit in shared memory, as B1's). B5b: ray i walks with
+// B4's any walk (any_ray over FlatRows: one loop over node rows and leaves,
+// 16-byte node loads, a leaf's slots two at a time, a local stack of S
+// entries, and at A = 2 node rows in a loop of their own as in B5a; it
 // stops at its first t_min < t < t_max). FlatRows has no
 // TLAS and no instance entries, so the world-ray restore and the entry
 // branch compile away, and a one-leaf table starts at leaf 0. Both kernels
@@ -43,7 +44,9 @@
 // B5b took 0.22 / 0.15 ms there and 0.10 / 0.08 ms on the first-bounce
 // light / bsdf shadow rays of a city frame, where the packet B5b took 0.49
 // / 0.42 and 0.27 / 0.14 ms, and B2 on the same rays 0.26 / 0.17 and 0.11 /
-// 0.09 (B5b reads a leaf's slots two at a time, B2 one). Measured and left
+// 0.09 (B5b reads a leaf's slots two at a time, B2 one). The top 8 stack
+// entries in shared memory took 7-8% off B5a there (0.318 / 0.246 ms with a
+// local stack, 0.297 / 0.226 with them; traverse_flat.cu). Measured and left
 // out: persistent warps that fetch 32 sorted rays at a time (B5a: 1-3%
 // faster on the city's primary rays, inside the spread of duplicate
 // trees), the L2 prefetch-size qualifier on the row loads (B5a:
@@ -51,8 +54,8 @@
 // any walk's node loop at A = 4 (B5b: 4% slower on the city's bounce rays;
 // any_two_level keeps it for binary rows). Built with -fmad=false, like
 // B1/B2.
-// Later work (ROADMAP queue B): the per-lane refill of B6a/B6b, and one flat
-// walk for B1/B2.
+// B1 and B6a run B5a's walk too, under their own names; B2 and B6b keep
+// walks of their own (ROADMAP queue B).
 
 #include "traverse_common.cuh"
 
@@ -62,7 +65,7 @@ using namespace crt;
 
 // B5a: ray i walks the flat table alone, in the plain walk's order
 // (closest_ray over FlatRows: B3's walk with the two-level branches
-// compiled away).
+// compiled away, its top kShortStack stack entries in shared memory).
 template <int A, int S>
 __global__ void __launch_bounds__(kThreads)
 closest_stream_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,

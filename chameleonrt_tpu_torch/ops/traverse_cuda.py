@@ -218,7 +218,12 @@ def _any(entry: str, key: str, pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
 
 
 def traverse_closest(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
-    """B1: closest hit. Returns (t, prim, u, v), as plain.traverse_closest."""
+    """B1: closest hit, one lane per ray in the plain walk's order (B3's walk
+    over a flat table, as B5a). Returns (t, prim, u, v), bit-equal to its
+    plain version, plain.traverse_closest: a miss or inactive lane is
+    (1e20, -1, 0, 0), and a stack overflow drops the pushes that do not
+    fit and walks on, reporting prim = -2, t = 1e20 with the u, v of the
+    nearest hit it found, as the plain walk does."""
     return _closest("crt_traverse_closest", "closest", pbvh, orig, dir, t_min, active, t_max)
 
 
@@ -327,9 +332,10 @@ def traverse_any_unified_stream(ubvh: UnifiedBvh, orig, dir, t_min, t_max, mask)
 
 
 def traverse_closest_persistent(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
-    """B6a: flat closest hit by persistent threads fed from a work queue.
-    Returns (t, prim, u, v), as plain.traverse_closest, with which it
-    agrees lane for lane (each lane walks one ray in B1's order). Replaces
+    """B6a: flat closest hit by persistent warps fed from a work queue, 32
+    sorted rays a fetch, each lane walking one ray with B1's walk. Returns
+    (t, prim, u, v), bit-equal to its plain version, plain.traverse_closest,
+    overflow included, as B1. Replaces
     chameleonrt_tpu/ops/traverse_packet.py traverse_closest_persistent
     (pl.pallas_call of _closest_call_persistent, traverse_packet.py:2029),
     with stream False or True: on the card both are this kernel."""

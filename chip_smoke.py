@@ -14,8 +14,10 @@ nor the JAX package (it asserts so at its end). Phases:
    kernel and plain times on a sorted primary wavefront and a
    diffuse-bounce wavefront from its hit points:
    - B1/B2 (flat) on proc://hall?subdiv=2 at 320x180 and on the textured
-     hall at 1280x720, and B2 on the 10 masked shadow-ray wavefronts of
-     one 1280x720 hall frame;
+     hall at 1280x720 (B1, B3's walk over a flat table, held exactly, as
+     B5a), B2 on the 10 masked shadow-ray wavefronts of one 1280x720 hall
+     frame, and B1, exactly, on the 5 closest-hit wavefronts of one, each
+     timed beside its bound;
    - B3/B4 (two-level) on proc://instances?nx=4&ny=4&subdiv=2 at 320x180
      and on the San Miguel proxy at 1280x720, and B4 on the 10 masked
      shadow-ray wavefronts of one 1-spp San Miguel frame at 1280x720, each
@@ -47,10 +49,11 @@ nor the JAX package (it asserts so at its end). Phases:
      for the tier's kernel on the same rays and timed beside it, with its
      outputs (and its queue's counter) allocated as sentinels that must
      not survive, and again on the first 777 rays alone (far fewer than
-     the grid's threads, not a multiple of 32); and B6b / B6d on the
+     the grid's threads, not a multiple of 32); B6b / B6d on the
      shadow-ray wavefronts of one hall / San Miguel frame (B6d timed on
      each beside its bound, and logged whether that frame's rays digest
-     as those of B4's frame);
+     as those of B4's frame); and B6a, exactly, on the 5 closest-hit
+     wavefronts of one slotlane=False hall frame, beside B1 and its bound;
    - B7a/B7b (the grid-packet kernels, binary rows only, whose plain
      versions are B1/B2's on the same binary table; per-lane walks held
      exactly) on the hall's binary table: proc://hall?subdiv=2 at 320x180
@@ -446,9 +449,10 @@ TWO_LEVEL = ("unified", "unified_stream", "unified_persistent")
 # the kernels that walk in the plain walk's per-lane order over
 # traverse_common.cuh's walks, held to exact agreement: 0 mismatches and
 # |dt| = |du| = |dv| = 0 (B3/B4, B5c/B5d and B6c/B6d, the two-level walks,
-# and B5a/B5b and B7a/B7b, the closest and any walks over a flat table; B1,
-# B2, B6a and B6b keep the JAX bench's gate, which they meet with 0)
-EXACT = ("B3", "B4", "B5a", "B5b", "B5c", "B5d", "B6c", "B6d", "B7a", "B7b")
+# and B1, B5a, B6a, B7a and B5b, B7b, the closest and any walks over a flat
+# table; B2 and B6b, which walk on their own, keep the JAX bench's gate,
+# which they meet with 0)
+EXACT = ("B1", "B3", "B4", "B5a", "B5b", "B5c", "B5d", "B6a", "B6c", "B6d", "B7a", "B7b")
 # the kernels that keep a per-lane stack of a capacity the wrapper picks
 # (traverse_cuda.stack_capacity): all of them
 PER_LANE = ("B1", "B2", "B3", "B4", "B5a", "B5b", "B5c", "B5d", "B6a", "B6b", "B6c", "B6d", "B7a",
@@ -570,8 +574,8 @@ def _check_queue(torch, path, closest, args, ref, max_stack=False):
     tier kernel's gates; the same on the first SMALL_R rays alone (each
     lane of the plain walk is independent, so ref's first lanes are their
     plain result); then its time, median of KERNEL_REPS, and with max_stack
-    its time at its MAX_STACK instantiation (_time_at_max_stack). B6c/B6d
-    meet the gate exactly (EXACT), B6a/B6b the JAX bench's."""
+    its time at its MAX_STACK instantiation (_time_at_max_stack). B6a, B6c
+    and B6d meet the gate exactly (EXACT), B6b the JAX bench's."""
     unified = path in TWO_LEVEL
     name, kernel, _ = _kernel_pair(QUEUE[path], closest)
     exact = name in EXACT
@@ -790,21 +794,20 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
 
 # the backend options of the main paths whose closest hit _check_closest_frame
 # holds on a frame's own wavefronts
-_CLOSEST_FRAME = {"stream": {}, "grid_packet": {"grid_packet": True}}
+_CLOSEST_FRAME = {"flat": {}, "stream": {}, "persistent": {"slotlane": False},
+                  "grid_packet": {"grid_packet": True}}
 
 
-def _check_closest_frame(torch, scene, tables, path, W, H):
-    """A flat closest-hit kernel (B5a, B7a) on its main path's own traffic:
-    the 5 closest-hit wavefronts of one W x H frame at one sample per pixel,
-    captured at the kernel's wrapper as the backend calls it (the stream
-    path's gate must route the scene there), each held exactly against the
-    plain walk on the same table and rays, and timed (median of
-    KERNEL_REPS) beside B1 on the same rays and beside its bound there
-    (_bound, from the plain walk's WalkCount)."""
+def _closest_frame_calls(torch, scene, tables, path, W, H):
+    """The 5 closest-hit wavefronts of one W x H frame at one sample per
+    pixel through CudaBackend(**_CLOSEST_FRAME[path]) on the scene's tables
+    (already built), captured at the path's closest-hit kernel's wrapper as
+    the backend calls it: [(table, (orig, dir, t_min, active, t_max),
+    result)] in call order."""
     from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
-    from chameleonrt_tpu_torch.ops import traverse, traverse_cuda
+    from chameleonrt_tpu_torch.ops import traverse_cuda
 
-    name, wrapper, _ = _PATHS[path][0]
+    wrapper = _PATHS[path][0][1]
     real = getattr(traverse_cuda, wrapper)
     calls = []
 
@@ -822,6 +825,22 @@ def _check_closest_frame(torch, scene, tables, path, W, H):
         b.render(*_view(scene), True, readback_framebuffer=False)
     finally:
         setattr(traverse_cuda, wrapper, real)
+    return calls
+
+
+def _check_closest_frame(torch, scene, tables, path, W, H):
+    """A flat closest-hit kernel (B1, B5a, B6a, B7a) on its main path's own
+    traffic: the 5 closest-hit wavefronts of one W x H frame at one sample
+    per pixel (_closest_frame_calls: the stream path's gate must route the
+    scene there, the persistent path renders with the slot-lane tier off),
+    each held exactly against the plain walk on the same table and rays,
+    and timed (median of KERNEL_REPS) beside B1 on the same rays and beside
+    its bound there (_bound, from the plain walk's WalkCount)."""
+    from chameleonrt_tpu_torch.ops import traverse, traverse_cuda
+
+    name, wrapper, _ = _PATHS[path][0]
+    real = getattr(traverse_cuda, wrapper)
+    calls = _closest_frame_calls(torch, scene, tables, path, W, H)
     res = {"rays": W * H, "calls": len(calls), "active": [], "hits": [], "prim_mismatch": 0,
            "max_dt_common": 0.0, "max_duv_common": 0.0, "exact": True, "ms": [], "flat_ms": [],
            "bound_ms": [], "bound_by": []}
@@ -934,6 +953,8 @@ def phase_kernels(torch, path: str):
         out["queue_shadow"] = q = _check_any_shadow(torch, scene, (flat, meta), QUEUE[path], W, H)
         q["same_rays"] = q["rays_sha256"] == out["shadow"]["rays_sha256"]
         log(f"[kernels] {QUEUE[path]} shadow rays equal to {path}'s: {q['same_rays']}")
+    if path == "flat":  # B6a on the slotlane=False hall frame's closest-hit wavefronts
+        out["queue_frame"] = _check_closest_frame(torch, scene, (flat, meta), QUEUE[path], W, H)
     return out
 
 
@@ -1562,6 +1583,8 @@ def main() -> int:
         }
         if label in bvh8:
             entry["bvh8"] = bvh8[label]
+        if key == "closest" and tiers[0] == "flat":  # beside B1 on its frame's rays
+            entry["main_path_frame"] = frame(kres["flat"]["queue_frame"])
         if key == "any":  # beside the tier kernel's times on its frame's rays
             queue_shadow, tier_shadow = kres[tiers[0]]["queue_shadow"], kres[tiers[0]]["shadow"]
             entry["shadow"] = {**shadow(queue_shadow), "same_rays": queue_shadow["same_rays"],

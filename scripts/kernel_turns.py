@@ -13,12 +13,16 @@ checkout's chip_smoke.py helpers, with the plain walk's results on each:
   of one 1-spp 1280x720 frame, captured as chip_smoke.py captures a main
   path's shadow rays (any hit only); kernels B3, B4, B5c, B5d, B6c, B6d;
 - flat tables: sorted primary and diffuse-bounce rays on the city
-  proc://city?n=610 at 640x360 (its BVH4 table, 10x the L2: B5a, B5b, B1
-  and B2 on the same rays) and on the textured hall at 1280x720 (its binary
-  table: B7a, B7b, B1 and B2 on the same rays), and on each the two masked
-  shadow-ray wavefronts of the first bounce of one 1-spp frame, captured
-  as on San Miguel (the hall's with grid_packet=True; any hit only: B5b /
-  B7b and B2).
+  proc://city?n=610 at 640x360 (its BVH4 table, 10x the L2: B5a, B5b, B1,
+  B2, B6a and B6b on the same rays), on the textured hall at 1280x720 on
+  its binary table (B7a, B7b, B1, B2, B6a and B6b on the same rays) and on
+  its BVH4 table, the one its main path traces (B1, B2, B6a and B6b), and
+  on each the two masked shadow-ray wavefronts of the first bounce of one
+  1-spp frame, captured as on San Miguel (the binary hall's with
+  grid_packet=True; any hit only); on the hall's BVH4 table also the 5
+  closest-hit wavefronts of one 1-spp 1280x720 frame of its main path,
+  captured at B1's wrapper as chip_smoke.py captures them (closest hit
+  only).
 --tables picks one of the two sets or both. Then one worker process a tree
 builds that tree's kernels and binds them through that tree's own
 wrappers, checks every kernel against the plain results, and times them
@@ -58,8 +62,10 @@ KERNELS = {  # label: (wrapper, closest hit?, the tables it traces)
     "B4": ("traverse_any_unified", False, ("two_level",)),
     "B5d": ("traverse_any_unified_stream", False, ("two_level",)),
     "B6d": ("traverse_any_unified_persistent", False, ("two_level",)),
-    "B1": ("traverse_closest", True, ("bvh4", "binary")),
-    "B2": ("traverse_any", False, ("bvh4", "binary")),
+    "B1": ("traverse_closest", True, ("bvh4", "binary", "hall4")),
+    "B2": ("traverse_any", False, ("bvh4", "binary", "hall4")),
+    "B6a": ("traverse_closest_persistent", True, ("bvh4", "binary", "hall4")),
+    "B6b": ("traverse_any_persistent", False, ("bvh4", "binary", "hall4")),
     "B5a": ("traverse_closest_stream", True, ("bvh4",)),
     "B5b": ("traverse_any_stream", False, ("bvh4",)),
     "B7a": ("traverse_closest_packet", True, ("binary",)),
@@ -68,9 +74,10 @@ KERNELS = {  # label: (wrapper, closest hit?, the tables it traces)
 # the kernels held to the JAX bench's gate, not bit for bit: warp packets
 # in some tree (bit-equality is reported beside the gate)
 GATED = ("B5b", "B7b")
-# the table kinds of each --tables choice
-TABLE_SETS = {"two_level": ("two_level",), "flat": ("bvh4", "binary"),
-              "all": ("two_level", "bvh4", "binary")}
+# the table kinds of each --tables choice: two-level tables, the city's
+# BVH4 table, the hall's binary and BVH4 tables
+TABLE_SETS = {"two_level": ("two_level",), "flat": ("bvh4", "binary", "hall4"),
+              "all": ("two_level", "bvh4", "binary", "hall4")}
 
 # One tree's worker: builds and binds the tree's kernels, then answers one
 # JSON command a line on stdin with one JSON line on stdout.
@@ -189,7 +196,9 @@ def _cases(torch, path, kinds):
         scenes.append(("city", cs.CITY_SCENE, "bvh4", cs.CITY_W, cs.CITY_H))
     if "binary" in kinds:
         scenes.append(("hall", cs.HALL_SCENE, "binary", cs.MAIN_W, cs.MAIN_H))
-    for scene_name, uri, kind, W, H in scenes:
+    if "hall4" in kinds:
+        scenes.append(("hall4", cs.HALL_SCENE, "hall4", cs.MAIN_W, cs.MAIN_H))
+    for k, (scene_name, uri, kind, W, H) in enumerate(scenes):
         scene, flat, meta = cs._scene_tables(torch, uri)
         two_level = kind == "two_level"
         table = flat.blas[0].closest if kind == "binary" else flat.blas[0].any
@@ -204,7 +213,18 @@ def _cases(torch, path, kinds):
                                                   want[2] if two_level else None)
         _closest_and_any(torch, out, scene_name, table, closest, any_, orig, dirs,
                          torch.full((R,), EPSILON, device="cuda"), active, "bounce", 0.999)
-        if scene_name in ("san_miguel", "city", "hall"):
+        if kind == "hall4":
+            # closest hit only: the main path's frame, captured at B1's wrapper
+            for n, (t, args, _) in enumerate(cs._closest_frame_calls(torch, scene, (flat, meta),
+                                                                     "flat", W, H)):
+                assert t is table
+                want = closest(table, *args)
+                out[f"{scene_name}_frame{n}"] = {"scene": scene_name,
+                                                 "closest": tuple(x.cpu() for x in args),
+                                                 "want_closest": tuple(x.cpu() for x in want)}
+                print(f"[cases] {scene_name} frame{n}: {args[0].shape[0]} rays, "
+                      f"{int(args[3].sum())} active, {int((want[1] >= 0).sum())} hits", flush=True)
+        if scene_name in ("san_miguel", "city", "hall", "hall4"):
             # any hit only: the first bounce's two shadow wavefronts
             _, calls = cs._shadow_calls(torch, scene, (flat, meta), W, H, use_kernels=False,
                                         grid_packet=kind == "binary")
@@ -217,7 +237,9 @@ def _cases(torch, path, kinds):
                                                  "want_any": (want_any.cpu(),)}
                 print(f"[cases] {scene_name} {shadow}: {o.shape[0]} rays, {int(mask.sum())} "
                       f"masked in, {int(want_any.sum())} occluded", flush=True)
-        del cs._TABLES[uri, 4, 4], scene, flat, meta, table
+        if all(later[1] != uri for later in scenes[k + 1:]):
+            del cs._TABLES[uri, 4, 4]
+        del scene, flat, meta, table
         torch.cuda.empty_cache()
     torch.save({"tables": tables, "cases": out}, path)
     return sorted(out)

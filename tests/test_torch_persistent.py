@@ -435,3 +435,18 @@ def test_chip_smoke_sentinel_outputs_fill_and_restore():
     assert (i == cs.INT_SENTINEL).all()
     assert (b.view(torch.uint8) == cs.BOOL_SENTINEL).all()
     assert torch.empty is empty and torch.empty_like is empty_like
+
+
+def test_chip_smoke_holds_every_per_lane_closest_kernel_exactly():
+    """Every closest-hit kernel runs the per-lane closest walk of
+    csrc/traverse_common.cuh (closest_ray: B1, B5a, B6a and B7a over a flat
+    table, B3, B5c and B6c over a two-level one), so chip_smoke.py holds each
+    bit for bit against the plain walk (EXACT); the work-queue path's B6a
+    has a main-path frame of its own (_CLOSEST_FRAME), rendered with the
+    slot-lane tier off."""
+    cs = _chip_smoke()
+    closest = {pair[0][0] for pair in cs._PATHS.values()}
+    assert closest == {"B1", "B3", "B5a", "B5c", "B6a", "B6c", "B7a"}
+    assert closest <= set(cs.EXACT)
+    assert cs._CLOSEST_FRAME["persistent"] == {"slotlane": False}
+    assert {cs._PATHS[p][0][0] for p in cs._CLOSEST_FRAME} == {"B1", "B5a", "B6a", "B7a"}

@@ -5,8 +5,11 @@ csrc/traverse_common.cuh holds the walks that B3/B4 (csrc/traverse_unified.cu),
 B5c/B5d and B6c/B6d run: closest_two_level and any_two_level over a row
 source. Here g++ compiles that header against a small shim of cuda_runtime.h
 (written into the test's temporary directory: the CUDA qualifiers, float2,
-float4, __ldg, the bit casts, __popc, and an __activemask that has a walk
-leave its node loop early at every third node row, and counts its calls) with -ffp-contract=off, the counterpart of nvcc's -fmad=false, into
+float4, __ldg, the bit casts, __popc, an __activemask that has a walk
+leave its node loop early at every third node row, and counts its calls,
+and __shared__ arrays as static ones with a threadIdx that the harness
+sets to each ray's index mod 128) with -ffp-contract=off, the counterpart
+of nvcc's -fmad=false, into
 a harness that runs both walks over GlobalRows for every ray, loaded
 through ctypes. The harness must equal ops/traverse.py's
 traverse_closest_unified / traverse_any_unified bit for bit: t, prim,
@@ -20,16 +23,22 @@ left early; and on a table whose certified bound is cut so far that the walk
 overflows, which gives prim = -2 or occluded, with and without masked-out
 lanes.
 
-The same closest walk over a flat table (FlatRows: B5a in
-csrc/traverse_stream.cu, and B7a in csrc/traverse_packet.cu at arity 2) must
-equal ops/traverse.py's traverse_closest bit for bit: t, prim, u and v on
-the flat parity hall (proc://hall?subdiv=2) at arities 2, 4 and 8 and leaf
-sizes 4 and 5, on primary rays, bounce rays and primary rays whose t_max
-stops half of them short of their hit, at both stack capacities with the
-node loop left early; on an overflow (prim = -2, t = 1e20, and the u, v of
-the nearest hit the walk found on, as the plain walk keeps them), with and
-without inactive lanes; and on one-leaf tables, which the walk starts at
-leaf 0.
+The same closest walk over a flat table (FlatRows: B1 in
+csrc/traverse_flat.cu, B5a in traverse_stream.cu, B6a in
+traverse_persistent.cu and B7a in traverse_packet.cu at arity 2), with the
+top 8 entries of its stack in shared memory as those kernels keep them
+(kShortStack), must equal ops/traverse.py's traverse_closest bit for bit:
+t, prim, u and v on the flat parity hall (proc://hall?subdiv=2) at arities
+2, 4 and 8 and leaf sizes 4 and 5, on primary rays, bounce rays and
+primary rays whose t_max stops half of them short of their hit, at both
+stack capacities with the node loop left early; on the 5 closest-hit
+wavefronts of a frame of the hall that the port renders on the CPU (later
+bounces with inactive lanes); on an overflow (prim = -2, t = 1e20, and the
+u, v of the nearest hit the walk found on, as the plain walk keeps them),
+with and without inactive lanes; on one-leaf tables, which the walk starts
+at leaf 0; and on a table of parallel triangles whose walks push deeper
+than the 8 shared entries, so that entries spill to the local array and
+come back, with and without an overflow.
 
 The any walk over a flat table (FlatRows: B5b in csrc/traverse_stream.cu,
 and B7b in csrc/traverse_packet.cu at arity 2) must equal ops/traverse.py's
@@ -73,6 +82,11 @@ FLAT_PARITY = "proc://hall?subdiv=2"
 W, H = 64, 40
 ARITIES = (2, 4, 8)
 LEAVES = (4, 5)
+# the top stack entries that the flat closest walk keeps in shared memory
+# (kShortStack in csrc/traverse_common.cuh)
+FLAT_K = 8
+# the ring triangles of _deep_stack's column (the large one behind it is prim DEEP_N)
+DEEP_N = 8192
 CSRC = traverse_cuda._build._CSRC
 
 # what traverse_common.cuh takes from the CUDA runtime, for the host
@@ -91,6 +105,12 @@ template <typename T> inline T __ldg(const T* p) { return *p; }
 inline int __float_as_int(float x) { int i; memcpy(&i, &x, 4); return i; }
 inline unsigned __float_as_uint(float x) { unsigned u; memcpy(&u, &x, 4); return u; }
 inline float __int_as_float(int i) { float x; memcpy(&x, &i, 4); return x; }
+// one block's shared arrays: a walk's short stack (WalkStack) is one
+// array for the harness, whose rays run one at a time on thread
+// threadIdx.x = ray index mod kThreads
+#define __shared__ static
+struct crt_dim3 { unsigned x, y, z; };
+static crt_dim3 threadIdx;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -126,17 +146,21 @@ static void any_all(const float* nodes, const float* leaf_rows, int n_tri, int t
   for (int i = 0; i < R; ++i) any_ray<A, S>(t, depth, orig, dir, t_min, t_max, mask, occluded, i);
 }
 
-// B5a's and B7a's kernels (csrc/traverse_stream.cu, traverse_packet.cu): the
-// same closest walk over a flat table
+// B1's, B5a's, B6a's and B7a's kernels (csrc/traverse_flat.cu,
+// traverse_stream.cu, traverse_persistent.cu, traverse_packet.cu): the same
+// closest walk over a flat table, its top kShortStack stack entries in
+// shared memory
 template <int A, int S>
 static void flat_closest_all(const float* nodes, const float* leaf_rows, int n_leaves, int L,
                              int depth, const float* orig, const float* dir, const float* t_min,
                              const float* t_max, const uint8_t* active, float* t_out,
                              int* prim_out, float* u_out, float* v_out, int R) {
   const FlatRows<A> t{{nodes, leaf_rows, n_leaves, 0, L}};
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < R; ++i) {
+    threadIdx.x = static_cast<unsigned>(i % kThreads);
     closest_ray<A, S>(t, depth, orig, dir, t_min, t_max, active, t_out, prim_out, nullptr, u_out,
                       v_out, i);
+  }
 }
 
 // B5b's and B7b's kernels: the same any walk over a flat table
@@ -167,6 +191,8 @@ int walk_flat_closest(const float* nodes, const float* leaf_rows, int n_leaves, 
       nodes, leaf_rows, n_leaves, L, depth, orig, dir, t_min, t_max, active, t_out, prim_out,
       u_out, v_out, R));
 }
+
+int short_stack() { return kShortStack; }
 
 int walk_closest(const float* nodes, const float* leaf_rows, int n_tri, int tlas_lo, int arity,
                  int L, int depth, int cap, const float* orig, const float* dir,
@@ -203,6 +229,7 @@ def walks(tmp_path_factory):
                    check=True, capture_output=True, timeout=300)
     walks = ctypes.CDLL(str(lib))
     walks.activemask_calls.restype = ctypes.c_uint
+    assert walks.short_stack() == FLAT_K
     return walks
 
 
@@ -529,6 +556,130 @@ def test_flat_walk_on_a_one_leaf_table(walks, flat_scene, arity, leaf):
     want = plain.traverse_closest(table, orig, dirs, t_min, active, t_max)
     _assert_bit_equal(_flat_closest(walks, table, orig, dirs, t_min, active, t_max, 64), want)
     assert 20 < int((want[1] >= 0).sum()) < int(active.sum())
+
+
+def _deep_stack(arity, n=DEEP_N, rays=256):
+    """A table whose walks push deep stacks and must pop every entry: a
+    column of n small triangles, one every 0.05 along z, each at a seeded
+    angle on a ring of radius 0.9 around the z axis, then one large
+    triangle across the axis behind them, built by the native SAH builder at
+    the given arity; and seeded rays along +z near the axis. Boxes of a few
+    ring triangles contain the axis, so a ray enters most of the column's
+    rows nearest first, pushing their other children, and hits nothing
+    there: its hit is the large triangle, found only after the walk has
+    popped its way back through the stack. (table, orig, dirs, t_min,
+    active, t_max)."""
+    rng = np.random.default_rng(3)
+    theta = rng.uniform(0.0, 2.0 * np.pi, n)
+    v0 = np.stack([0.9 * np.cos(theta) - 0.15, 0.9 * np.sin(theta) - 0.15, np.arange(n) * 0.05], 1)
+    e1 = np.tile([[0.3, 0.0, 0.0]], (n, 1))
+    e2 = np.tile([[0.0, 0.3, 0.0]], (n, 1))
+    v0, e1, e2 = (np.concatenate([x, y]).astype(np.float32) for x, y in (
+        (v0, [[-3.0, -3.0, n * 0.05 + 1.0]]), (e1, [[12.0, 0.0, 0.0]]), (e2, [[0.0, 12.0, 0.0]])))
+    nodes2, nodes_w, leaf_rows, depth2, stack_w = ttb._native_build(v0, e1, e2, 4,
+                                                                    4 if arity == 2 else arity)
+    table = tds.PackedBvh(torch.as_tensor(nodes2 if arity == 2 else nodes_w),
+                          torch.as_tensor(leaf_rows), depth2 if arity == 2 else stack_w)
+    assert table.arity == arity
+    orig = np.stack([rng.normal(size=rays) * 0.05, rng.normal(size=rays) * 0.05, -np.ones(rays)], 1)
+    dirs = np.stack([rng.normal(size=rays) * 5e-4, rng.normal(size=rays) * 5e-4, np.ones(rays)], 1)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    orig, dirs = (torch.from_numpy(x.astype(np.float32)).contiguous() for x in (orig, dirs))
+    return table, orig, dirs, torch.zeros((rays,)), torch.ones((rays,), dtype=torch.bool), \
+        torch.full((rays,), 1e20)
+
+
+def _deepest_push(monkeypatch, table, *args):
+    """The plain closest walk on args and the deepest stack it pushed (its
+    _push wrapped to record it)."""
+    deepest = [0]
+    push = plain._push
+
+    def record(stack, sp, limit, code, mask):
+        sp, over = push(stack, sp, limit, code, mask)
+        if sp.numel():
+            deepest[0] = max(deepest[0], int(sp.max()))
+        return sp, over
+
+    monkeypatch.setattr(plain, "_push", record)
+    want = plain.traverse_closest(table, *args)
+    monkeypatch.undo()
+    return want, deepest[0]
+
+
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_walk_short_stack_spills_and_returns(walks, monkeypatch, arity, cut):
+    """The flat closest walk, the top FLAT_K entries of its stack in the
+    shim's shared array (ring_column), against the plain walk, bit for bit,
+    on a table whose walks push deeper than FLAT_K (_deep_stack: the plain
+    walk's deepest stack exceeds it), so that entries spill to the local
+    array and come back from it, at both stack capacities; cut: the
+    certified depth cut to FLAT_K + 1, so that lanes also overflow (prim =
+    -2, with the u, v of the hits they find as they walk on) with FLAT_K + 1
+    entries on the stack."""
+    table, *args = _deep_stack(arity)
+    if cut:
+        table = table._replace(max_depth=FLAT_K + 1)
+    want, deepest = _deepest_push(monkeypatch, table, *args)
+    assert deepest > FLAT_K
+    for cap in (64, 128):
+        _assert_bit_equal(_flat_closest(walks, table, *args, cap), want)
+    over = want[1] == -2
+    if cut:  # the walks went on past the overflow and found hits, whose u they keep
+        assert int(over.sum()) > 0 and bool((want[2][over] != 0).any())
+    else:  # the large triangle, behind the column
+        assert not bool(over.any()) and int((want[1] == DEEP_N).sum()) > 200
+
+
+@pytest.fixture(scope="module")
+def flat_frame(flat_scene):
+    """The 5 closest-hit wavefronts of one W x H frame of the flat parity
+    hall that the port renders on the CPU, captured at B1's wrapper as the
+    backend calls it (as chip_smoke.py captures a main path's):
+    [(orig, dir, t_min, active, t_max)] in call order."""
+    calls = []
+    real = traverse_cuda.traverse_closest
+
+    def capture(table, *args):
+        calls.append(tuple(a.clone() for a in args))
+        return real(table, *args)
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(traverse_cuda, "traverse_closest", capture)
+        b = CudaBackend(device="cpu")
+        b.initialize(W, H)
+        b.set_scene(flat_scene)
+        cam = flat_scene.cameras[0]
+        d = cam.center - cam.position
+        b.render(cam.position, d / np.linalg.norm(d), cam.up, cam.fov_y, True,
+                 readback_framebuffer=False)
+    finally:
+        mp.undo()
+    return calls
+
+
+@pytest.mark.parametrize("bounce", range(5))
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_walk_on_a_frames_closest_hit_wavefronts(walks, flat_scene, flat_frame, arity, bounce):
+    """closest_two_level over FlatRows (B1's, B5a's, B6a's and B7a's walk)
+    against plain.traverse_closest on the renderer's own closest-hit
+    wavefronts: each of the 5 of one frame (the camera rays, then each
+    bounce's, whose lanes are inactive where the path ended) traced on the
+    parity hall's table of each arity, t, prim, u and v equal bit for bit
+    at the 64- and 128-entry stack capacities."""
+    assert len(flat_frame) == 5
+    orig, dirs, t_min, active, t_max = flat_frame[bounce]
+    if bounce == 0:
+        assert bool(active.all())
+    else:
+        assert 0 < int(active.sum()) < active.numel()
+    _, table = _flat_table(flat_scene, arity, 4)
+    want = plain.traverse_closest(table, orig, dirs, t_min, active, t_max)
+    for cap in (64, 128):
+        _assert_bit_equal(_flat_closest(walks, table, orig, dirs, t_min, active, t_max, cap), want)
+    assert int((want[1] >= 0).sum()) > 0
 
 
 @pytest.fixture(scope="module")
