@@ -26,10 +26,9 @@
 // walk runs node rows in a loop of their own that the warp leaves once most
 // of its lanes wait at a leaf; the any walk is one loop over node rows,
 // triangle leaves and instance entries (any_two_level says why). B1, B5a,
-// B6a and B7a run the same closest walk, B5b and B7b the same any walk,
-// over a flat table (FlatRows: no TLAS, no instance entries, so the
-// world-ray restore and the entry branch compile away). B2 and B6b keep
-// walks of their own (traverse_flat.cu, traverse_persistent.cu).
+// B6a and B7a run the same closest walk, B2, B5b, B6b and B7b the same any
+// walk, over a flat table (FlatRows: no TLAS, no instance entries, so the
+// world-ray restore and the entry branch compile away).
 //
 // Stacks: depth, the SAH build's certified bound + 1, reaches 76 on BVH8
 // tables of the main-path scenes. Every kernel walks one ray a lane and
@@ -38,7 +37,8 @@
 // wrapper picks (CRT_BY_STACK), the smallest that holds depth, so a BVH4
 // table keeps the 64-entry array. The closest walk over a flat table (B1,
 // B5a, B6a, B7a) keeps its top kShortStack entries in shared memory
-// instead, 4 KB a block of kThreads (closest_two_level says why only there).
+// instead, 4 KB a block of kThreads (closest_two_level says why only there;
+// any_two_level why not the any walk).
 
 #pragma once
 
@@ -158,18 +158,6 @@ __device__ __forceinline__ void sort_children(K* keys, C* codes) {
   }
 }
 
-// One internal row of arity A: keys[c] = entry distance of hit child c
-// (kBig on a miss), codes[c] its child code, both sorted ascending by key.
-template <int A>
-__device__ __forceinline__ void node_step(const float* __restrict__ nodes, int cur,
-                                          const Ray& r, float tmax, float* keys,
-                                          int* codes) {
-  float row[row_floats<A>()];
-  load_row<A>(nodes, cur, row);
-  slab_children<A>(row, r, tmax, keys, codes);
-  sort_children<A>(keys, codes);
-}
-
 // One triangle slot of a leaf row: v0, e1, e2 and the prim id.
 struct Tri {
   float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
@@ -210,13 +198,6 @@ __device__ __forceinline__ bool mt_tri(const Tri& s, const Ray& r, float tmax, f
   *t_out = t; *u_out = u; *v_out = v; *prim_out = prim;
   return !small && prim >= 0 && u >= -kUvEps && v >= -kUvEps && u + v <= kOnePlusUvEps &&
          t > r.tmin && t < tmax;
-}
-
-// Moller-Trumbore for slot j of one leaf row in device memory.
-__device__ __forceinline__ bool mt_slot(const float* __restrict__ lrow, int L, int j,
-                                        const Ray& r, float tmax, float* t_out,
-                                        float* u_out, float* v_out, int* prim_out) {
-  return mt_tri(load_tri(lrow, L, j), r, tmax, t_out, u_out, v_out, prim_out);
 }
 
 // Two-level tables (B3, B4, B5c, B5d, B6c, B6d): an instance-entry row holds the 3x4
@@ -359,9 +340,10 @@ struct GlobalRows {
   }
 };
 
-// A flat table's rows (B1, B5a, B5b, B6a, B7a, B7b): GlobalRows with n_tri the number of
-// leaves, every leaf a triangle leaf and no TLAS. The walk starts at the
-// root row, or at leaf 0 where the table is a single leaf.
+// A flat table's rows (B1, B2, B5a, B5b, B6a, B6b, B7a, B7b): GlobalRows
+// with n_tri the number of leaves, every leaf a triangle leaf and no TLAS.
+// The walk starts at the root row, or at leaf 0 where the table is a single
+// leaf.
 template <int A>
 struct FlatRows : GlobalRows<A> {
   static constexpr bool kTwoLevel = false;
@@ -511,21 +493,29 @@ __device__ __forceinline__ void closest_two_level(const T& t, int depth, const R
 }
 
 // The any-hit walk of one live world ray w over the rows of t (B4, B5d,
-// B6d; over FlatRows B5b and B7b): whether some t_min < t < tmax hit
-// exists; an overflow is occluded at the push that does not fit, as the
-// plain walk reports it. One loop over node rows, triangle leaves and
+// B6d; over FlatRows B2, B5b, B6b and B7b): whether some t_min < t < tmax
+// hit exists; an overflow is occluded at the push that does not fit, as
+// the plain walk reports it. One loop over node rows, triangle leaves and
 // instance entries; over FlatRows the world-ray restore and the entry
-// branch compile away. Over binary FlatRows (A = 2, B7b and B5b's binary
-// instantiation) node rows run in a loop of their own that the warp leaves
-// once fewer than kNodeLanes of its lanes are in it, as in
-// closest_two_level: a binary leaf costs about twice the node steps of a
-// BVH4 one. Measured on an H100 80GB HBM3 at 700 W (scripts/kernel_turns.py,
-// PERF.md section 6), that loop took 4.6-6% off B7b on the hall's primary
-// rays and moved its bounce and shadow rays within the spread of duplicate
-// trees; at A = 4 it cost B5b 4% on the city's bounce rays, and on the
-// two-level walk it cost B6d's and B5d's primary rays 1-2% (while taking
-// 1-4% off B6d's bounce and shadow rays), so A = 4 and 8 and the two-level
-// walk keep one loop.
+// branch compile away. Over binary FlatRows (A = 2: B7b, and the binary
+// instantiations of B2, B5b and B6b) node rows run in a loop of their own
+// that the warp leaves once fewer than kNodeLanes of its lanes are in it,
+// as in closest_two_level: a binary leaf costs about twice the node steps
+// of a BVH4 one. Measured on an H100 80GB HBM3 at 700 W
+// (scripts/kernel_turns.py, PERF.md section 6), that loop took 4.6-6% off
+// B7b on the hall's primary rays and moved its bounce and shadow rays
+// within the spread of duplicate trees; at A = 4 it cost B5b 4% on the
+// city's bounce rays, and on the two-level walk it cost B6d's and B5d's
+// primary rays 1-2% (while taking 1-4% off B6d's bounce and shadow rays),
+// so A = 4 and 8 and the two-level walk keep one loop. The stack is a
+// local array of S entries. Measured and not shipped: the closest walk's
+// ring (ring_column: the top kShortStack entries in shared memory) over
+// FlatRows, which took 5-21% off the flat closest walks but made every
+// flat any kernel slower beyond the spread of duplicate trees on some
+// wavefront and faster on none (B2 1-3% on the hall's BVH4 and the city's
+// rays, B5b 3-8% on the city's, B6b 2-11%, B7b 3.5% on the binary hall's
+// bounce rays), for 2-4 more registers: an any walk stops at its first hit
+// and pops less.
 template <int A, int S, typename T>
 __device__ __forceinline__ bool any_two_level(const T& t, int depth, const Ray& w, float tmax) {
   Ray r = w;
@@ -609,7 +599,7 @@ __device__ __forceinline__ void closest_ray(const T& t, int depth, const float* 
 }
 
 // Ray i through any_two_level over the rows of t, occluded & mask written
-// at i (B4, B5d, B6d; over FlatRows B5b and B7b).
+// at i (B4, B5d, B6d; over FlatRows B2, B5b, B6b and B7b).
 template <int A, int S, typename T>
 __device__ __forceinline__ void any_ray(const T& t, int depth, const float* orig, const float* dir,
                                         const float* t_min, const float* t_max,

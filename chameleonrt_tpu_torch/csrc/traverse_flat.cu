@@ -25,9 +25,13 @@
 //     the highest slot, a stack overflow drops the pushes that do not fit
 //     and reports prim = -2, t = 1e20 with the walk's u, v, and a miss or
 //     inactive lane is (1e20, -1, 0, 0);
-//   - B2 walks on its own (one loop over node rows and leaves, a leaf slot
-//     by slot, a local stack), stops at the first t_min < t < t_max, and
-//     reports an overflow occluded; it writes occluded & mask.
+//   - B2 is any_ray over FlatRows, the walk of B5b and B7b under its own
+//     name: one loop over node rows and leaves (at A = 2 node rows in a
+//     loop of their own, as B1's), 16-byte node loads, a leaf's slots two
+//     at a time and a local stack of S entries. It is bit-equal to the
+//     plain walk: it stops at the first t_min < t < t_max, reports an
+//     overflow occluded at the push that does not fit, and writes
+//     occluded & mask.
 // Built with -fmad=false, so t agrees with the plain version bit for bit.
 //
 // What bounds them on the H100: dependent row fetches. Each step of a ray
@@ -47,11 +51,15 @@
 // shared entries read within the
 // spread of duplicate trees of 8 and take twice the shared memory; the
 // two-level walk (B3, B5c, B6c) measured 4-11% slower with either and keeps
-// its local stack.
-// Later work (ROADMAP queue B): B2 onto the flat any walk (any_ray over
-// FlatRows, B5b's). Persistent warps pulling rays from an atomic counter
-// are B6a-B6d (traverse_persistent.cu), the same per-lane walks fed from a
-// work queue.
+// its local stack. B2's own walk (a leaf slot by slot) took 0.173 / 0.191
+// ms there and 0.967 ms over the 10 shadow wavefronts of a hall frame; the
+// any walk over FlatRows 0.165 / 0.184 and 0.917 (and 0.84x / 0.89x on the
+// city's primary / bounce rays; on the binary hall's bounce rays, which no
+// main path traces with B2, 1.08x). The closest walk's shared stack
+// entries, given to the any walk, cost it 0-4% on the same rays and were
+// not kept (traverse_common.cuh, any_two_level).
+// Persistent warps pulling rays from an atomic counter are B6a-B6d
+// (traverse_persistent.cu), the same per-lane walks fed from a work queue.
 
 #include "traverse_common.cuh"
 
@@ -77,6 +85,9 @@ closest_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_r
                     v_out, i);
 }
 
+// B2: ray i walks the flat table alone, in the plain walk's order
+// (any_ray over FlatRows: B4's walk with the two-level branches compiled
+// away; B5b's code under B2's name).
 template <int A, int S>
 __global__ void __launch_bounds__(kThreads)
 any_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
@@ -84,41 +95,10 @@ any_kernel(const float* __restrict__ nodes, const float* __restrict__ leaf_rows,
            const float* __restrict__ dir, const float* __restrict__ t_min,
            const float* __restrict__ t_max, const uint8_t* __restrict__ mask,
            uint8_t* __restrict__ occluded, int R) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  bool occ = false;
-  if (mask[i]) {
-    Ray r = load_ray(orig, dir, t_min, i);
-    float tmax = t_max[i];
-    int stack[S];
-    int sp = 0;
-    int cur = n_leaves == 1 ? -1 : 0;
-    while (cur != kDone && !occ) {
-      if (cur >= 0) {
-        float keys[A];
-        int codes[A];
-        node_step<A>(nodes, cur, r, tmax, keys, codes);
-        for (int k = A - 1; k >= 1 && !occ; --k) {
-          if (keys[k] < kBig) {
-            if (sp >= depth - 1) occ = true;  // overflow reports occluded
-            else stack[sp++] = codes[k];
-          }
-        }
-        if (occ) break;
-        if (keys[0] < kBig) { cur = codes[0]; continue; }
-      } else {
-        const float* lrow = leaf_rows + (size_t)(-cur - 1) * 10 * L;
-        for (int j = 0; j < L && !occ; ++j) {
-          float t, u, v;
-          int prim;
-          occ = mt_slot(lrow, L, j, r, tmax, &t, &u, &v, &prim);
-        }
-        if (occ) break;
-      }
-      cur = sp > 0 ? stack[--sp] : kDone;
-    }
-  }
-  occluded[i] = occ ? 1 : 0;
+  const FlatRows<A> t{{nodes, leaf_rows, n_leaves, 0, L}};
+  any_ray<A, S>(t, depth, orig, dir, t_min, t_max, mask, occluded, i);
 }
 
 }  // namespace

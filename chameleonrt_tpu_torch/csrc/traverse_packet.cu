@@ -47,17 +47,19 @@
 // with a local stack, 0.205 / 0.304 with them). The per-lane
 // B7b took 0.19 / 0.21 ms there and 0.15 / 0.11 ms on the first-bounce
 // light / bsdf shadow rays of a grid_packet=True frame, where the packet
-// B7b took 0.28 / 0.48 and 0.25 / 0.13 ms, and B2 on the same binary table
-// 0.18 / 0.20 and 0.14 / 0.10; taking node rows in a loop of their own, as
-// B7a does (any_two_level at A = 2), took a further 4.6-6% off the primary
-// rays and moved the others within the spread of duplicate trees. Measured
+// B7b took 0.28 / 0.48 and 0.25 / 0.13 ms, and B2's own walk then on the
+// same binary table 0.18 / 0.20 and 0.14 / 0.10; taking node rows in a loop
+// of their own, as B7a does (any_two_level at A = 2), took a further
+// 4.6-6% off the primary rays and moved the others within the spread of
+// duplicate trees. Measured
 // and left out: a B7a packet with per-lane masks on its stack entries, each
 // lane testing only the leaves its own box test entered, the row read by
 // every lane as broadcast 16-byte loads (no shared slot, no __syncwarp a
 // step) and subtrees of fewer than kNodeLanes lanes walked per lane: 1.3x /
-// 2.0x the per-lane B7a's time there. Built with -fmad=false, like B1-B6d.
-// Later work (ROADMAP queue B): none for these two; B1 and B6a run B7a's
-// walk at every arity.
+// 2.0x the per-lane B7a's time there; and B7a's top 8 stack entries in
+// shared memory in B7b's walk too, 3.5% slower on the bounce rays. Built
+// with -fmad=false, like B1-B6d. B1 and B6a run B7a's walk, B2 and B6b
+// B7b's, at every arity.
 
 #include "traverse_common.cuh"
 

@@ -20,23 +20,18 @@
 //     ray indices, kFetch consecutive ones to a warp with one atomic;
 //   - each lane walks its own ray in the plain walk's per-lane order
 //     (near-first through the sorting network, leaves as it meets them).
-// Two schedules share that queue:
-//   - B6a, B6c and B6d fetch per warp (per_warp), as the TPU kernel's slot
-//     pulls its next packet: the warp's 32 lanes take 32 consecutive sorted
-//     rays, each walks its ray to the end with the walk of B1, B3 or B4
-//     (traverse_common.cuh: closest_ray over FlatRows for B6a, with the top
-//     kShortStack = 8 stack entries in shared memory; closest_ray / any_ray
-//     over GlobalRows for B6c / B6d, with local stacks: leaf slots two at a
-//     time, entry rows 16 bytes at a time, and for closest hit node rows in
-//     a loop the warp leaves once most of its lanes wait), and the warp
-//     meets at __syncwarp() before its next fetch. A warp's lanes always
-//     hold neighbours in the sorted wavefront, and no ballot or refill runs
-//     between two row steps;
-//   - B6b refills per lane (persistent): a lane whose ray ends takes the
-//     next index of the warp's batch at once (handed out by a ballot, in
-//     lane order), and every row step (step) runs inside a warp-wide ballot,
-//     an any-vote and the refill bookkeeping; its walk is B2's, a local
-//     stack and a leaf's slots one at a time.
+//   - each warp fetches (per_warp), as the TPU kernel's slot pulls its next
+//     packet: its 32 lanes take 32 consecutive sorted rays, each walks its
+//     ray to the end with the walk of B1, B2, B3 or B4 (traverse_common.cuh:
+//     closest_ray / any_ray over FlatRows for B6a / B6b, the closest walk
+//     with the top kShortStack = 8 stack entries in shared memory, the any
+//     walk with a local stack; closest_ray / any_ray over GlobalRows for
+//     B6c / B6d, with local stacks; leaf slots two at a time, node rows 16
+//     bytes at a time, and for closest hit (and any hit on binary rows)
+//     node rows in a loop the warp leaves once most of its lanes wait),
+//     and the warp meets at __syncwarp() before its next fetch. A warp's
+//     lanes always hold neighbours in the sorted wavefront, and no ballot
+//     or refill runs between two row steps.
 // The TPU kernel's phase alternation, deferred leaf FIFO, merged phase,
 // pinned tree top and VMEM gates schedule a lockstep vector unit and are
 // not carried over. Every table sits in global memory behind the L2, so one
@@ -56,25 +51,28 @@
 // Built with -fmad=false, so t agrees with the plain version bit for bit.
 //
 // What bounds it on the H100: as B1-B4, dependent row fetches (latency, not
-// bytes: a wavefront's distinct rows are a few MB). The per-lane refill
-// keeps every lane busy until the queue is empty, where a B1 warp waits
-// for its longest ray; the price is coherence, since a warp's lanes soon
-// hold rays from different parts of the sorted wavefront, and a ballot, an
-// any-vote and the refill each row step. On an H100 80GB HBM3 at 700 W the
-// price was the larger: the refilling B6a-B6d took 0.97-1.37x the time of
-// B1-B4 on the same 921,600-ray wavefronts (chip_smoke.py, phase 3).
-// Fetching per warp took 17-20% off B6c and 9-22% off B6d on the same
-// walks, shadow rays included, and 12-21% off B6a on the hall's BVH4 table
-// (0.302 / 0.401 ms on its primary / bounce rays with the refill, 0.237 /
-// 0.352 per warp over B1's walk), where the shared stack entries took a
-// further 5-17% (0.215 / 0.285 ms; scripts/kernel_turns.py, PERF.md
-// section 6). Measured for B6d and left out: packing a batch's masked-in
-// rays into lanes, up to 2 or 4 fetches a round, which lost 5-20% to the
-// plain per-warp fetch on the main path's shadow rays and 0-3% on the
-// others (lanes then hold rays further apart, and a sparse wavefront's time
-// is that of its longest walks).
-// Later work (ROADMAP queue B): B6b per warp over the flat any walk; the
-// refill then has no user left.
+// bytes: a wavefront's distinct rows are a few MB). The kernels first
+// refilled per lane: a lane whose ray ended took the next index of its
+// warp's batch at once, which keeps every lane busy until the queue is
+// empty, where a B1 warp waits for its longest ray; the price was
+// coherence (a warp's lanes soon held rays from far-apart parts of the
+// sorted wavefront) and a ballot, an any-vote and the refill's bookkeeping
+// each row step. On an H100 80GB HBM3 at 700 W the price was the larger:
+// the refilling B6a-B6d took 0.97-1.37x the time of B1-B4 on the same
+// 921,600-ray wavefronts (chip_smoke.py, phase 3). Fetching per warp took
+// 17-20% off B6c and 9-22% off B6d on the same walks, shadow rays
+// included, 12-21% off B6a on the hall's BVH4 table (0.302 / 0.401 ms on
+// its primary / bounce rays with the refill, 0.237 / 0.352 per warp over
+// B1's walk), where the shared stack entries took a further 5-17% (0.215 /
+// 0.285 ms), and 15-21% off B6b there (0.218 / 0.221 ms with the refill
+// and B2's own walk, 0.172 / 0.187 per warp over the flat any walk; 1.126
+// -> 1.002-1.019 ms over the 10 shadow wavefronts of a hall frame;
+// scripts/kernel_turns.py, PERF.md section 6). Measured for B6d and left
+// out: packing a batch's masked-in rays into lanes, up to 2 or 4 fetches a
+// round, which lost 5-20% to the plain per-warp fetch on the main path's
+// shadow rays and 0-3% on the others (lanes then hold rays further apart,
+// and a sparse wavefront's time is that of its longest walks); for B6b,
+// the closest walk's shared stack entries in the any walk, 2-11% slower.
 
 #include "traverse_common.cuh"
 
@@ -106,109 +104,7 @@ struct Params {
   int R;
 };
 
-// One lane's any-hit walk (B6b).
-struct Walk {
-  Ray r;
-  float tmax;
-  int cur, sp;
-  bool occ;
-};
-
-__device__ __forceinline__ void start(const Params& p, Walk& s, int i) {
-  s.r = load_ray(p.orig, p.dir, p.t_min, i);
-  s.tmax = p.t_max[i];
-  s.sp = 0;
-  s.occ = false;
-  if (!p.flag[i]) s.cur = kDone;
-  else s.cur = p.n_tri == 1 ? -1 : 0;  // a one-leaf table starts at leaf 0
-}
-
-__device__ __forceinline__ int pop(Walk& s, const int* stack) {
-  return s.sp > 0 ? stack[--s.sp] : kDone;
-}
-
-// One row of the walk at s.cur (not kDone); ends the walk with s.cur = kDone.
-template <int A>
-__device__ __forceinline__ void step(const Params& p, Walk& s, int* stack) {
-  const int cur = s.cur;
-  if (cur >= 0) {
-    float keys[A];
-    int codes[A];
-    node_step<A>(p.nodes, cur, s.r, s.tmax, keys, codes);
-    for (int k = A - 1; k >= 1; --k) {
-      if (keys[k] < kBig) {
-        if (s.sp >= p.depth - 1) {  // overflow reports occluded
-          s.occ = true;
-          s.cur = kDone;
-          return;
-        }
-        stack[s.sp++] = codes[k];
-      }
-    }
-    s.cur = keys[0] < kBig ? codes[0] : pop(s, stack);
-    return;
-  }
-  const float* lrow = p.leaf_rows + (size_t)(-cur - 1) * 10 * p.L;
-  for (int j = 0; j < p.L; ++j) {
-    float t, u, v;
-    int prim;
-    if (mt_slot(lrow, p.L, j, s.r, s.tmax, &t, &u, &v, &prim)) {
-      s.occ = true;
-      s.cur = kDone;
-      return;
-    }
-  }
-  s.cur = pop(s, stack);
-}
-
-// The per-lane refill (B6b). Every lane of a warp stays in the loop until a
-// warp-wide vote finds no lane with a ray after the refill, which happens
-// only once the queue is empty, so every *_sync intrinsic sees all 32 lanes.
-template <int A, int S>
-__device__ __forceinline__ void persistent(const Params& p) {
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned below = (1u << lane) - 1u;
-  int stack[S];
-  Walk s;
-  s.cur = kDone;
-  int ray = -1;                 // this lane's ray, -1 while it has none
-  int q_next = 0, q_end = 0;    // the warp's unclaimed indices [q_next, q_end)
-  bool drained = false;         // the counter has passed R
-  while (true) {
-    const unsigned idle = __ballot_sync(kFull, ray < 0);
-    if (idle != 0u && q_next >= q_end && !drained) {  // warp-uniform
-      int base = 0;
-      if (lane == 0) base = atomicAdd(p.counter, kFetch);
-      base = __shfl_sync(kFull, base, 0);
-      q_next = base;
-      q_end = min(base, p.R - kFetch) + kFetch;  // min(base + kFetch, R), without overflow
-      drained = q_end >= p.R;
-    }
-    if (idle != 0u && q_next < q_end) {
-      const int rank = __popc(idle & below);
-      if (ray < 0 && rank < q_end - q_next) {
-        ray = q_next + rank;
-        start(p, s, ray);
-      }
-      q_next = min(q_next + __popc(idle), q_end);
-    }
-    if (!__any_sync(kFull, ray >= 0)) break;
-    if (ray >= 0) {
-      if (s.cur != kDone) step<A>(p, s, stack);
-      if (s.cur == kDone) {
-        p.occluded[ray] = s.occ ? 1 : 0;
-        ray = -1;
-      }
-    }
-  }
-}
-
-template <int A, int S>
-__global__ void __launch_bounds__(kThreads) any_persistent_kernel(const Params p) {
-  persistent<A, S>(p);
-}
-
-// Persistent warps (B6a, B6c, B6d): lane 0 takes kFetch consecutive ray indices
+// Persistent warps (B6a-B6d): lane 0 takes kFetch consecutive ray indices
 // with one atomic and the warp shares them by a shuffle; each lane runs
 // walk(i) on its index, and the warp meets at __syncwarp() and fetches again
 // until the counter passes R. Every lane reaches each fetch; a lane past R
@@ -234,6 +130,15 @@ __global__ void __launch_bounds__(kThreads) closest_persistent_kernel(const Para
   per_warp(p, [&](int i) {
     closest_ray<A, S>(t, p.depth, p.orig, p.dir, p.t_min, p.t_max, p.flag, p.t_out, p.prim_out,
                       nullptr, p.u_out, p.v_out, i);
+  });
+}
+
+// B6b: persistent warps over B2's walk (any_ray over FlatRows).
+template <int A, int S>
+__global__ void __launch_bounds__(kThreads) any_persistent_kernel(const Params p) {
+  const FlatRows<A> t{{p.nodes, p.leaf_rows, p.n_tri, 0, p.L}};
+  per_warp(p, [&](int i) {
+    any_ray<A, S>(t, p.depth, p.orig, p.dir, p.t_min, p.t_max, p.flag, p.occluded, i);
   });
 }
 

@@ -43,8 +43,8 @@
 // dependent load between two __syncwarp() at each. Likewise the per-lane
 // B5b took 0.22 / 0.15 ms there and 0.10 / 0.08 ms on the first-bounce
 // light / bsdf shadow rays of a city frame, where the packet B5b took 0.49
-// / 0.42 and 0.27 / 0.14 ms, and B2 on the same rays 0.26 / 0.17 and 0.11 /
-// 0.09 (B5b reads a leaf's slots two at a time, B2 one). The top 8 stack
+// / 0.42 and 0.27 / 0.14 ms, and B2's own walk then (a leaf's slots one at
+// a time) 0.26 / 0.17 and 0.11 / 0.09 on the same rays. The top 8 stack
 // entries in shared memory took 7-8% off B5a there (0.318 / 0.246 ms with a
 // local stack, 0.297 / 0.226 with them; traverse_flat.cu). Measured and left
 // out: persistent warps that fetch 32 sorted rays at a time (B5a: 1-3%
@@ -52,10 +52,10 @@
 // trees), the L2 prefetch-size qualifier on the row loads (B5a:
 // ld.global.nc.L2::128B within the spread, L2::256B 1-3% slower), and the
 // any walk's node loop at A = 4 (B5b: 4% slower on the city's bounce rays;
-// any_two_level keeps it for binary rows). Built with -fmad=false, like
-// B1/B2.
-// B1 and B6a run B5a's walk too, under their own names; B2 and B6b keep
-// walks of their own (ROADMAP queue B).
+// any_two_level keeps it for binary rows), and the top 8 stack entries in
+// shared memory in the any walk too (B5b: 3-8% slower on the city's rays).
+// Built with -fmad=false, like B1/B2.
+// B1 and B6a run B5a's walk too, B2 and B6b B5b's, under their own names.
 
 #include "traverse_common.cuh"
 

@@ -7,7 +7,11 @@ csrc/traverse_unified_stream.cu, and the work-queue
 persistent kernels in csrc/traverse_persistent.cu: B6a (flat closest
 hit), B6b (flat any hit), B6c (two-level closest hit) and B6d (two-level
 any hit), and the grid-packet kernels in csrc/traverse_packet.cu: B7a
-(flat closest hit) and B7b (flat any hit) on binary rows.
+(flat closest hit) and B7b (flat any hit) on binary rows. Each walks one
+ray a lane with a walk of csrc/traverse_common.cuh: B1, B5a, B6a and B7a
+share its closest walk over a flat table, B2, B5b, B6b and B7b its any
+walk over one, and B3/B4, B5c/B5d and B6c/B6d the same two walks over
+a two-level table.
 
 B1-B5d replace the Pallas slot-lane kernels of
 chameleonrt_tpu/ops/traverse_slotlane.py (traverse_closest_slotlane,
@@ -228,7 +232,11 @@ def traverse_closest(pbvh: PackedBvh, orig, dir, t_min, active, t_max):
 
 
 def traverse_any(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
-    """B2: any hit. Returns (R,) bool occluded & mask, as plain.traverse_any."""
+    """B2: any hit, one lane per ray in the plain walk's order (B4's walk
+    over a flat table, as B5b). Returns (R,) bool occluded & mask, bit-equal
+    to its plain version, plain.traverse_any: a ray stops at its first hit
+    with t_min < t < t_max, and a stack overflow reports it occluded, as
+    the plain walk does."""
     return _any("crt_traverse_any", "any", pbvh, orig, dir, t_min, t_max, mask)
 
 
@@ -344,8 +352,10 @@ def traverse_closest_persistent(pbvh: PackedBvh, orig, dir, t_min, active, t_max
 
 
 def traverse_any_persistent(pbvh: PackedBvh, orig, dir, t_min, t_max, mask):
-    """B6b: flat any hit from the work queue. Returns (R,) bool occluded &
-    mask, as plain.traverse_any. Replaces traverse_packet.py
+    """B6b: flat any hit by persistent warps fed from a work queue, 32
+    sorted rays a fetch, each lane walking one ray with B2's walk. Returns
+    (R,) bool occluded & mask, bit-equal to its plain version,
+    plain.traverse_any, overflow included, as B2. Replaces traverse_packet.py
     traverse_any_persistent (pl.pallas_call of _any_call_persistent,
     traverse_packet.py:2110), either `stream` value."""
     return _any("crt_traverse_any_persistent", "any_persistent",

@@ -14,10 +14,10 @@ nor the JAX package (it asserts so at its end). Phases:
    kernel and plain times on a sorted primary wavefront and a
    diffuse-bounce wavefront from its hit points:
    - B1/B2 (flat) on proc://hall?subdiv=2 at 320x180 and on the textured
-     hall at 1280x720 (B1, B3's walk over a flat table, held exactly, as
-     B5a), B2 on the 10 masked shadow-ray wavefronts of one 1280x720 hall
-     frame, and B1, exactly, on the 5 closest-hit wavefronts of one, each
-     timed beside its bound;
+     hall at 1280x720 (B3's closest and B4's any walk over a flat table,
+     held exactly, as B5a/B5b), B2, exactly, on the 10 masked shadow-ray
+     wavefronts of one 1280x720 hall frame, and B1, exactly, on the 5
+     closest-hit wavefronts of one, each timed beside its bound;
    - B3/B4 (two-level) on proc://instances?nx=4&ny=4&subdiv=2 at 320x180
      and on the San Miguel proxy at 1280x720, and B4 on the 10 masked
      shadow-ray wavefronts of one 1-spp San Miguel frame at 1280x720, each
@@ -446,13 +446,13 @@ _PATHS = {
 }
 SAME_RAYS = {"stream": "flat", "unified_stream": "unified"}
 TWO_LEVEL = ("unified", "unified_stream", "unified_persistent")
-# the kernels that walk in the plain walk's per-lane order over
-# traverse_common.cuh's walks, held to exact agreement: 0 mismatches and
-# |dt| = |du| = |dv| = 0 (B3/B4, B5c/B5d and B6c/B6d, the two-level walks,
-# and B1, B5a, B6a, B7a and B5b, B7b, the closest and any walks over a flat
-# table; B2 and B6b, which walk on their own, keep the JAX bench's gate,
-# which they meet with 0)
-EXACT = ("B1", "B3", "B4", "B5a", "B5b", "B5c", "B5d", "B6a", "B6c", "B6d", "B7a", "B7b")
+# the kernels held to exact agreement, 0 mismatches and |dt| = |du| = |dv| =
+# 0: all of them, since each walks in the plain walk's per-lane order with
+# traverse_common.cuh's walks (B3/B4, B5c/B5d and B6c/B6d the two-level
+# ones; B1, B5a, B6a, B7a and B2, B5b, B6b, B7b the closest and any walks
+# over a flat table)
+EXACT = ("B1", "B2", "B3", "B4", "B5a", "B5b", "B5c", "B5d", "B6a", "B6b", "B6c", "B6d", "B7a",
+         "B7b")
 # the kernels that keep a per-lane stack of a capacity the wrapper picks
 # (traverse_cuda.stack_capacity): all of them
 PER_LANE = ("B1", "B2", "B3", "B4", "B5a", "B5b", "B5c", "B5d", "B6a", "B6b", "B6c", "B6d", "B7a",
@@ -574,8 +574,8 @@ def _check_queue(torch, path, closest, args, ref, max_stack=False):
     tier kernel's gates; the same on the first SMALL_R rays alone (each
     lane of the plain walk is independent, so ref's first lanes are their
     plain result); then its time, median of KERNEL_REPS, and with max_stack
-    its time at its MAX_STACK instantiation (_time_at_max_stack). B6a, B6c
-    and B6d meet the gate exactly (EXACT), B6b the JAX bench's."""
+    its time at its MAX_STACK instantiation (_time_at_max_stack). Every
+    work-queue kernel meets the gate exactly (EXACT)."""
     unified = path in TWO_LEVEL
     name, kernel, _ = _kernel_pair(QUEUE[path], closest)
     exact = name in EXACT

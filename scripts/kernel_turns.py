@@ -17,12 +17,14 @@ checkout's chip_smoke.py helpers, with the plain walk's results on each:
   B2, B6a and B6b on the same rays), on the textured hall at 1280x720 on
   its binary table (B7a, B7b, B1, B2, B6a and B6b on the same rays) and on
   its BVH4 table, the one its main path traces (B1, B2, B6a and B6b), and
-  on each the two masked shadow-ray wavefronts of the first bounce of one
-  1-spp frame, captured as on San Miguel (the binary hall's with
-  grid_packet=True; any hit only); on the hall's BVH4 table also the 5
-  closest-hit wavefronts of one 1-spp 1280x720 frame of its main path,
-  captured at B1's wrapper as chip_smoke.py captures them (closest hit
-  only).
+  on the city and the binary hall the two masked shadow-ray wavefronts of
+  the first bounce of one 1-spp frame, captured as on San Miguel (the
+  binary hall's with grid_packet=True; any hit only); on the hall's BVH4
+  table the 5 closest-hit wavefronts of one 1-spp 1280x720 frame of its
+  main path, captured at B1's wrapper as chip_smoke.py captures them
+  (closest hit only), and all 10 shadow-ray wavefronts of that frame
+  (shadow0-shadow9, light and bsdf samples of each bounce in call order;
+  any hit only).
 --tables picks one of the two sets or both. Then one worker process a tree
 builds that tree's kernels and binds them through that tree's own
 wrappers, checks every kernel against the plain results, and times them
@@ -225,10 +227,13 @@ def _cases(torch, path, kinds):
                 print(f"[cases] {scene_name} frame{n}: {args[0].shape[0]} rays, "
                       f"{int(args[3].sum())} active, {int((want[1] >= 0).sum())} hits", flush=True)
         if scene_name in ("san_miguel", "city", "hall", "hall4"):
-            # any hit only: the first bounce's two shadow wavefronts
+            # any hit only: the first bounce's two shadow wavefronts, and on
+            # the hall's BVH4 table all 10 of the frame, its main path's
             _, calls = cs._shadow_calls(torch, scene, (flat, meta), W, H, use_kernels=False,
                                         grid_packet=kind == "binary")
-            for shadow, (o, d, t_max, mask, occ) in zip(("shadow_light", "shadow_bsdf"), calls):
+            shadows = ([f"shadow{n}" for n in range(len(calls))] if kind == "hall4"
+                       else ["shadow_light", "shadow_bsdf"])
+            for shadow, (o, d, t_max, mask, occ) in zip(shadows, calls):
                 any_args = (o, d, torch.full_like(t_max, EPSILON), t_max, mask)
                 want_any = any_(table, *any_args)
                 assert torch.equal(want_any, occ)

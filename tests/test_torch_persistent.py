@@ -450,3 +450,17 @@ def test_chip_smoke_holds_every_per_lane_closest_kernel_exactly():
     assert closest <= set(cs.EXACT)
     assert cs._CLOSEST_FRAME["persistent"] == {"slotlane": False}
     assert {cs._PATHS[p][0][0] for p in cs._CLOSEST_FRAME} == {"B1", "B5a", "B6a", "B7a"}
+
+
+def test_chip_smoke_holds_every_per_lane_any_kernel_exactly():
+    """Every any-hit kernel runs the per-lane any walk of
+    csrc/traverse_common.cuh (any_ray: B2, B5b, B6b and B7b over a flat
+    table, B4, B5d and B6d over a two-level one), so chip_smoke.py holds
+    each bit for bit against the plain walk (EXACT); the work-queue paths,
+    whose main-path frames _check_any_shadow renders with the slot-lane
+    tier off, are B6b's and B6d's."""
+    cs = _chip_smoke()
+    any_hit = {pair[1][0] for pair in cs._PATHS.values()}
+    assert any_hit == {"B2", "B4", "B5b", "B5d", "B6b", "B6d", "B7b"}
+    assert any_hit <= set(cs.EXACT)
+    assert {cs._PATHS[p][1][0] for p in set(cs.QUEUE.values())} == {"B6b", "B6d"}

@@ -163,7 +163,7 @@ static void flat_closest_all(const float* nodes, const float* leaf_rows, int n_l
   }
 }
 
-// B5b's and B7b's kernels: the same any walk over a flat table
+// B2's, B5b's, B6b's and B7b's kernels: the same any walk over a flat table
 template <int A, int S>
 static void flat_any_all(const float* nodes, const float* leaf_rows, int n_leaves, int L,
                          int depth, const float* orig, const float* dir, const float* t_min,
@@ -245,11 +245,12 @@ def shadow(scene):
     return _shadow_rays(scene)
 
 
-def _shadow_rays(scene):
-    """The two masked shadow-ray wavefronts of the first bounce (light
-    samples, then bsdf samples toward the lights) of one W x H frame of the
-    scene, captured from the port's renderer on the CPU as chip_smoke.py
-    captures a main path's: [(orig, dir, t_max, mask)]."""
+def _shadow_rays(scene, first=2):
+    """The first masked shadow-ray wavefronts of one W x H frame of the
+    scene (by default the first bounce's two: light samples, then bsdf
+    samples toward the lights; first=None: all of them), captured from the
+    port's renderer on the CPU as chip_smoke.py captures a main path's:
+    [(orig, dir, t_max, mask)]."""
     b = CudaBackend(device="cpu")
     b.initialize(W, H)
     b.set_scene(scene)
@@ -265,7 +266,7 @@ def _shadow_rays(scene):
     d = cam.center - cam.position
     b.render(cam.position, d / np.linalg.norm(d), cam.up, cam.fov_y, True,
              readback_framebuffer=False)
-    return calls[:2]
+    return calls[:first]
 
 
 def _table(scene, arity, leaf):
@@ -589,9 +590,9 @@ def _deep_stack(arity, n=DEEP_N, rays=256):
         torch.full((rays,), 1e20)
 
 
-def _deepest_push(monkeypatch, table, *args):
-    """The plain closest walk on args and the deepest stack it pushed (its
-    _push wrapped to record it)."""
+def _deepest_push(monkeypatch, walk, table, *args):
+    """The plain walk (plain.traverse_closest or traverse_any) on args and
+    the deepest stack it pushed (its _push wrapped to record it)."""
     deepest = [0]
     push = plain._push
 
@@ -602,7 +603,7 @@ def _deepest_push(monkeypatch, table, *args):
         return sp, over
 
     monkeypatch.setattr(plain, "_push", record)
-    want = plain.traverse_closest(table, *args)
+    want = walk(table, *args)
     monkeypatch.undo()
     return want, deepest[0]
 
@@ -621,7 +622,7 @@ def test_flat_walk_short_stack_spills_and_returns(walks, monkeypatch, arity, cut
     table, *args = _deep_stack(arity)
     if cut:
         table = table._replace(max_depth=FLAT_K + 1)
-    want, deepest = _deepest_push(monkeypatch, table, *args)
+    want, deepest = _deepest_push(monkeypatch, plain.traverse_closest, table, *args)
     assert deepest > FLAT_K
     for cap in (64, 128):
         _assert_bit_equal(_flat_closest(walks, table, *args, cap), want)
@@ -803,3 +804,61 @@ def test_flat_any_walk_on_a_one_leaf_table(walks, flat_scene, arity, leaf):
                                            t_any, active)
     hit = prim >= 0
     assert int((occ & hit & even).sum()) > 10 and not bool((occ & ~even).any())
+
+
+@pytest.fixture(scope="module")
+def flat_frame_shadow(flat_scene):
+    """All masked shadow-ray wavefronts of one W x H frame of the flat
+    parity hall (_shadow_rays), as the main path's frame traces them."""
+    return _shadow_rays(flat_scene, first=None)
+
+
+@pytest.mark.parametrize("call", range(10))
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_any_walk_on_a_frames_shadow_wavefronts(walks, flat_scene, flat_frame_shadow, arity,
+                                                     call):
+    """any_two_level over FlatRows (B2's, B5b's, B6b's and B7b's walk)
+    against plain.traverse_any on the renderer's own shadow rays: each of
+    the 10 masked wavefronts of one frame (light and bsdf samples of each
+    of its 5 bounces, in call order) traced on the parity hall's table of
+    each arity at its t_max and mask, the occlusion flags equal bit for bit
+    at the 64- and 128-entry stack capacities; masked-out lanes are never
+    occluded."""
+    assert len(flat_frame_shadow) == 10
+    orig, dirs, t_max, mask = flat_frame_shadow[call]
+    assert 0 < int(mask.sum()) < mask.numel()
+    _, table = _flat_table(flat_scene, arity, 4)
+    occ, _, _ = _assert_flat_any_bit_equal(walks, table, orig, dirs,
+                                           torch.full_like(t_max, EPSILON), t_max, mask)
+    assert not bool(occ[~mask].any())
+
+
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("arity", ARITIES)
+def test_flat_any_walk_pops_back_through_a_deep_stack(walks, monkeypatch, arity, cut):
+    """The flat any walk against the plain walk, bit for bit, on a table
+    whose walks push deeper than FLAT_K (_deep_stack: deeper than the
+    closest walk keeps in shared memory; the any walk keeps its whole stack
+    in its local array) and pop back through every entry before they reach
+    the large triangle: t_max is 1.001 x that hit on even lanes (occluded)
+    and 0.999 x on odd ones (they walk the whole column and miss), at both
+    stack capacities; cut: the certified depth cut to FLAT_K + 1, so that
+    the walks overflow at the push that does not fit, which occludes the
+    odd lanes too."""
+    table, orig, dirs, t_min, active, t_inf = _deep_stack(arity)
+    t, prim, _, _ = plain.traverse_closest(table, orig, dirs, t_min, active, t_inf)
+    assert bool((prim == DEEP_N).all())
+    even = torch.arange(orig.shape[0]) % 2 == 0
+    t_max = t * torch.where(even, 1.001, 0.999)
+    a_min = torch.full_like(t_min, EPSILON)
+    if cut:
+        table = table._replace(max_depth=FLAT_K + 1)
+    _, deepest = _deepest_push(monkeypatch, plain.traverse_any, table, orig, dirs, a_min, t_max,
+                               active)
+    assert deepest > FLAT_K
+    occ, _, _ = _assert_flat_any_bit_equal(walks, table, orig, dirs, a_min, t_max, active)
+    assert bool(occ[even].all())
+    if cut:  # occluded by the overflow alone
+        assert int(occ[~even].sum()) > 100
+    else:
+        assert not bool(occ[~even].any())
