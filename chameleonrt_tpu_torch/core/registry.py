@@ -5,6 +5,7 @@ The reference loads backends as dlopen'd shared libraries resolved by name
 chameleonrt_tpu/core/registry.py, it is a name -> factory registry with
 lazy imports, so adding a backend is registering one more entry against
 the same seam. The port's registry knows the port's backends only.
+Both built-in backends render on the card unless given device="cpu".
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ _BUILTIN = {
     # The wavefront path tracer with native SAH tables and the hand-written
     # CUDA traversal kernels (device="cpu" runs the plain traversal).
     "cuda": "chameleonrt_tpu_torch.engine.backend_cuda:CudaBackend",
+    # The brute-force oracle: every ray against every triangle, no BVH.
+    "reference": "chameleonrt_tpu_torch.engine.backend_reference:ReferenceBackend",
 }
 
 

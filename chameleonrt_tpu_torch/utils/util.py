@@ -41,3 +41,14 @@ def luminance(c: np.ndarray) -> np.ndarray:
     c = np.asarray(c, dtype=np.float32)
     return 0.2126 * c[..., 0] + 0.7152 * c[..., 1] + 0.0722 * c[..., 2]
 
+
+
+def get_device_brand() -> str:
+    """Device provenance string (the GPU analogue of get_cpu_brand,
+    reference util/util.cpp:74-100): the first card's name and the number
+    of cards, or "no CUDA device"."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return "no CUDA device"
+    return f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"

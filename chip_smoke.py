@@ -96,6 +96,24 @@ nor the JAX package (it asserts so at its end). Phases:
    CHAMELEONRT_CLOSEST_ARITY=2, CHAMELEONRT_WIDE_ARITY=8 and
    CHAMELEONRT_LEAF_SIZE=8; 128x72, 2 frames each): 8-bit mean abs
    difference < 1;
+4b. the brute-force `reference` backend (phase_reference): the JAX
+   bench's image gate, get_backend("cuda") against get_backend("reference")
+   on the textured hall and on proc://instances?nx=6&ny=6&subdiv=3 at
+   128x72, 1 spp, 8-bit MAD < 1; the oracle (ops/intersect.py
+   brute_force_closest / brute_force_any through
+   engine/trace_bruteforce.py) against B1 and B2 on the main path's
+   textured hall (224,768 triangles) on a sorted 320x180 primary wavefront
+   and its diffuse-bounce wavefront (closest hit, and any hit to 1.001 of
+   the hit on even lanes and to 0.999 on odd lanes, so that B2 must both
+   find the hit and stop at t_max), held to the JAX bench's gate, with the
+   oracle's seconds and peak memory; and the reference backend's ms per
+   frame at 128x72;
+4c. the command line (phase_cli), each run in a process of its own:
+   `python -m chameleonrt_tpu_torch.cli cuda proc://cornell -img 256 256
+   -spp 2 -frames 3` with -validation and -checkpoint, the same resumed
+   from that checkpoint for 2 frames under -profile (the frame count goes
+   on; the trace names B1 and B2), and, beside these two, the reference
+   backend with -benchmark-frames 2 at 64x64;
 5. the main paths, each with the kernels' launch counts set to 0 just
    before it and read just after: get_backend("cuda") rendering
    proc://hall?subdiv=4&textured=1 at 1280x720, 1 spp (B1/B2), the San
@@ -133,6 +151,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -159,6 +178,11 @@ SM_TIMED_FRAMES = 4
 CITY_TIMED_FRAMES = 3
 LARGE_TIMED_FRAMES = 3
 PROFILE_FRAMES = 1
+# the JAX bench's image gate (bench.py:174-190) and parity wavefront size
+# (bench.py:49), at which the brute-force oracle checks B1 and B2
+GATE_W, GATE_H = 128, 72
+ORACLE_W, ORACLE_H = 320, 180
+REFERENCE_FRAMES = 3
 # traversal gates (the JAX bench's parity gates): prim (and instance) /
 # occlusion mismatches <= max(2, R / 50000), |dt| over common hits and
 # |du|, |dv| over hits on the same triangle <= 1e-5
@@ -166,8 +190,8 @@ DT_TOL = 1e-5
 UV_TOL = 1e-5
 # timings: median of this many CUDA-event timed calls after one warmup (for
 # the plain version, the parity call just before is the warmup); the plain
-# walks over the San Miguel proxies and the city take ~1 s a call, so they
-# get fewer
+# walks over the San Miguel proxies and the city take ~0.4-1.9 s a call, so
+# they get one
 KERNEL_REPS = 5
 PLAIN_REPS = 5
 PLAIN_REPS_SAN_MIGUEL = 3
@@ -1241,6 +1265,219 @@ def phase_image(torch, uri, stream=None, expect=None, slotlane=True, grid_packet
     return mad
 
 
+def _gate_image(torch, name, uri):
+    """One 128x72 frame at 1 spp through get_backend(name), as the JAX
+    bench's image gate renders it: (8-bit image, ms of the frame)."""
+    import numpy as np
+
+    from chameleonrt_tpu_torch.core.registry import get_backend
+
+    scene = _load(uri)
+    b = get_backend(name)
+    b.initialize(GATE_W, GATE_H)
+    b.set_scene(scene)
+    st = b.render(*_view(scene), True)
+    return b.img[..., :3].astype(np.float32), st.render_time
+
+
+def _oracle_call(torch, fn, *args, **kwargs):
+    """fn(*args, **kwargs) on the card: (result, seconds, peak bytes that
+    the call allocated above what was allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - before
+
+
+def phase_reference(torch):
+    """The brute-force `reference` backend on the card:
+    - the JAX bench's image gate (bench.py:174-190): get_backend("cuda")
+      against get_backend("reference"), one 128x72 frame at 1 spp, 8-bit
+      MAD < 1.0, on the textured hall (B1/B2) and on the 36-instance grid
+      (B3/B4, and the reference's loop over the instances);
+    - the oracle against B1 and B2 through the engine's trace functions
+      (engine/trace_bvh.py, the BVH4 table, B1/B2 forced) on the main
+      path's textured hall (224,768 triangles), on a sorted 320x180
+      primary wavefront and its diffuse-bounce wavefront: closest hit, and
+      any hit from EPSILON to 1.001 of each hit on even lanes and to 0.999
+      on odd lanes (100 on a miss; nothing lies nearer than the hit, so an
+      odd lane that hits is occluded only if t_max is ignored), held to
+      bench.py:157-170 (mismatches <= max(2, R / 50000), |dt| and, on the
+      same triangle, |du|, |dv| <= 1e-5), with each oracle call's seconds
+      and peak memory;
+    - the reference backend's ms per frame at 128x72 (median of
+      REFERENCE_FRAMES after one warmup)."""
+    import numpy as np
+
+    from chameleonrt_tpu_torch.core.registry import get_backend
+    from chameleonrt_tpu_torch.engine import trace_bruteforce, trace_bvh
+    from chameleonrt_tpu_torch.ops import traverse_cuda
+    from chameleonrt_tpu_torch.ops.intersect import MAX_PAIRS
+    from chameleonrt_tpu_torch.ops.math import EPSILON
+
+    out = {"gate": {}}
+    for uri, kernels in ((HALL_IMAGE, {"closest", "any"}),
+                         (INST_IMAGE, {"closest_unified", "any_unified"})):
+        before = dict(traverse_cuda.LAUNCHES)
+        img_k, ms_k = _gate_image(torch, "cuda", uri)
+        launched = {k: n - before[k] for k, n in traverse_cuda.LAUNCHES.items() if n != before[k]}
+        img_r, ms_r = _gate_image(torch, "reference", uri)
+        diff = np.abs(img_k - img_r)
+        res = {"mad_u8": float(diff.mean()), "max_u8": float(diff.max()),
+               "frac_px_off_by_more_than_2": float((diff.max(axis=-1) > 2).mean()),
+               "cuda_ms": ms_k, "reference_ms": ms_r, "cuda_launches": launched,
+               "image_mean": float(img_r.mean())}
+        log(f"[reference] image gate {uri} {GATE_W}x{GATE_H} 1 spp, cuda vs reference: {json.dumps(res)}")
+        if not res["mad_u8"] < 1.0 or not img_r.max() > 0:
+            raise AssertionError(f"the cuda image of {uri} is off the reference's: {res}")
+        if set(launched) != kernels:
+            raise AssertionError(f"the cuda gate frame of {uri} launched {launched}, expected {kernels}")
+        out["gate"][uri] = res
+
+    scene, flat, meta = _scene_tables(torch, HALL_SCENE)
+    bvh_closest, bvh_any = trace_bvh.make_trace_fns(meta, stream=False, blas=flat.blas, slotlane=True)
+    bf_closest, bf_any = trace_bruteforce.make_trace_fns(meta)
+    orig, dirs, active = _primary_wavefront(torch, scene, ORACLE_W, ORACLE_H)
+    R = orig.shape[0]
+    out["oracle"] = {"scene": HALL_SCENE, "tris": meta.num_tris, "rays": R, "max_pairs": MAX_PAIRS}
+    for wave in ("primary", "bounce"):
+        t_min = 0.0 if wave == "primary" else EPSILON
+        before = dict(traverse_cuda.LAUNCHES)
+        k = bvh_closest(flat, orig, dirs, t_min, active)
+        ref, secs, peak = _oracle_call(torch, bf_closest, flat, orig, dirs, t_min, active)
+        res = {"active": int(active.sum()), "hits": int(ref.hit.sum()), "closest_s": secs,
+               "closest_peak_bytes": peak,
+               **_closest_agreement(tuple(k), tuple(ref), unified=False)}
+        beyond = torch.arange(R, device="cuda") % 2 == 1
+        t_max = torch.where(ref.t < 1e19, ref.t * torch.where(beyond, 0.999, 1.001),
+                            torch.full_like(ref.t, 100.0))
+        occ_k = bvh_any(flat, orig, dirs, t_max, active)
+        occ_r, secs, peak = _oracle_call(torch, bf_any, flat, orig, dirs, t_max, active)
+        launched = {k: n - before[k] for k, n in traverse_cuda.LAUNCHES.items() if n != before[k]}
+        occ = _any_agreement(occ_k, occ_r)
+        res.update(any_s=secs, any_peak_bytes=peak,
+                   hits_to_1_001=int((ref.hit & ~beyond).sum()),
+                   occluded_to_1_001=int((occ_r & ~beyond).sum()),
+                   hits_to_0_999=int((ref.hit & beyond).sum()),
+                   occluded_to_0_999=int((occ_r & beyond).sum()),
+                   occ_mismatch=occ["occ_mismatch"], launches=launched,
+                   ok=res["ok"] and occ["ok"])
+        log(f"[reference] oracle vs B1/B2 on the hall, {wave} {ORACLE_W}x{ORACLE_H}: {json.dumps(res)}")
+        if not res["ok"] or launched != {"closest": 1, "any": 1}:
+            raise AssertionError(f"B1/B2 disagree with the brute-force oracle on the {wave} rays, or "
+                                 f"did not run: {res}")
+        out["oracle"][wave] = res
+        if wave == "primary":
+            orig, dirs, active = _bounce_wavefront(torch, flat, orig, dirs, ref.t, ref.tri, None)
+
+    scene = _load(HALL_IMAGE)
+    view = _view(scene)
+    b = get_backend("reference")
+    b.initialize(GATE_W, GATE_H)
+    b.set_scene(scene)
+    ms = [b.render(*view, i == 0, readback_framebuffer=False).render_time
+          for i in range(1 + REFERENCE_FRAMES)][1:]
+    out["reference_ms_per_frame"] = {"scene": HALL_IMAGE, "width": GATE_W, "height": GATE_H,
+                                     "ms": ms, "median_ms": statistics.median(ms)}
+    log(f"[reference] reference backend {HALL_IMAGE} {GATE_W}x{GATE_H} 1 spp: "
+        f"{json.dumps(out['reference_ms_per_frame'])}")
+    return out
+
+
+def _cli_start(args):
+    """python -m chameleonrt_tpu_torch.cli with args, started from the
+    repository root."""
+    return subprocess.Popen([sys.executable, "-m", "chameleonrt_tpu_torch.cli", *args], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _cli_end(proc, timeout=300):
+    """The stdout of a _cli_start process, or an error with the end of its
+    output; a process that outlasts timeout is killed."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {' '.join(proc.args[3:])} exited {proc.returncode}: "
+                             f"{out[-2000:]}\n{err[-2000:]}")
+    return out
+
+
+def _cli(args, timeout=300):
+    return _cli_end(_cli_start(args), timeout)
+
+
+def phase_cli(torch, tmp):
+    """The port's command line on the card, in processes of its own, each
+    of which must exit 0 and write its files: the cuda backend on
+    proc://cornell at 256x256 and 2 spp for 3 frames with -validation and
+    -checkpoint, then resumed from that checkpoint for 2 more frames under
+    -profile (the frame count goes on at 3, the new checkpoint holds 5, the
+    trace names the traversal kernels B1/B2), and, beside these two, the
+    reference backend with -benchmark-frames 2 at 64x64."""
+    import numpy as np
+
+    from chameleonrt_tpu_torch.cli import PROFILE_TRACE
+
+    def check_state(path, frame_id):
+        with np.load(path) as z:
+            if int(z["frame_id"]) != frame_id or z["accum"].shape != (256, 256, 3):
+                raise AssertionError(f"{path} holds frame {int(z['frame_id'])}, shape "
+                                     f"{z['accum'].shape}, expected {frame_id}, (256, 256, 3)")
+
+    t0 = time.perf_counter()
+    # the reference run needs nothing of the other two, so it runs beside them
+    ref_run = _cli_start(["reference", "proc://cornell", "-img", "64", "64", "-benchmark-frames",
+                          "2", "-o", os.path.join(tmp, "r.png")])
+    try:
+        common = ["cuda", "proc://cornell", "-img", "256", "256", "-spp", "2", "-display", "none"]
+        first, second = os.path.join(tmp, "s.npz"), os.path.join(tmp, "s2.npz")
+        stdout = _cli([*common, "-frames", "3", "-validation", os.path.join(tmp, "v_"),
+                       "-checkpoint", first, "-o", os.path.join(tmp, "a.png")])
+        t1 = time.perf_counter()
+        missing = [f for f in [f"v_cuda-f{i}.png" for i in range(3)] + ["a.png", "s.npz"]
+                   if not os.path.isfile(os.path.join(tmp, f))]
+        if missing or "Device: " not in stdout:
+            raise AssertionError(f"the cuda run wrote no {missing}: {stdout[-1000:]}")
+        check_state(first, 3)
+        prof = os.path.join(tmp, "prof")
+        stdout = _cli([*common, "-frames", "2", "-resume", first, "-checkpoint", second,
+                       "-profile", prof, "-o", os.path.join(tmp, "b.png")])
+        t2 = time.perf_counter()
+        if f"Resumed from {first} at frame 3" not in stdout:
+            raise AssertionError(f"the resumed run did not start at frame 3: {stdout[-1000:]}")
+        check_state(second, 5)
+        # every "name" in the trace (events' and their args'), read from the
+        # text: parsing the whole JSON of a trace of ~150 MB takes seconds
+        with open(os.path.join(prof, PROFILE_TRACE)) as f:
+            names = set(re.findall(r'"name": "((?:[^"\\]|\\.)*)"', f.read()))
+        kernels = sorted({m.group(1) for n in names for m in [_TRAVERSAL_KERNEL.search(n)] if m})
+        if kernels != ["any", "closest"]:
+            raise AssertionError(f"the profile's trace names the traversal kernels {kernels}, "
+                                 "expected B1/B2 (any, closest)")
+        t3 = time.perf_counter()
+        stdout = _cli_end(ref_run)
+    finally:
+        if ref_run.poll() is None:
+            ref_run.kill()
+            ref_run.communicate()
+    if not os.path.isfile(os.path.join(tmp, "r.png")) or "Avg render time" not in stdout:
+        raise AssertionError(f"the reference run wrote no image or summary: {stdout[-1000:]}")
+    t4 = time.perf_counter()
+    res = {"seconds": t4 - t0, "cuda_s": t1 - t0, "cuda_resumed_profile_s": t2 - t1,
+           "trace_read_s": t3 - t2, "reference_wait_s": t4 - t3, "trace_kernels": kernels,
+           "trace_bytes": os.path.getsize(os.path.join(prof, PROFILE_TRACE)),
+           "reference_summary": [ln for ln in stdout.splitlines() if ln.startswith("Avg")]}
+    log(f"[cli] {json.dumps(res)}")
+    return res
+
+
 # a traversal kernel's name, mangled (...29closest_unified_stream_kernelE...)
 # or not ((anonymous namespace)::closest_unified_stream_kernel(float const*,
 # ...); the group is its launch-count key
@@ -1447,6 +1684,11 @@ def main() -> int:
         with _env(**dict([switch])):
             phase_image(torch, HALL_IMAGE, expect={"closest", "any"}, tables=tables)
             phase_image(torch, INST_IMAGE, expect={"closest_unified", "any_unified"}, tables=tables)
+    t_new = time.perf_counter()
+    phase_reference(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli(torch, tmp)
+    log(f"[reference] phase_reference and phase_cli took {time.perf_counter() - t_new:.1f} s")
     _TABLES.clear()  # the main paths build their own tables; peak memory is theirs
     gc.collect()
     torch.cuda.empty_cache()

@@ -333,7 +333,7 @@ def test_entry_points_refuse_a_jax_scene(entry):
 
 
 def test_registries_are_separate():
-    assert pregistry.list_backends() == ["cuda"]
+    assert pregistry.list_backends() == ["cuda", "reference"]
     assert "cuda" not in jregistry.list_backends()
     with pytest.raises(ValueError, match="tpu"):
         pregistry.get_backend("tpu")

@@ -1,7 +1,7 @@
 """The port package: importing it pulls in neither JAX nor the JAX package,
-and its own registry knows the `cuda` backend; a CUDA backend refuses to
-start where there is no card. Each import check runs in a fresh
-interpreter, since the test process itself has JAX loaded."""
+and its own registry knows the `cuda` and `reference` backends; a CUDA
+backend refuses to start where there is no card. Each import check runs
+in a fresh interpreter, since the test process itself has JAX loaded."""
 
 import os
 import pkgutil
@@ -29,10 +29,13 @@ def _fresh(code: str) -> str:
 def test_import_leaves_jax_out_and_registers_cuda():
     out = _fresh(
         "import sys, chameleonrt_tpu_torch\n"
+        "import chameleonrt_tpu_torch.cli, chameleonrt_tpu_torch.display.http_display\n"
+        "import chameleonrt_tpu_torch.engine.backend_reference\n"
         "from chameleonrt_tpu_torch.core.registry import list_backends\n"
-        "print('jax' in sys.modules, 'chameleonrt_tpu' in sys.modules, 'cuda' in list_backends())\n"
+        "print('jax' in sys.modules, 'chameleonrt_tpu' in sys.modules, 'cuda' in list_backends(),\n"
+        "      'reference' in list_backends())\n"
     )
-    assert out.split() == ["False", "False", "True"]
+    assert out.split() == ["False", "False", "True", "True"]
 
 
 def test_no_module_of_the_port_imports_jax():
@@ -41,6 +44,8 @@ def test_no_module_of_the_port_imports_jax():
         for m in pkgutil.walk_packages(chameleonrt_tpu_torch.__path__, "chameleonrt_tpu_torch.")
     ]
     assert "chameleonrt_tpu_torch.ops.traverse_cuda" in names
+    assert {"chameleonrt_tpu_torch.display.http_display", "chameleonrt_tpu_torch.utils.arcball",
+            "chameleonrt_tpu_torch.engine.backend_reference"} <= set(names)
     out = _fresh(
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -63,12 +68,18 @@ def test_cuda_backend_needs_a_card():
 def test_cli_usage_and_missing_card(capsys):
     from chameleonrt_tpu_torch import cli
 
-    assert cli.parse_args(["cuda", "proc://cornell", "-img", "64", "32", "-benchmark-frames", "3"]) == {
+    opts = cli.parse_args(["cuda", "proc://cornell", "-img", "64", "32", "-benchmark-frames", "3"])
+    assert {k: opts[k] for k in ("img", "benchmark_frames", "out", "backend", "scene")} == {
         "img": (64, 32), "benchmark_frames": 3, "out": "chameleonrt_cuda_out.png",
         "backend": "cuda", "scene": "proc://cornell",
     }
+    # the JAX CLI's keys (tests/test_torch_cli.py holds their values to it)
+    assert set(opts) == {
+        "backend", "scene", "eye", "center", "up", "fov", "spp", "camera", "img", "mat_mode",
+        "validation", "benchmark_frames", "frames", "out", "got_camera_args", "interactive",
+        "resume", "checkpoint", "profile", "display", "devices", "rebalance"}
     assert cli.parse_args(["cuda"]) is None
-    assert cli.parse_args(["cuda", "proc://cornell", "-spp", "2"]) is None
+    assert cli.parse_args(["cuda", "proc://cornell", "-spp", "2"])["spp"] == 2
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert cli.main(["cuda", "proc://cornell", "-img", "8", "8"]) == 1
