@@ -11,7 +11,11 @@ flat, B6c and B6d two-level. With grid_packet=True a flat scene traces its
 binary table through the grid-packet kernels B7a and B7b. The JAX
 engine's table switches hold here too (engine/trace_bvh.py):
 CHAMELEONRT_CLOSEST_ARITY, CHAMELEONRT_WIDE_ARITY, CHAMELEONRT_LEAF_SIZE,
-and CHAMELEONRT_PACKET=0, which traces with the plain traversal.
+and CHAMELEONRT_PACKET=0, which traces with the plain traversal. On a
+host with no C++ compiler, where the native SAH builder cannot be built,
+each mesh gets an LBVH built on the device instead, whose binary table
+the same kernels trace (B1/B2 by default; instance by instance in a
+multi-instance scene).
 
 On device="cpu" it runs the same code with the plain traversal, which is
 how the CPU tests hold it against the JAX `tpu` backend.
@@ -21,9 +25,15 @@ from __future__ import annotations
 
 from typing import Optional
 
+from chameleonrt_tpu_torch import native
 from chameleonrt_tpu_torch.engine.backend_base import TorchRenderBackend
-from chameleonrt_tpu_torch.engine.device_scene import build_device_scene
-from chameleonrt_tpu_torch.engine.trace_bvh import build_blas_set, kernels_enabled, make_trace_fns
+from chameleonrt_tpu_torch.engine.device_scene import UnifiedPair, build_device_scene
+from chameleonrt_tpu_torch.engine.trace_bvh import (
+    build_blas_set,
+    compute_instance_aabbs,
+    kernels_enabled,
+    make_trace_fns,
+)
 from chameleonrt_tpu_torch.scene.types import Scene
 
 
@@ -50,11 +60,19 @@ class CudaBackend(TorchRenderBackend):
 
     @property
     def name(self) -> str:
+        """Names the tables set_scene builds: SAH BVH4 with a C++ compiler,
+        else LBVH (native.compiler() looks it up, and builds nothing)."""
+        if native.compiler() is None:
+            return "CUDA wavefront (LBVH: no native builder)"
         return "CUDA wavefront (SAH BVH4)"
 
     def prepare_scene(self, scene: Scene):
         flat, meta = build_device_scene(scene, self.device)
-        return flat._replace(blas=build_blas_set(flat, meta)), meta
+        blas = build_blas_set(flat, meta)
+        flat = flat._replace(blas=blas)
+        if meta.num_instances > 1 and not isinstance(blas[0], UnifiedPair):
+            flat = flat._replace(inst_aabb=compute_instance_aabbs(flat, meta))
+        return flat, meta
 
     def make_trace_fns(self, meta):
         return make_trace_fns(meta, use_kernels=self.use_kernels and kernels_enabled(),

@@ -12,7 +12,7 @@ structure the render loop specializes on.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -120,8 +120,13 @@ class FlatScene(NamedTuple):
     inst_mat_table: torch.Tensor  # (I, G_max) int32
     lights: LightArrays
     atlas: TextureAtlas
-    # one BlasPair per mesh (single-instance scenes), or (UnifiedPair,)
+    # one BlasPair per mesh (single-instance scenes, and every scene of a
+    # host with no native builder), or (UnifiedPair,)
     blas: Tuple[Union[BlasPair, UnifiedPair], ...] = ()
+    # (I, 6) world box of each instance of a multi-instance scene over
+    # per-mesh tables, which the instance loop culls by (engine/trace_bvh.py
+    # compute_instance_aabbs); None otherwise
+    inst_aabb: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)

@@ -20,6 +20,12 @@ CHAMELEONRT_WIDE_ARITY=8) over shared leaf rows, unpadded.
   two-level, at any table size.
 - With grid_packet=True a flat scene traces both hit kinds on its binary
   table through the grid-packet kernels B7a and B7b.
+- Where the native builder is unavailable (no C++ compiler), each mesh
+  gets an LBVH built on the device (ops/lbvh.py): one binary table with
+  its certified height, which the same kernels trace at arity 2. A flat
+  scene traces its mesh's table; a multi-instance one goes instance by
+  instance, each walk culled by the instance's world box, as the JAX
+  engine does without its builder.
 
 The table switches are read as the JAX package's engine/trace_bvh.py reads
 them, with its error messages: CHAMELEONRT_CLOSEST_ARITY=2 traces closest
@@ -51,6 +57,7 @@ from chameleonrt_tpu_torch.engine.device_scene import (
     UnifiedPair,
     host_triangles,
 )
+from chameleonrt_tpu_torch.ops import lbvh
 from chameleonrt_tpu_torch.ops import traverse as plain
 from chameleonrt_tpu_torch.ops import traverse_cuda
 from chameleonrt_tpu_torch.ops.intersect import T_MAX, Hit
@@ -107,11 +114,29 @@ def _native_build(v0, e1, e2, leaf_size: int, arity: int):
     return res
 
 
+def _lbvh_blas_set(flat: FlatScene, meta: SceneMeta) -> Tuple:
+    """One LBVH per mesh (ops/lbvh.py), built on the scene's device, its
+    binary table in both slots of a BlasPair, unpadded, its max_depth the
+    tree's height: the counterpart of the JAX engine's fallback where its
+    native builder is unavailable (chameleonrt_tpu/engine/trace_bvh.py
+    build_blas_set)."""
+    blas = []
+    for start, count in meta.mesh_tri_ranges:
+        sl = slice(start, start + count)
+        packed = lbvh.build_packed(flat.tri_v0[sl], flat.tri_e1[sl], flat.tri_e2[sl])
+        blas.append(BlasPair(closest=packed, any=packed))
+    return tuple(blas)
+
+
 def build_blas_set(flat: FlatScene, meta: SceneMeta) -> Tuple:
     """The scene's BVH tables: (UnifiedPair,) for a multi-instance scene,
     otherwise one BlasPair per mesh with leaf prim ids local to the mesh's
     range. Leaf size and wide arity come from native_leaf_size and
-    wide_arity. Raises if the native SAH builder is unavailable."""
+    wide_arity. Where the native SAH builder is unavailable (no C++
+    compiler: native.get_lib() is None), every scene, multi-instance ones
+    too, gets one LBVH BlasPair per mesh instead (_lbvh_blas_set)."""
+    if native.get_lib() is None:
+        return _lbvh_blas_set(flat, meta)
     if meta.num_instances > 1:
         return (build_unified_set(flat, meta),)
     v0, e1, e2 = host_triangles(flat)
@@ -142,14 +167,14 @@ def _rebase_codes(nodes: np.ndarray, arity: int, node_off: int, leaf_map) -> Non
     nodes[:, cols] = codes.view(np.float32)
 
 
-def _instance_boxes(parts, flat: FlatScene, meta: SceneMeta) -> np.ndarray:
-    """World box (I, 6) of each instance: its mesh's BLAS root box (the
-    union of the binary root's two child boxes) through the instance
-    transform, by the box's 8 corners."""
+def _world_boxes(roots, flat: FlatScene, meta: SceneMeta) -> np.ndarray:
+    """World box (I, 6) of each instance: its mesh's root box (the union
+    of the binary root row's two child boxes; roots[mesh], a numpy row)
+    through the instance transform, by the box's 8 corners."""
     inst_tf = flat.inst_transform.cpu().numpy()
     out = np.zeros((meta.num_instances, 6), np.float32)
     for i, mesh_id in enumerate(meta.inst_mesh):
-        root = parts[mesh_id][0][0]
+        root = roots[mesh_id]
         lo = np.minimum(root[0:3], root[6:9])
         hi = np.maximum(root[3:6], root[9:12])
         # a one-leaf binary tree fills slot 0 only (slot 1 is +-inf)
@@ -198,7 +223,7 @@ def build_unified_set(flat: FlatScene, meta: SceneMeta) -> UnifiedPair:
     leaf_off = np.cumsum([0] + [p[2].shape[0] for p in parts])
     n_tri_leaves = int(leaf_off[-1])
 
-    inst_aabb = _instance_boxes(parts, flat, meta)
+    inst_aabb = _world_boxes([p[0][0] for p in parts], flat, meta)
     # instance-entry rows; the prim slots hold -1 so that Moller-Trumbore
     # can never report a hit on one
     ent = np.zeros((I, 10 * L), np.float32)
@@ -240,12 +265,103 @@ def build_unified_set(flat: FlatScene, meta: SceneMeta) -> UnifiedPair:
     )
 
 
-def compute_instance_aabbs(flat: FlatScene) -> torch.Tensor:
-    """World box (I, 6) of each instance of a multi-instance scene: the
-    boxes its TLAS was built over."""
-    if not (flat.blas and isinstance(flat.blas[0], UnifiedPair)):
-        raise ValueError("instance boxes come with the two-level tables of a multi-instance scene")
-    return flat.blas[0].inst_aabb
+def compute_instance_aabbs(flat: FlatScene, meta: Optional[SceneMeta] = None) -> torch.Tensor:
+    """World box (I, 6) of each instance: with the two-level tables, the
+    boxes its TLAS was built over; with one BlasPair per mesh (the LBVH
+    fallback), its mesh's root box through the instance transform
+    (_world_boxes, which needs meta): the root box of an LBVH is its
+    triangles' bounds, from which the JAX package computes the same boxes
+    (chameleonrt_tpu/engine/trace_bvh.py compute_instance_aabbs)."""
+    if flat.blas and isinstance(flat.blas[0], UnifiedPair):
+        return flat.blas[0].inst_aabb
+    if meta is None:
+        raise ValueError("instance boxes over per-mesh tables need the scene's meta")
+    roots = [pair.closest.nodes[0].cpu().numpy() for pair in flat.blas]
+    return torch.as_tensor(_world_boxes(roots, flat, meta), device=flat.tri_v0.device)
+
+
+def _instance_cull(flat: FlatScene, inst_id: int, orig, dir, t_min, t_max):
+    """Lanes whose ray meets instance inst_id's world box within
+    [t_min, t_max] (a slab test; a NaN from 0 * inf counts as an unbounded
+    slab): the others skip that instance's walk."""
+    box = flat.inst_aabb[inst_id]
+    inv = 1.0 / dir
+    entry, exit_ = t_min, t_max
+    for a in range(3):
+        t0 = (box[a] - orig[:, a]) * inv[:, a]
+        t1 = (box[a + 3] - orig[:, a]) * inv[:, a]
+        lo = torch.minimum(t0, t1)
+        hi = torch.maximum(t0, t1)
+        entry = torch.maximum(entry, torch.where(torch.isnan(lo), float("-inf"), lo))
+        exit_ = torch.minimum(exit_, torch.where(torch.isnan(hi), float("inf"), hi))
+    return entry <= exit_
+
+
+def _instance_trace_fns(meta: SceneMeta, routes, closest_table: str):
+    """(trace_closest, trace_any) of a multi-instance scene over one table
+    per mesh (the LBVH fallback): a loop over the instances, as the JAX
+    engine's make_trace_fns unrolls it, each instance's walk one call of
+    its mesh's routes[mesh] = (closest_fn, any_fn) (_route, flat), closest
+    hit on the pair's closest_table, with the lanes whose ray misses the
+    instance's world box (_instance_cull), or meets it past the nearest hit
+    so far, masked off."""
+
+    def _object_rays(flat: FlatScene, inst_id: int, orig, dir):
+        inv = flat.inst_inv[inst_id]
+        return (transform_point(inv, orig).contiguous(),
+                transform_vector(inv, dir).contiguous())
+
+    def trace_closest(flat: FlatScene, orig, dir, t_min: float, active) -> Hit:
+        """Closest hit from t_min over every instance; tri is the global
+        triangle id and inst the hit instance. A lane that overflowed its
+        stack in any instance is tri = -2 (it may have dropped subtrees),
+        which the path tracer treats as a miss."""
+        R = orig.shape[0]
+        tmin = torch.full((R,), t_min, dtype=torch.float32, device=orig.device)
+        best = Hit.none(R, orig.device)
+        ovf = torch.zeros((R,), dtype=torch.bool, device=orig.device)
+        for inst_id, mesh_id in enumerate(meta.inst_mesh):
+            start, count = meta.mesh_tri_ranges[mesh_id]
+            if count == 0:
+                continue
+            inst_active = active & _instance_cull(flat, inst_id, orig, dir, tmin, best.t)
+            o, d = _object_rays(flat, inst_id, orig, dir)
+            t, prim, u, v = routes[mesh_id][0](getattr(flat.blas[mesh_id], closest_table), o, d,
+                                               tmin, inst_active, best.t)
+            found = prim >= 0
+            ovf |= prim == -2
+            best = best.merge(Hit(
+                t=torch.where(found, t, T_MAX),
+                tri=torch.where(found, prim + start, -1).to(torch.int32),
+                inst=torch.where(found, inst_id, -1).to(torch.int32),
+                u=u,
+                v=v,
+            ))
+        ok = active & ~ovf
+        return Hit(
+            t=torch.where(ok, best.t, T_MAX),
+            tri=torch.where(ok, best.tri, torch.where(active & ovf, -2, -1)).to(torch.int32),
+            inst=torch.where(ok, best.inst, -1).to(torch.int32),
+            u=best.u,
+            v=best.v,
+        )
+
+    def trace_any(flat: FlatScene, orig, dir, t_max, mask):
+        """Occlusion along (EPSILON, t_max) by any instance."""
+        R = orig.shape[0]
+        tmin = torch.full((R,), EPSILON, dtype=torch.float32, device=orig.device)
+        t_max = t_max.contiguous()
+        occluded = torch.zeros((R,), dtype=torch.bool, device=orig.device)
+        for inst_id, mesh_id in enumerate(meta.inst_mesh):
+            if meta.mesh_tri_ranges[mesh_id][1] == 0:
+                continue
+            inst_mask = mask & ~occluded & _instance_cull(flat, inst_id, orig, dir, tmin, t_max)
+            o, d = _object_rays(flat, inst_id, orig, dir)
+            occluded = occluded | routes[mesh_id][1](flat.blas[mesh_id].any, o, d, tmin, t_max,
+                                                     inst_mask)
+        return occluded & mask
+
+    return trace_closest, trace_any
 
 
 def _route(multi: bool, use_kernels: bool, stream: bool, persistent: bool, grid_packet: bool):
@@ -349,19 +465,32 @@ def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[b
     scene traces both hit kinds on its binary table, through B7a and B7b
     (the plain traversal where use_kernels is False), whatever stream,
     slotlane and closest_arity say. The JAX package has no two-level grid
-    kernel, so a multi-instance scene raises ValueError."""
+    kernel, so a multi-instance scene raises ValueError.
+
+    A multi-instance scene over one table per mesh (the LBVH fallback's,
+    known from blas) traces instance by instance (_instance_trace_fns),
+    each instance through its mesh's flat route, chosen as a flat scene's
+    (B1/B2, B5a/B5b, B6a/B6b, or the plain walk)."""
     multi = meta.num_instances > 1
     if grid_packet and multi:
         raise ValueError("grid_packet traces flat scenes only: there is no two-level grid-packet "
                          f"kernel, and this scene has {meta.num_instances} instances")
-    mesh_id = 0 if multi else meta.inst_mesh[0]
     persistent = use_kernels and not grid_packet and not slotlane_enabled(slotlane)
-    if use_kernels and not (persistent or grid_packet) and stream is None:
-        if blas is None:
-            raise ValueError("the streamed tier's gate needs the scene's tables (blas)")
-        stream = streamed_tier(blas[mesh_id].any, l2_bytes)
-    closest_fn, any_fn = _route(multi, use_kernels, bool(stream), persistent, grid_packet)
     closest_table = "closest" if grid_packet or closest_arity() == 2 else "any"
+
+    def tier(mesh_id) -> bool:
+        if use_kernels and not (persistent or grid_packet) and stream is None:
+            if blas is None:
+                raise ValueError("the streamed tier's gate needs the scene's tables (blas)")
+            return streamed_tier(blas[mesh_id].any, l2_bytes)
+        return bool(stream)
+
+    if multi and blas is not None and not isinstance(blas[0], UnifiedPair):
+        routes = {m: _route(False, use_kernels, tier(m), persistent, False)
+                  for m in set(meta.inst_mesh)}
+        return _instance_trace_fns(meta, routes, closest_table)
+    mesh_id = 0 if multi else meta.inst_mesh[0]
+    closest_fn, any_fn = _route(multi, use_kernels, tier(mesh_id), persistent, grid_packet)
     if multi:
         return _unified_trace_fns(closest_fn, any_fn, closest_table)
     any_table = "closest" if grid_packet else "any"

@@ -52,11 +52,17 @@ def library_path(cxx: str) -> str:
     return out
 
 
+def compiler() -> Optional[str]:
+    """Path of the C++ compiler that builds the native library (CXX, else
+    g++, looked up on PATH); None where there is none."""
+    return shutil.which(os.environ.get("CXX", "g++"))
+
+
 @functools.lru_cache(maxsize=None)
 def get_lib() -> Optional[ctypes.CDLL]:
     """The native library, compiled and loaded on first call; None where
-    no C++ compiler is installed."""
-    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    no C++ compiler is installed (compiler())."""
+    cxx = compiler()
     if cxx is None:
         return None
     lib = ctypes.CDLL(library_path(cxx))

@@ -114,6 +114,23 @@ nor the JAX package (it asserts so at its end). Phases:
    from that checkpoint for 2 frames under -profile (the frame count goes
    on; the trace names B1 and B2), and, beside these two, the reference
    backend with -benchmark-frames 2 at 64x64;
+4d. the LBVH fallback (phase_lbvh), what a host with no C++ compiler
+   runs: the LBVH (chameleonrt_tpu_torch/ops/lbvh.py) of the main path's
+   hall and of proc://instances?nx=4&ny=4&subdiv=2 built on the card and
+   timed; on the hall's sorted 1280x720 primary wavefront, B1/B2 over
+   its LBVH against the plain walk over it, exactly, and against B1/B2
+   over its native table on the JAX bench's gate, with lanes at -2
+   logged; get_backend("cuda") with native.get_lib patched to None on the
+   textured hall and that grid at 128x72, its launch counts read (B1/B2,
+   one launch each an instance of the grid, 64-entry stacks); and
+   `python -m chameleonrt_tpu_torch.cli cuda` on the same two scenes in
+   processes whose CXX names no compiler (so that native.get_lib() is
+   None: LBVH tables, traced by B1/B2), each image against the native
+   builder's, 8-bit MAD < 1;
+4e. the port's bench (phase_bench): `python3 -m
+   chameleonrt_tpu_torch.bench` in a process of its own, which must exit
+   0 with bench.py's JSON line as its last, its parity gate passed and all
+   six configs measured (Mray/s > 0); the line is logged;
 5. the main paths, each with the kernels' launch counts set to 0 just
    before it and read just after: get_backend("cuda") rendering
    proc://hall?subdiv=4&textured=1 at 1280x720, 1 spp (B1/B2), the San
@@ -124,12 +141,19 @@ nor the JAX package (it asserts so at its end). Phases:
    get_backend("cuda", slotlane=False) the hall (B6a/B6b) and the San
    Miguel proxy (B6c/B6d) at the same sizes, and with
    get_backend("cuda", grid_packet=True) the hall on its binary table
-   (B7a/B7b) at 1280x720, 1 spp; each path's last frame runs
+   (B7a/B7b) at 1280x720, 1 spp, and after them, as paths of their own
+   (_bench_paths), the three bench configs that no main path runs, at
+   the bench's sizes and 1 spp: proc://cornell at
+   512x512 (B1/B2), proc://instances?nx=6&ny=6&subdiv=3 at 1280x720
+   (B3/B4) and the 6.7M-triangle soup
+   proc://random?n_tris=6700000&spread=12 at 640x360, whose table exceeds
+   the L2 (B5a/B5b); each path's last frame runs
    under torch.profiler, which gives where its time goes: device busy
    time, the idle share of the frame, and the device time of the traversal
-   kernels and of the largest other rows; every launch of these main
-   paths (BVH4 tables, and the hall's binary one) must have run with the
-   64-entry stack.
+   kernels and of the largest other rows, and its table (rows, bytes,
+   certified stack) is logged; every launch of these main paths (BVH4
+   tables, and the hall's binary one) must have run with the 64-entry
+   stack.
 
 A gen://san_miguel URI is this script's own: _load generates the scene
 with the port's scene/pbrt_gen.py (its query string gives the generator's
@@ -177,7 +201,18 @@ SM_SPP = 4
 SM_TIMED_FRAMES = 4
 CITY_TIMED_FRAMES = 3
 LARGE_TIMED_FRAMES = 3
+# the three bench configs that no main path runs (the port's bench.py
+# CONFIGS: cornell, instanced, rungholt_soup), driven after the main paths
+# at their sizes (_bench_paths)
+BENCH_PATHS = {"cornell": "cornell", "instanced": "instanced", "soup": "rungholt_soup"}
+BENCH_PATH_TIMED_FRAMES = 2
 PROFILE_FRAMES = 1
+# python -m chameleonrt_tpu_torch.bench in its own process (phase_bench)
+BENCH_TIMEOUT_S = 900
+# the LBVH fallback (phase_lbvh): builds timed after one warmup, and a
+# compiler name that no PATH holds, so that native.get_lib() is None
+LBVH_BUILD_REPS = 3
+NO_COMPILER = "crt-no-such-c++-compiler"
 # the JAX bench's image gate (bench.py:174-190) and parity wavefront size
 # (bench.py:49), at which the brute-force oracle checks B1 and B2
 GATE_W, GATE_H = 128, 72
@@ -1387,11 +1422,12 @@ def phase_reference(torch):
     return out
 
 
-def _cli_start(args):
+def _cli_start(args, env=None):
     """python -m chameleonrt_tpu_torch.cli with args, started from the
-    repository root."""
+    repository root, with env (if given) added to the environment."""
     return subprocess.Popen([sys.executable, "-m", "chameleonrt_tpu_torch.cli", *args], cwd=ROOT,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=None if env is None else {**os.environ, **env})
 
 
 def _cli_end(proc, timeout=300):
@@ -1478,6 +1514,225 @@ def phase_cli(torch, tmp):
     return res
 
 
+def phase_bench(torch):
+    """The port's bench, `python3 -m chameleonrt_tpu_torch.bench`, in a
+    process of its own (killed past BENCH_TIMEOUT_S): it must exit 0 and
+    print as its last line one JSON object with bench.py's keys, its
+    parity gate passed (kernels against the plain walk on the flat and
+    two-level parity scenes, the `cuda` image against the `reference`
+    one), and every one of the six configs a dict with mrays_per_s > 0.
+    The line is logged whole."""
+    from chameleonrt_tpu_torch.bench import CONFIGS
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "chameleonrt_tpu_torch.bench"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench exited {proc.returncode}: {proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if lines else {}
+    log(f"[bench] {json.dumps(line)}")
+    log(f"[bench] the process took {secs:.1f} s; stderr ends: {proc.stderr[-500:]!r}")
+    if set(line) != {"metric", "value", "unit", "vs_baseline", "detail"}:
+        raise AssertionError(f"the bench's last line has the keys {sorted(line)}")
+    parity = line["detail"].get("parity", {})
+    if parity.get("ok") is not True:
+        raise AssertionError(f"the bench's parity gate failed: {parity}")
+    configs = line["detail"]["configs"]
+    bad = {name: configs.get(name) for name, *_ in CONFIGS
+           if not (isinstance(configs.get(name), dict) and configs[name]["mrays_per_s"] > 0)}
+    if bad:
+        raise AssertionError(f"bench configs failed or skipped: {bad}")
+    return {"seconds": secs, "line": line}
+
+
+def phase_lbvh(torch, tmp):
+    """The LBVH fallback on the card (what a host with no C++ compiler
+    runs):
+    - the LBVH of the main path's hall (224,768 triangles) and the
+      per-mesh LBVHs of proc://instances?nx=4&ny=4&subdiv=2 built on the
+      card, timed (LBVH_BUILD_REPS builds after one warmup);
+    - on the hall's sorted 1280x720 primary wavefront, B1 and B2 over the
+      LBVH's binary table (its certified height + 1 entries of stack)
+      against their plain versions over it, exactly (B2 to 1.001 of the
+      native table's hit, 100 on a miss), each timed beside B1/B2 over the
+      native BVH4 table; and B1/B2 over the LBVH against B1/B2 over the
+      native table on the JAX bench's gate: prim and occlusion mismatches
+      <= max(2, R / 50000), |dt| <= 1e-5 over common hits, lanes at -2
+      logged;
+    - get_backend("cuda") in this process with native.get_lib patched to
+      None (as on a host with no compiler): two 128x72 frames at 1 spp of
+      the textured hall and of the 4x4 grid, every launch count set to 0
+      just before each and read just after: B1/B2 5 + 10 a frame, one
+      launch of each per instance of the grid, all on the 64-entry stack;
+    - python -m chameleonrt_tpu_torch.cli cuda on the textured hall and on
+      the 4x4 grid at 128x72, 2 frames, in processes whose CXX names no
+      compiler (the LBVH path, its backend's name says so) and in processes
+      with the native builder, all four at once: each LBVH image against
+      the native one, 8-bit MAD < 1.0."""
+    import numpy as np
+
+    from chameleonrt_tpu_torch import native as native_lib
+    from chameleonrt_tpu_torch.core.registry import get_backend
+    from chameleonrt_tpu_torch.engine import trace_bvh
+    from chameleonrt_tpu_torch.ops import lbvh, traverse_cuda
+    from chameleonrt_tpu_torch.ops import traverse as plain
+    from chameleonrt_tpu_torch.utils.png import read_png
+
+    t_start = time.perf_counter()
+    # CLI renders first: they run beside the checks below
+    jobs = {}
+    for uri in (HALL_IMAGE, INST_PARITY):
+        for kind, env in (("native", None), ("lbvh", {"CXX": NO_COMPILER})):
+            png = os.path.join(tmp, f"lbvh_{kind}_{len(jobs)}.png")
+            jobs[uri, kind] = (_cli_start(["cuda", uri, "-img", str(GATE_W), str(GATE_H), "-frames",
+                                           "2", "-display", "none", "-o", png], env=env), png)
+    try:
+        def timed(fn):
+            """(result, seconds of each build after one warmup)"""
+            secs = []
+            for _ in range(1 + LBVH_BUILD_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            return out, secs[1:]
+
+        scene, flat, meta = _scene_tables(torch, HALL_SCENE)
+        mesh = meta.inst_mesh[0]
+        start, count = meta.mesh_tri_ranges[mesh]
+        sl = slice(start, start + count)
+        table, hall_s = timed(lambda: lbvh.build_packed(flat.tri_v0[sl], flat.tri_e1[sl],
+                                                        flat.tri_e2[sl]))
+        _, gflat, gmeta = _scene_tables(torch, INST_PARITY)
+        grid, grid_s = timed(lambda: trace_bvh._lbvh_blas_set(gflat, gmeta))
+        depth = traverse_cuda.stack_depth(table)
+        res = {"hall": {"tris": count, "node_rows": int(table.nodes.shape[0]),
+                        "leaf_rows": int(table.leaf_rows.shape[0]),
+                        "bytes": trace_bvh.table_bytes(table), "height": table.max_depth,
+                        "stack": depth, "stack_capacity": traverse_cuda.stack_capacity(depth),
+                        "build_s": hall_s, "build_s_median": statistics.median(hall_s)},
+               "grid": {"meshes": len(grid), "instances": gmeta.num_instances,
+                        "tris": gmeta.num_tris, "bytes": sum(trace_bvh.table_bytes(p.closest)
+                                                            for p in grid),
+                        "heights": [p.closest.max_depth for p in grid],
+                        "build_s": grid_s, "build_s_median": statistics.median(grid_s)}}
+        ids = table.leaf_rows[:, 9 * 4 : 10 * 4].contiguous().view(torch.int32)
+        if not torch.equal(ids[ids >= 0].sort().values.cpu(), torch.arange(count, dtype=torch.int32)):
+            raise AssertionError("the hall's LBVH does not hold each triangle once")
+
+        orig, dirs, active = _primary_wavefront(torch, scene, MAIN_W, MAIN_H)
+        R = orig.shape[0]
+        native = flat.blas[mesh].any
+        tmin = torch.zeros(R, dtype=torch.float32, device="cuda")
+        tinf = torch.full((R,), 1e20, dtype=torch.float32, device="cuda")
+        eps = torch.full((R,), 1e-4, dtype=torch.float32, device="cuda")
+        closest_args = (orig, dirs, tmin, active, tinf)
+        kn = traverse_cuda.traverse_closest(native, *closest_args)
+        tmax = torch.where(kn[1] >= 0, kn[0] * 1.001, torch.full_like(kn[0], 100.0))
+        any_args = (orig, dirs, eps, tmax, active)
+        kl = traverse_cuda.traverse_closest(table, *closest_args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pl = plain.traverse_closest(table, *closest_args)
+        torch.cuda.synchronize()
+        plain_closest_s = time.perf_counter() - t0
+        ok_l = traverse_cuda.traverse_any(table, *any_args)
+        ok_n = traverse_cuda.traverse_any(native, *any_args)
+        t0 = time.perf_counter()
+        ol = plain.traverse_any(table, *any_args)
+        torch.cuda.synchronize()
+        plain_any_s = time.perf_counter() - t0
+        exact = {"closest": _closest_agreement(kl, pl, False, exact=True),
+                 "any": _any_agreement(ok_l, ol, exact=True),
+                 "plain_closest_s": plain_closest_s, "plain_any_s": plain_any_s}
+        ms = {name: _median_ms(torch, fn, 5) for name, fn in (
+            ("B1_lbvh", lambda: traverse_cuda.traverse_closest(table, *closest_args)),
+            ("B1_native", lambda: traverse_cuda.traverse_closest(native, *closest_args)),
+            ("B2_lbvh", lambda: traverse_cuda.traverse_any(table, *any_args)),
+            ("B2_native", lambda: traverse_cuda.traverse_any(native, *any_args)))}
+        closest_gate = _closest_agreement(kl, kn, False)
+        any_gate = _any_agreement(ok_l, ok_n)
+        gate = {"rays": R, **closest_gate, **any_gate, "ok": closest_gate["ok"] and any_gate["ok"],
+                "overflow_lanes": int((kl[1] == -2).sum()), "hits": int((kl[1] >= 0).sum()),
+                "occluded": int(ok_l.sum())}
+        res["hall"].update(kernels_vs_plain=exact, kernel_ms=ms, lbvh_vs_native=gate)
+        log(f"[lbvh] builds on the card, B1/B2 over the hall's LBVH against the plain walk over "
+            f"it and against B1/B2 over its native table: {json.dumps(res)}")
+        if gate["overflow_lanes"]:
+            log(f"[lbvh] {gate['overflow_lanes']} lanes of the hall's primary wavefront overflowed "
+                f"B1's {depth}-entry stack over the LBVH (prim -2)")
+        if not (exact["closest"]["ok"] and exact["any"]["ok"]):
+            raise AssertionError(f"B1/B2 over the LBVH differ from the plain walk: {exact}")
+        if not gate["ok"]:
+            raise AssertionError(f"B1/B2 over the LBVH fail the bench's gate against the native "
+                                 f"table: {gate}")
+
+        # the LBVH path in this process: the tables of a host with no compiler
+        real_get_lib = native_lib.get_lib
+        native_lib.get_lib = lambda: None
+        try:
+            frames = {}
+            for uri, per_frame in ((HALL_IMAGE, 1), (INST_PARITY, gmeta.num_instances)):
+                for k in traverse_cuda.LAUNCHES:
+                    traverse_cuda.LAUNCHES[k] = 0
+                    for cap in traverse_cuda.STACK_LAUNCHES[k]:
+                        traverse_cuda.STACK_LAUNCHES[k][cap] = 0
+                view_scene = _load(uri)
+                pos, d, up, fov = _view(view_scene)
+                b = get_backend("cuda")
+                b.initialize(GATE_W, GATE_H)
+                b.set_scene(view_scene)
+                b.samples_per_pixel = 1
+                for i in range(2):
+                    b.render(pos, d, up, fov, i == 0, readback_framebuffer=(i == 1))
+                torch.cuda.synchronize()
+                launches = {k: n for k, n in traverse_cuda.LAUNCHES.items() if n}
+                stacks = {k: {cap: n for cap, n in caps.items() if n}
+                          for k, caps in traverse_cuda.STACK_LAUNCHES.items() if any(caps.values())}
+                want = {"closest": 2 * 5 * per_frame, "any": 2 * 10 * per_frame}
+                frames[uri] = {"launches": launches, "stack_launches": stacks,
+                               "heights": [p.closest.max_depth for p in b.flat.blas],
+                               "image_mean": float(b.img[..., :3].mean())}
+                if launches != want or stacks != {k: {64: n} for k, n in want.items()}:
+                    raise AssertionError(f"the LBVH path on {uri} launched {launches} by stack "
+                                         f"{stacks}, expected {want}, all on the 64-entry stack")
+        finally:
+            native_lib.get_lib = real_get_lib
+        res["frames"] = frames
+        log(f"[lbvh] get_backend('cuda') with no native builder, {GATE_W}x{GATE_H} x2 frames at "
+            f"1 spp: {json.dumps(frames)}")
+
+        images = {}
+        for (uri, kind), (proc, png) in jobs.items():
+            stdout = _cli_end(proc)
+            want = "(LBVH" if kind == "lbvh" else "(SAH BVH4)"
+            if f"Backend: CUDA wavefront {want}" not in stdout:
+                raise AssertionError(f"the {kind} cli run of {uri} ran another backend: "
+                                     f"{stdout[-1000:]}")
+            images[uri, kind] = read_png(png)[..., :3].astype(np.float32)
+    finally:
+        for proc, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    res["images"] = {}
+    for uri in (HALL_IMAGE, INST_PARITY):
+        diff = np.abs(images[uri, "lbvh"] - images[uri, "native"])
+        res["images"][uri] = {"mad": float(diff.mean()), "max": float(diff.max()),
+                              "image_mean": float(images[uri, "lbvh"].mean())}
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"[lbvh] cli cuda {GATE_W}x{GATE_H} x2 frames, CXX={NO_COMPILER} (LBVH) against the "
+        f"native builder's: {json.dumps(res['images'])}; phase {res['seconds']:.1f} s")
+    for uri, r in res["images"].items():
+        if not (r["mad"] < 1.0 and r["image_mean"] > 0):
+            raise AssertionError(f"the LBVH image of {uri} differs from the native one: {r}")
+    return res
+
+
 # a traversal kernel's name, mangled (...29closest_unified_stream_kernelE...)
 # or not ((anonymous namespace)::closest_unified_stream_kernel(float const*,
 # ...); the group is its launch-count key
@@ -1549,6 +1804,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     Returns {count: (launches in the run, launches per frame, {stack
     capacity: launches})} of the kernels that ran."""
     from chameleonrt_tpu_torch.core.registry import get_backend
+    from chameleonrt_tpu_torch.engine import trace_bvh
     from chameleonrt_tpu_torch.ops import traverse_cuda
 
     scene = _load(uri)
@@ -1584,6 +1840,15 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     launches = dict(traverse_cuda.LAUNCHES)
     stacks = {k: {cap: n for cap, n in caps.items() if n}
               for k, caps in traverse_cuda.STACK_LAUNCHES.items() if any(caps.values())}
+    # the table the path's kernels traced (both hit kinds: the wide one, or
+    # the binary one with grid_packet)
+    pair = backend.flat.blas[0 if backend.meta.num_instances > 1 else backend.meta.inst_mesh[0]]
+    table = pair.closest if grid_packet else pair.any
+    depth = traverse_cuda.stack_depth(table)
+    table_res = {"arity": table.arity, "node_rows": int(table.nodes.shape[0]),
+                 "leaf_rows": int(table.leaf_rows.shape[0]), "bytes": trace_bvh.table_bytes(table),
+                 "stack": depth, "stack_capacity": traverse_cuda.stack_capacity(depth),
+                 "beyond_l2": trace_bvh.streamed_tier(table)}
     res = {
         "scene": uri, "width": W, "height": H, "spp": spp, "slotlane": slotlane,
         "grid_packet": grid_packet,
@@ -1593,7 +1858,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
         "ms_per_frame": ms, "min_ms": min(ms), "median_ms": statistics.median(ms),
         "rays_per_frame": rays, "mray_s_median": statistics.median(mray_s),
         "peak_mem_bytes": peak, "allocated_before_bytes": allocated_before,
-        "launches": launches, "stack_launches": stacks, "frames": n_frames,
+        "launches": launches, "stack_launches": stacks, "frames": n_frames, "table": table_res,
     }
     log(f"[main] {json.dumps(res)}")
     log(f"[profile] {uri}: {json.dumps(profiled)}")
@@ -1636,6 +1901,21 @@ def _main_paths():
         "grid_packet": (HALL_SCENE, MAIN_W, MAIN_H, 1, HALL_TIMED_FRAMES,
                         {"closest_packet": 5, "any_packet": 10}),
     }
+
+
+def _bench_paths():
+    """The port's bench configs that no main path runs, as main paths of
+    their own, each at its scene, size and spp (bench.CONFIGS), with the
+    slot-lane tier on: cornell (B1/B2), the 36-instance grid (B3/B4) and
+    the 6.7M-triangle soup, whose table exceeds the L2 (B5a/B5b). Same
+    tuples as _main_paths; the kernels' launch counts in the kernels line
+    stay those of _main_paths."""
+    from chameleonrt_tpu_torch.bench import CONFIGS
+
+    bench = {name: (url, w, h, spp) for name, url, w, h, _, spp in CONFIGS}
+    return {path: (*bench[BENCH_PATHS[path]], BENCH_PATH_TIMED_FRAMES,
+                   {f"closest{key}": 5, f"any{key}": 10})
+            for path, key in (("cornell", ""), ("instanced", "_unified"), ("soup", "_stream"))}
 
 
 def _foreign_modules():
@@ -1688,13 +1968,17 @@ def main() -> int:
     phase_reference(torch)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(torch, tmp)
-    log(f"[reference] phase_reference and phase_cli took {time.perf_counter() - t_new:.1f} s")
-    _TABLES.clear()  # the main paths build their own tables; peak memory is theirs
+        log(f"[reference] phase_reference and phase_cli took {time.perf_counter() - t_new:.1f} s")
+        phase_lbvh(torch, tmp)
+    _TABLES.clear()  # the bench and the main paths build their own tables
     gc.collect()
     torch.cuda.empty_cache()
+    phase_bench(torch)
     launches = {path: phase_main(torch, *args, slotlane=path not in QUEUE.values(),
                                  grid_packet=path == "grid_packet")
                 for path, args in _main_paths().items()}
+    for args in _bench_paths().values():
+        phase_main(torch, *args)
     foreign = _foreign_modules()
     if foreign:
         raise AssertionError(f"the port imported JAX or the JAX package: {foreign}")
