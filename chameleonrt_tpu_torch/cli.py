@@ -9,8 +9,9 @@ session. Default 1280x720 framebuffer, default camera eye=(0,0,5)
 center=origin up=+y fov=65. It renders N progressive frames, saves PNG
 frames on demand and prints the benchmark summary the reference prints at
 exit (main.cpp:334-345). The scene path may be proc://<name> for the
-built-in procedural scenes. Backends render on the card; -devices and
--rebalance, which shard a frame over several cards, are refused.
+built-in procedural scenes. Backends render on the card; -devices splits
+the frame's rows over several cards and -rebalance moves rays between
+them (parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ Options:
 \t                       on when stdout is a terminal and not benchmarking)
 \t                       or a browser viewer at http://host:port/ (MJPEG
 \t                       stream + mouse arcball; default port 8000)
+\t-devices <n|all>       Shard the framebuffer rows over n devices (or all
+\t                       available) with summed ray stats
+\t-rebalance             With -devices: mid-path active-ray
+\t                       redistribution between devices (divergent scenes)
 """
 
 # the Chrome trace that -profile writes into its directory
@@ -188,13 +193,15 @@ def _parse_args(argv: List[str]):
                     )
             opts["display"] = v
             i += 2
-        elif a in ("-devices", "-rebalance"):
-            # the JAX CLI's multi-device flags; opts keeps their keys at
-            # the single-device values
-            raise ValueError(
-                f"{a} is not supported: the port renders on one GPU "
-                "(multi-GPU rendering is not ported yet)"
-            )
+        elif a == "-devices":
+            v = argv[i + 1]
+            opts["devices"] = -1 if v == "all" else int(v)
+            if opts["devices"] == 0 or opts["devices"] < -1:
+                raise ValueError("-devices expects a positive count or 'all'")
+            i += 2
+        elif a == "-rebalance":
+            opts["rebalance"] = True
+            i += 1
         elif not a.startswith("-"):
             pos.append(a)
             i += 1
@@ -253,7 +260,9 @@ def _main(argv: Optional[List[str]] = None) -> int:
         cam = scene.cameras[min(opts["camera"], len(scene.cameras) - 1)]
         eye, center, up, fov = cam.position, cam.center, cam.up, cam.fov_y
 
-    backend = get_backend(opts["backend"])
+    backend = get_backend(
+        opts["backend"], devices=opts["devices"], rebalance=opts["rebalance"]
+    )
     print(f"Backend: {backend.name}\nDevice: {get_device_brand()}")
     backend.initialize(w, h)
     t0 = time.perf_counter()

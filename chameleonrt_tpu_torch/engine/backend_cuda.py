@@ -39,7 +39,8 @@ from chameleonrt_tpu_torch.scene.types import Scene
 
 class CudaBackend(TorchRenderBackend):
     def __init__(self, device="cuda", use_kernels: bool = True, stream: Optional[bool] = None,
-                 slotlane: Optional[bool] = None, grid_packet: bool = False):
+                 slotlane: Optional[bool] = None, grid_packet: bool = False, devices=0,
+                 rebalance: bool = False):
         """use_kernels=False traces with the plain torch traversal on any
         device; the card's parity checks use it. stream picks the tier:
         True the streamed tier (B5a/B5b flat, B5c/B5d two-level), False
@@ -51,8 +52,9 @@ class CudaBackend(TorchRenderBackend):
         grid_packet=True traces a flat scene's binary table through B7a and
         B7b, whatever stream and slotlane say, and refuses a multi-instance
         scene (trace_bvh.make_trace_fns). CHAMELEONRT_PACKET=0 (read at
-        set_scene) acts as use_kernels=False."""
-        super().__init__(device=device)
+        set_scene) acts as use_kernels=False. devices and rebalance split
+        the frame over a mesh of devices (TorchRenderBackend)."""
+        super().__init__(device=device, devices=devices, rebalance=rebalance)
         self.use_kernels = use_kernels
         self.stream = stream
         self.slotlane = slotlane
@@ -74,7 +76,8 @@ class CudaBackend(TorchRenderBackend):
             flat = flat._replace(inst_aabb=compute_instance_aabbs(flat, meta))
         return flat, meta
 
-    def make_trace_fns(self, meta):
+    def make_trace_fns(self, meta, flat=None):
+        flat = self.flat if flat is None else flat
         return make_trace_fns(meta, use_kernels=self.use_kernels and kernels_enabled(),
-                              stream=self.stream, blas=self.flat.blas, slotlane=self.slotlane,
+                              stream=self.stream, blas=flat.blas, slotlane=self.slotlane,
                               grid_packet=self.grid_packet)

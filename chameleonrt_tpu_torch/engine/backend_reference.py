@@ -23,5 +23,5 @@ class ReferenceBackend(TorchRenderBackend):
     def prepare_scene(self, scene: Scene):
         return build_device_scene(scene, self.device)
 
-    def make_trace_fns(self, meta):
+    def make_trace_fns(self, meta, flat=None):
         return make_trace_fns(meta)

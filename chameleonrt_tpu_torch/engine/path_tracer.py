@@ -16,11 +16,18 @@ roulette draw after bounce 3.
 
 Shading runs only on live lanes (index compaction); a dead lane never
 revives, so skipping its draws cannot change the image.
+
+A frame may be split into shards (render_shards; parallel/sharded.py), each
+traced on its own device with that device's tables, bounce by bounce
+together. With rebalance, shards swap rows of their wavefronts between
+bounces (_exchange_wavefront). Per-lane math does not depend on where a
+lane runs, so the image is the single-device image.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import contextlib
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -212,78 +219,194 @@ def _sort_wavefront(state, orig, dir, throughput, illum, active, lane_pixel):
     return tuple(x[perm] for x in (state, orig, dir, throughput, illum, active, lane_pixel))
 
 
+def _on(device: torch.device):
+    """Make a CUDA device current (the kernels' C entries launch on the
+    current device); nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+class Shard(NamedTuple):
+    """One shard of a frame: the scene tables and trace functions of its
+    device, its pixels, and, in a sharded frame, each lane's id in the
+    padded frame (scatter_ids; rebalanced frames) and whether its pixel
+    lies in the frame (active0; a padding row's lanes are born dead)."""
+
+    flat: FlatScene
+    trace_closest: TraceClosestFn
+    trace_any: TraceAnyFn
+    pixel_x: torch.Tensor
+    pixel_y: torch.Tensor
+    scatter_ids: Optional[torch.Tensor] = None
+    active0: Optional[torch.Tensor] = None
+
+
+def _start_wavefront(orig, dir, state, lane_ids=None, active0=None):
+    """The path state of fresh primary rays, in _sort_wavefront's field
+    order: (state, orig, dir, throughput, illum, active, lane_pixel)."""
+    R = orig.shape[0]
+    dev = orig.device
+    active = torch.ones((R,), dtype=torch.bool, device=dev) if active0 is None else active0
+    lane_pixel = torch.arange(R, dtype=torch.int64, device=dev) if lane_ids is None else lane_ids
+    return (state, orig, dir, torch.ones((R, 3), dtype=torch.float32, device=dev),
+            torch.zeros((R, 3), dtype=torch.float32, device=dev), active, lane_pixel)
+
+
+def _bounce(flat: FlatScene, meta: SceneMeta, trace_closest: TraceClosestFn,
+            trace_any: TraceAnyFn, bounce: int, wave):
+    """One bounce of a sorted wavefront: closest hit, shading of the live
+    lanes, the two occlusion traversals. Returns (the wavefront after it,
+    rays traced as a 0-dim int64 tensor)."""
+    state, orig, dir, throughput, illum, active, lane_pixel = wave
+    hit = trace_closest(flat, orig, dir, 0.0 if bounce == 0 else EPSILON, active)
+    rays = active.sum()
+
+    missed = active & ~hit.hit
+    illum = illum + torch.where(
+        missed[..., None], throughput * camera_ops.miss_shader(dir), torch.zeros_like(illum)
+    )
+    active = active & hit.hit
+    hit_p = orig + hit.t[..., None] * dir
+
+    sh = _shade_live(flat, meta, bounce, state, orig, dir, throughput, active, hit_p, hit)
+    state = sh.state
+
+    occluded1 = trace_any(flat, hit_p, sh.light_dir, sh.light_dist, sh.shoot1)
+    occluded2 = trace_any(flat, hit_p, sh.w_i2, sh.t_light, sh.shoot2)
+    rays = rays + sh.shoot1.sum() + sh.shoot2.sum()
+    zero = torch.zeros_like(illum)
+    direct = torch.where((sh.shoot1 & ~occluded1)[..., None], sh.c1, zero) + torch.where(
+        (sh.shoot2 & ~occluded2)[..., None], sh.c2, zero
+    )
+    illum = illum + torch.where(active[..., None], throughput * direct, zero)
+
+    active = sh.new_active
+    orig = torch.where(active[..., None], hit_p, orig)
+    dir = torch.where(active[..., None], sh.cont_dir, dir)
+    return (state, orig, dir, sh.new_throughput, illum, active, lane_pixel), rays
+
+
+def _hypercube_perm(n_dev: int, bit: int):
+    """(shard, partner) pairs of an exchange along hypercube dimension
+    `bit`; a shard whose partner falls outside the mesh pairs with itself."""
+    return [(d, d ^ bit if d ^ bit < n_dev else d) for d in range(n_dev)]
+
+
+def _exchange_wavefront(waves, bit: int):
+    """Active-ray rebalancing between shards, the counterpart of the JAX
+    package's ppermute exchange: every shard swaps one slice of S whole
+    rows of its sorted wavefront (actives first) with its hypercube
+    partner along `bit`. The busier side sends its last ~surplus/2 active
+    rows, the other side rows from its dead tail; a row carries its lane's
+    RNG state, throughput, illumination and lane id, so a migrated ray
+    finishes its path on its new shard. The swap is simultaneous: every
+    slice and active count is read before any shard is written. Returns
+    (the wavefronts, active lanes that changed shard)."""
+    R = waves[0][1].shape[0]
+    S = max(min(R // 8, 16384), 8)
+    if R < S:
+        raise ValueError(f"a shard of {R} lanes cannot swap a slice of {S} rows")
+    n_act = [int(w[5].sum()) for w in waves]
+    perm = _hypercube_perm(len(waves), bit)
+    starts = []
+    for d, p in perm:
+        surplus = max((n_act[d] - n_act[p]) // 2, 0)
+        starts.append(min(max(n_act[d] - min(surplus, S), 0), R - S))
+    out, moved = [], 0
+    for d, p in perm:
+        if p == d:
+            out.append(waves[d])
+            continue
+        sent = starts[p]
+        fields = []
+        for mine, theirs in zip(waves[d], waves[p]):
+            new = mine.clone()
+            new[starts[d]:starts[d] + S] = theirs[sent:sent + S].to(mine.device)
+            fields.append(new)
+        out.append(tuple(fields))
+        moved += min(max(n_act[p] - sent, 0), S)
+    return out, moved
+
+
+def _trace_waves(meta: SceneMeta, shards, waves, rebalance: bool = False):
+    """Full paths of every shard's wavefront, bounce by bounce across the
+    shards: each bounce re-sorts every wavefront, then (rebalance, from
+    bounce 1 on) exchanges rows between shards along a hypercube dimension
+    that rotates with the bounce, then traces and shades every shard on
+    its device. Returns (wavefronts, rays per shard, lanes moved)."""
+    n = len(shards)
+    dims = max(1, (n - 1).bit_length())
+    rays = [0] * n
+    moved = 0
+    for bounce in range(MAX_PATH_DEPTH):
+        waves = [_sort_wavefront(*w) for w in waves]
+        if rebalance and n > 1 and bounce >= 1:
+            waves, m = _exchange_wavefront(waves, 1 << ((bounce - 1) % dims))
+            moved += m
+        for i, (sh, wave) in enumerate(zip(shards, waves)):
+            with _on(wave[1].device):
+                waves[i], r = _bounce(sh.flat, meta, sh.trace_closest, sh.trace_any, bounce, wave)
+            rays[i] = rays[i] + r
+    return waves, rays, moved
+
+
 def trace_path(flat: FlatScene, meta: SceneMeta, trace_closest: TraceClosestFn,
                trace_any: TraceAnyFn, orig, dir, state):
     """One full path per lane from the given primary rays. Returns
     (state, illum (R, 3), lane_pixel, rays traced as a 0-dim int64 tensor).
     illum is in the re-sorted lane order: lane_pixel maps each lane to its
     index in the input ray order."""
-    R = orig.shape[0]
-    dev = orig.device
-    illum = torch.zeros((R, 3), dtype=torch.float32, device=dev)
-    throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
-    active = torch.ones((R,), dtype=torch.bool, device=dev)
-    lane_pixel = torch.arange(R, dtype=torch.int64, device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    t_min = 0.0
-
-    for bounce in range(MAX_PATH_DEPTH):
-        state, orig, dir, throughput, illum, active, lane_pixel = _sort_wavefront(
-            state, orig, dir, throughput, illum, active, lane_pixel
-        )
-        hit = trace_closest(flat, orig, dir, t_min, active)
-        rays = rays + active.sum()
-
-        missed = active & ~hit.hit
-        illum = illum + torch.where(
-            missed[..., None], throughput * camera_ops.miss_shader(dir), torch.zeros_like(illum)
-        )
-        active = active & hit.hit
-        hit_p = orig + hit.t[..., None] * dir
-
-        sh = _shade_live(flat, meta, bounce, state, orig, dir, throughput, active, hit_p, hit)
-        state = sh.state
-
-        occluded1 = trace_any(flat, hit_p, sh.light_dir, sh.light_dist, sh.shoot1)
-        occluded2 = trace_any(flat, hit_p, sh.w_i2, sh.t_light, sh.shoot2)
-        rays = rays + sh.shoot1.sum() + sh.shoot2.sum()
-        zero = torch.zeros_like(illum)
-        direct = torch.where((sh.shoot1 & ~occluded1)[..., None], sh.c1, zero) + torch.where(
-            (sh.shoot2 & ~occluded2)[..., None], sh.c2, zero
-        )
-        illum = illum + torch.where(active[..., None], throughput * direct, zero)
-
-        throughput = sh.new_throughput
-        active = sh.new_active
-        orig = torch.where(active[..., None], hit_p, orig)
-        dir = torch.where(active[..., None], sh.cont_dir, dir)
-        t_min = EPSILON
+    shard = Shard(flat, trace_closest, trace_any, None, None)
+    (wave,), (rays,), _ = _trace_waves(meta, [shard], [_start_wavefront(orig, dir, state)])
+    state, _, _, _, illum, _, lane_pixel = wave
     return state, illum, lane_pixel, rays
+
+
+def render_shards(meta: SceneMeta, shards, view: camera_ops.ViewParams, frame_id: int,
+                  fb_width: int, fb_height: int, spp: int, scatter_rows: int = 0,
+                  rebalance: bool = False):
+    """Illumination of one progressive frame over shards (Shard) traced
+    bounce by bounce together (_trace_waves). A shard's illumination is
+    (R, 3) in its input order, or, where its scatter_ids are set, a
+    (scatter_rows, 3) partial frame indexed by them. Returns (illumination
+    averaged over spp, per shard; rays traced per shard as 0-dim int64
+    tensors; active lanes moved between shards)."""
+    pixel_ids = [(s.pixel_x + s.pixel_y * fb_width) & rng_ops.MASK32 for s in shards]
+    sums = [torch.zeros((scatter_rows if s.scatter_ids is not None else p.shape[0], 3),
+                        dtype=torch.float32, device=p.device) for s, p in zip(shards, pixel_ids)]
+    rays = [torch.zeros((), dtype=torch.int64, device=p.device) for p in pixel_ids]
+    moved = 0
+    for s in range(spp):
+        waves = []
+        for sh, pixel_id in zip(shards, pixel_ids):
+            # embree-variant seeding (ispc:213-214)
+            state = rng_ops.get_rng(pixel_id, (frame_id * spp + 1 + s) & rng_ops.MASK32)
+            state, orig, dir = camera_ops.generate_primary_rays(
+                view, sh.pixel_x, sh.pixel_y, float(fb_width), float(fb_height), state
+            )
+            waves.append(_start_wavefront(orig, dir, state, sh.scatter_ids, sh.active0))
+        waves, rays_s, moved_s = _trace_waves(meta, shards, waves, rebalance)
+        moved += moved_s
+        for i, wave in enumerate(waves):
+            _, _, _, _, illum, _, lane_pixel = wave
+            # one scatter restores input order (or places the lanes in the frame)
+            sums[i] = sums[i] + torch.zeros_like(sums[i]).index_put((lane_pixel,), illum)
+            rays[i] = rays[i] + rays_s[i]
+    return [x / float(spp) for x in sums], rays, moved
 
 
 def render_pixels(flat: FlatScene, meta: SceneMeta, trace_closest: TraceClosestFn,
                   trace_any: TraceAnyFn, view: camera_ops.ViewParams, frame_id: int,
-                  pixel_x, pixel_y, fb_width: int, fb_height: int, spp: int):
+                  pixel_x, pixel_y, fb_width: int, fb_height: int, spp: int,
+                  scatter_ids=None, scatter_rows: int = 0, active0=None):
     """Illumination of one progressive frame for the given pixels (int64
-    tensors). Returns (illum (R, 3) averaged over spp, in input order; rays
-    traced as a 0-dim int64 tensor)."""
-    pixel_id = (pixel_x + pixel_y * fb_width) & rng_ops.MASK32
-    R = pixel_id.shape[0]
-    illum_sum = torch.zeros((R, 3), dtype=torch.float32, device=pixel_id.device)
-    rays = torch.zeros((), dtype=torch.int64, device=pixel_id.device)
-    for s in range(spp):
-        # embree-variant seeding (ispc:213-214)
-        state = rng_ops.get_rng(pixel_id, (frame_id * spp + 1 + s) & rng_ops.MASK32)
-        state, orig, dir = camera_ops.generate_primary_rays(
-            view, pixel_x, pixel_y, float(fb_width), float(fb_height), state
-        )
-        _, illum, lane_pixel, rays_s = trace_path(
-            flat, meta, trace_closest, trace_any, orig, dir, state
-        )
-        # one scatter restores input-ray order
-        illum_sum = illum_sum + torch.zeros_like(illum).index_put((lane_pixel,), illum)
-        rays = rays + rays_s
-    return illum_sum / float(spp), rays
+    tensors). Returns (illum averaged over spp, rays traced as a 0-dim
+    int64 tensor). illum is (R, 3) in input order; with scatter_ids, a
+    (scatter_rows, 3) frame with each lane's result at its id. active0
+    starts the lanes it marks False dead: they trace and count nothing."""
+    shard = Shard(flat, trace_closest, trace_any, pixel_x, pixel_y, scatter_ids, active0)
+    (illum,), (rays,), _ = render_shards(meta, [shard], view, frame_id, fb_width, fb_height,
+                                         spp, scatter_rows)
+    return illum, rays
 
 
 def progressive_accum(accum, illum, frame_id: int):

@@ -153,7 +153,17 @@ nor the JAX package (it asserts so at its end). Phases:
    kernels and of the largest other rows, and its table (rows, bytes,
    certified stack) is logged; every launch of these main paths (BVH4
    tables, and the hall's binary one) must have run with the 64-entry
-   stack.
+   stack;
+6. multi-device rendering (phase_sharded; parallel/sharded.py), N shards
+   on cuda:0 through get_backend("cuda", devices=[cuda:0] * N): the
+   textured hall with 4 and with 7 shards (B1/B2) and the bench's
+   36-instance grid with 4 (B3/B4) at 1280x720, 1 spp, 2 frames, each
+   static and with rebalance=True beside one device: sRGB8 images equal
+   to one device's, accumulators within 1e-5, equal rays, 5 + 10 launches
+   a shard a frame (counts set to 0 just before each run and read just
+   after), lanes moved in every rebalanced frame; and `python -m
+   chameleonrt_tpu_torch.cli cuda proc://cornell -devices all -rebalance`
+   writes the image of the same run without the flags.
 
 A gen://san_miguel URI is this script's own: _load generates the scene
 with the port's scene/pbrt_gen.py (its query string gives the generator's
@@ -206,6 +216,7 @@ LARGE_TIMED_FRAMES = 3
 # at their sizes (_bench_paths)
 BENCH_PATHS = {"cornell": "cornell", "instanced": "instanced", "soup": "rungholt_soup"}
 BENCH_PATH_TIMED_FRAMES = 2
+SHARDED_FRAMES = 2  # phase_sharded's progressive frames a run
 PROFILE_FRAMES = 1
 # python -m chameleonrt_tpu_torch.bench in its own process (phase_bench)
 BENCH_TIMEOUT_S = 900
@@ -1812,10 +1823,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     allocated_before = torch.cuda.memory_allocated()
-    for k in traverse_cuda.LAUNCHES:
-        traverse_cuda.LAUNCHES[k] = 0
-        for cap in traverse_cuda.STACK_LAUNCHES[k]:
-            traverse_cuda.STACK_LAUNCHES[k][cap] = 0
+    _zero_launches()
     backend = get_backend("cuda", slotlane=slotlane, grid_packet=grid_packet)
     backend.initialize(W, H)
     t0 = time.perf_counter()
@@ -1918,6 +1926,118 @@ def _bench_paths():
             for path, key in (("cornell", ""), ("instanced", "_unified"), ("soup", "_stream"))}
 
 
+def _zero_launches():
+    """Every kernel's launch counts, in all and by stack capacity, set to 0."""
+    from chameleonrt_tpu_torch.ops import traverse_cuda
+
+    for k in traverse_cuda.LAUNCHES:
+        traverse_cuda.LAUNCHES[k] = 0
+        for cap in traverse_cuda.STACK_LAUNCHES[k]:
+            traverse_cuda.STACK_LAUNCHES[k][cap] = 0
+
+
+def _sharded_run(torch, scene, devices, rebalance):
+    """get_backend("cuda", devices=devices, rebalance=rebalance) on scene
+    at MAIN_W x MAIN_H, 1 spp, for SHARDED_FRAMES progressive frames,
+    each read back, with the launch counts set to 0 just before the frames
+    and read just after. Returns (per frame: (ms, rays, lanes moved, sRGB8
+    image, accumulator); {count: launches})."""
+    from chameleonrt_tpu_torch.core.registry import get_backend
+    from chameleonrt_tpu_torch.ops import traverse_cuda
+
+    pos, d, up, fov = _view(scene)
+    backend = get_backend("cuda", devices=devices, rebalance=rebalance)
+    backend.initialize(MAIN_W, MAIN_H)
+    backend.set_scene(scene)
+    backend.samples_per_pixel = 1
+    frames = []
+    _zero_launches()
+    for i in range(SHARDED_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = backend.render(pos, d, up, fov, i == 0)
+        torch.cuda.synchronize()
+        frames.append(((time.perf_counter() - t0) * 1e3, st.rays_traced,
+                       backend._step.lanes_moved if backend._step else 0, backend.img.copy(),
+                       backend.framebuffer().clone()))
+    return frames, {k: n for k, n in traverse_cuda.LAUNCHES.items() if n}
+
+
+def phase_sharded(torch, smi, tmp):
+    """Multi-device rendering (parallel/sharded.py) with N shards on cuda:0:
+    the textured hall with 4 and with 7 shards (720 rows pad to 721; B1/B2)
+    and the bench's 36-instance grid with 4 (B3/B4), at 1280x720, 1 spp,
+    each on one device, on N shards and on N shards rebalanced, for
+    SHARDED_FRAMES progressive frames. Every frame's sRGB8 image must equal
+    the one device's and its accumulator agree within DT_TOL, with equal
+    rays; each run must launch its tier's kernels 5 + 10 times a shard a
+    frame, and the rebalanced runs move lanes in every frame. Then the CLI
+    with `-devices all -rebalance` (one device on a one-card host) must
+    write the image of the same run without them."""
+    import numpy as np
+
+    from chameleonrt_tpu_torch.bench import CONFIGS
+    from chameleonrt_tpu_torch.utils.image_io import read_image
+
+    t0 = time.perf_counter()
+    cli_args = ["cuda", "proc://cornell", "-img", "256", "256", "-frames", "2", "-display", "none"]
+    runs = [_cli_start([*cli_args, *flags, "-o", os.path.join(tmp, name)])
+            for name, flags in (("one.png", []), ("all.png", ["-devices", "all", "-rebalance"]))]
+    try:
+        grid = next(url for name, url, *_ in CONFIGS if name == "instanced")
+        out = []
+        singles = {}
+        for label, uri, n, key in (("hall", HALL_SCENE, 4, ""), ("hall", HALL_SCENE, 7, ""),
+                                   ("instanced", grid, 4, "_unified")):
+            scene = _load(uri)
+            if uri not in singles:
+                singles[uri] = _sharded_run(torch, scene, 0, False)
+            one, one_launches = singles[uri]
+            res = {"scene": label, "uri": uri, "shards": n, "one_device": {
+                "ms_per_frame": [f[0] for f in one], "rays_per_frame": [f[1] for f in one],
+                "launches": one_launches}}
+            for mode, rebalance in (("static", False), ("rebalanced", True)):
+                frames, launches = _sharded_run(torch, scene, [torch.device("cuda", 0)] * n,
+                                                rebalance)
+                want = {f"closest{key}": 5 * n * SHARDED_FRAMES, f"any{key}": 10 * n * SHARDED_FRAMES}
+                if launches != want:
+                    raise AssertionError(f"{label}, {n} shards, {mode}: launches {launches}, "
+                                         f"expected {want}")
+                for i, (f, g) in enumerate(zip(frames, one)):
+                    err = float((f[4] - g[4]).abs().max())
+                    if not np.array_equal(f[3], g[3]) or err > DT_TOL or f[1] != g[1]:
+                        raise AssertionError(
+                            f"{label}, {n} shards, {mode}, frame {i}: sRGB8 equal "
+                            f"{np.array_equal(f[3], g[3])}, accumulator max |diff| {err}, "
+                            f"rays {f[1]} against {g[1]}")
+                moved = [f[2] for f in frames]
+                if rebalance and min(moved) <= 0:
+                    raise AssertionError(f"{label}, {n} shards: the exchange moved {moved} lanes")
+                res[mode] = {"ms_per_frame": [f[0] for f in frames],
+                             "rays_per_frame": [f[1] for f in frames], "lanes_moved": moved,
+                             "max_abs_err": max(float((f[4] - g[4]).abs().max())
+                                                for f, g in zip(frames, one)),
+                             "launches": launches}
+            out.append(res)
+            gc.collect()
+        t1 = time.perf_counter()
+        for proc in runs:
+            _cli_end(proc)
+    finally:
+        for proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    one_img, all_img = (read_image(os.path.join(tmp, name)) for name in ("one.png", "all.png"))
+    if not np.array_equal(one_img, all_img):
+        raise AssertionError("the CLI's image with -devices all -rebalance differs from the one "
+                             "without them")
+    res = {"nvidia_smi": smi, "cases": out, "frames_s": t1 - t0, "cli_image_equal": True,
+           "seconds": time.perf_counter() - t0}
+    log(f"[sharded] {json.dumps(res)}")
+    return out
+
+
 def _foreign_modules():
     """Modules of JAX or of the JAX package that this process imported."""
     return sorted(m for m in sys.modules
@@ -1979,6 +2099,8 @@ def main() -> int:
                 for path, args in _main_paths().items()}
     for args in _bench_paths().values():
         phase_main(torch, *args)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_sharded(torch, smi, tmp)
     foreign = _foreign_modules()
     if foreign:
         raise AssertionError(f"the port imported JAX or the JAX package: {foreign}")

@@ -1,10 +1,9 @@
 """The port's command line (chameleonrt_tpu_torch/cli.py) against
 chameleonrt_tpu/cli.py.
 
-- parse_args gives the JAX CLI's options for every flag, with two stated
-  exceptions: the default -o (chameleonrt_cuda_out.png), and -devices and
-  -rebalance, which the port refuses with a clear error (it renders on one
-  card).
+- parse_args gives the JAX CLI's options for every flag, with one stated
+  exception: the default -o (chameleonrt_cuda_out.png). -devices and
+  -rebalance reach the backend, whose image they leave as it is.
 - The error paths of tests/test_checkpoint_cli.py.
 - With a CPU backend registered through the port's registry (the CLI has
   no CPU flag): -spp, -validation, -checkpoint/-resume, -profile, and the
@@ -78,7 +77,7 @@ def _run(argv, tmp_path, name="out.png"):
     return rc, (_Recording.made[-1] if _Recording.made else None)
 
 
-# every flag of chameleonrt_tpu/cli.py but -devices and -rebalance
+# every flag of chameleonrt_tpu/cli.py but -devices and -rebalance (below)
 ARGV = {
     "defaults": ["be", "s.obj"],
     "view": ["be", "s.obj", "-eye", "1", "2", "3", "-center", "0", "1", "0", "-up", "0", "0", "1",
@@ -125,14 +124,43 @@ def test_parse_args_matches_jax(case, capsys):
             assert got[key] == value, key
 
 
-@pytest.mark.parametrize("argv", [["-devices", "2"], ["-devices", "all"], ["-rebalance"]],
-                         ids=["devices_2", "devices_all", "rebalance"])
+@pytest.mark.parametrize("argv", [["-devices", "2"], ["-devices", "all"], ["-rebalance"],
+                                  ["-devices", "0"]],
+                         ids=["devices_2", "devices_all", "rebalance", "devices_0"])
 def test_multi_device_flags_are_refused(argv, capsys):
-    assert jax_cli.parse_args(["be", "s.obj", *argv]) is not None
-    assert cli.parse_args(["be", "s.obj", *argv]) is None
-    err = capsys.readouterr().err
-    assert f"Error: {argv[0]} is not supported" in err and "one GPU" in err
-    assert cli.main([CPU, "proc://cornell", *argv]) == 1
+    """-devices and -rebalance parse to the JAX CLI's devices / rebalance
+    values; -devices 0 is refused by both, with the same message."""
+    want, got = jax_cli.parse_args(["be", "s.obj", *argv]), cli.parse_args(["be", "s.obj", *argv])
+    if want is None:
+        assert got is None
+        jax_err, err = capsys.readouterr().err.split("\n")[:2]
+        assert err == jax_err == "Error: -devices expects a positive count or 'all'"
+        return
+    assert (got["devices"], got["rebalance"]) == (want["devices"], want["rebalance"])
+
+
+def test_devices_and_rebalance_render_the_same_image(tmp_path):
+    """cli.main with -devices 2 -rebalance on a CPU backend that splits the
+    frame over that many CPU shards: the image of the run without them."""
+    made = []
+
+    def sharded(devices=0, rebalance=False, **_):
+        mesh = [torch.device("cpu")] * devices if devices > 1 else devices
+        made.append(ReferenceBackend(device="cpu", devices=mesh, rebalance=rebalance))
+        return made[-1]
+
+    register_backend("cpu_sharded", sharded)
+    try:
+        for name, flags in (("one.png", []), ("two.png", ["-devices", "2", "-rebalance"])):
+            assert cli.main(["cpu_sharded", "proc://cornell", "-img", "16", "15", "-frames", "2",
+                             "-display", "none", "-o", str(tmp_path / name), *flags]) == 0
+    finally:
+        registry._REGISTRY.pop("cpu_sharded")
+    one, two = made
+    assert (one._n_devices(), two._n_devices(), two.rebalance) == (1, 2, True)
+    np.testing.assert_array_equal(read_image(str(tmp_path / "two.png")),
+                                  read_image(str(tmp_path / "one.png")))
+    assert torch.equal(two.framebuffer(), one.framebuffer())
 
 
 @pytest.mark.parametrize("argv, message", [
