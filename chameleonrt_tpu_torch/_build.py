@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import time
 
+from chameleonrt_tpu_torch.core import tracing
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _CSRC = os.path.join(_PKG, "csrc")
@@ -116,6 +118,7 @@ def kernel_library_path() -> str:
     out = os.path.join(BUILD_DIR, f"libcrt_kernels_{_digest(sources, NVCC_FLAGS)}.so")
     with _file_lock("kernels"):
         if not os.path.exists(out):
+            tracing.count("kernel_builds")
             nvcc = find_nvcc()
             obj_dir = out[: -len(".so")] + f".obj{os.getpid()}"
             os.makedirs(obj_dir, exist_ok=True)
@@ -188,4 +191,5 @@ def load_library(path: str) -> ctypes.CDLL:
 def kernels() -> ctypes.CDLL:
     """The traversal kernels' library, compiled and loaded on first call
     (load_library)."""
-    return load_library(kernel_library_path())
+    with tracing.span("kernels.load"):
+        return load_library(kernel_library_path())

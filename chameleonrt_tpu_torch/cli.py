@@ -23,6 +23,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from chameleonrt_tpu_torch.core import tracing
 from chameleonrt_tpu_torch.core.registry import get_backend, list_backends
 from chameleonrt_tpu_torch.scene.loader import load_scene
 from chameleonrt_tpu_torch.scene.types import MaterialMode
@@ -50,7 +51,9 @@ Options:
 \t-resume <state.npz>    Resume progressive accumulation from a checkpoint
 \t-checkpoint <state.npz> Save accumulation state after the last frame
 \t-profile <dir>         Write a torch.profiler trace of the render loop
-\t                       (CPU and CUDA activity) as <dir>/render_loop.pt.trace.json
+\t                       (CPU and CUDA activity) as <dir>/render_loop.pt.trace.json,
+\t                       the frame's spans (crt.*) in it, and print each span's
+\t                       host ms and each counter, of the set-up and a frame
 \t-display auto|ansi|none|http[:port]
 \t                       Live progressive preview: ANSI in-terminal (auto:
 \t                       on when stdout is a terminal and not benchmarking)
@@ -221,6 +224,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     except (ValueError, OSError, RuntimeError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    finally:
+        tracing.enable(False)
 
 
 def _main(argv: Optional[List[str]] = None) -> int:
@@ -231,6 +236,8 @@ def _main(argv: Optional[List[str]] = None) -> int:
         return 1
 
     w, h = opts["img"]
+    if opts["profile"]:
+        tracing.enable(True)  # the set-up's spans too: scene.load, scene.set, native.load
     print(f"Loading scene: {opts['scene']}")
     scene = load_scene(opts["scene"], opts["mat_mode"])
     scene.samples_per_pixel = opts["spp"]
@@ -336,6 +343,7 @@ def _main(argv: Optional[List[str]] = None) -> int:
         trace = os.path.join(opts["profile"], PROFILE_TRACE)
         profiler_cm.export_chrome_trace(trace)
         print(f"Profiler trace written to {trace}")
+        print(tracing.format_summary(tracing.frame_summary()))
     if opts["checkpoint"]:
         backend.save_state(opts["checkpoint"])
         print(f"Checkpoint saved to {opts['checkpoint']}")

@@ -20,9 +20,12 @@ from chameleonrt_tpu_torch.scene.types import Scene
 class RenderStats:
     """Per-frame render statistics (reference util/render_backend.h:7-10).
 
-    render_time: device-side render time for the frame, in milliseconds.
-    rays_per_second: total rays traced per second (primary + shadow +
-    secondary), when ray-stat reporting is enabled; 0 otherwise.
+    render_time: host milliseconds from the frame's first launch to the
+    end of its device work.
+    rays_per_second: rays_traced / render_time, in rays a second; the port
+    always reports it.
+    rays_traced: every ray the frame traced (primary, secondary and shadow),
+    counted exactly.
     """
 
     render_time: float = 0.0

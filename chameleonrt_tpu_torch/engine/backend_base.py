@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from chameleonrt_tpu_torch.core import tracing
 from chameleonrt_tpu_torch.core.backend import RenderBackend, RenderStats
 from chameleonrt_tpu_torch.engine import path_tracer
 from chameleonrt_tpu_torch.engine.device_scene import FlatScene, SceneMeta, check_scene
@@ -105,12 +106,15 @@ class TorchRenderBackend(RenderBackend):
 
     def set_scene(self, scene: Scene) -> None:
         """Raises TypeError on a Scene that is not the port's own class."""
-        check_scene(scene)
-        self.samples_per_pixel = int(scene.samples_per_pixel)
-        self.flat, self.meta = self.prepare_scene(scene)
-        self._trace = self.make_trace_fns(self.meta)
-        self._step = None
-        self.frame_id = 0
+        with tracing.span("scene.set"):
+            check_scene(scene)
+            self.samples_per_pixel = int(scene.samples_per_pixel)
+            with tracing.span("scene.set.tables"):
+                self.flat, self.meta = self.prepare_scene(scene)
+            with tracing.span("scene.set.trace_fns"):
+                self._trace = self.make_trace_fns(self.meta)
+            self._step = None
+            self.frame_id = 0
 
     def _build_step(self):
         """The sharded frame step: the scene and one set of trace
@@ -163,28 +167,31 @@ class TorchRenderBackend(RenderBackend):
 
         self._sync()
         t0 = time.perf_counter()
-        if self._step is not None:
-            self._accum, rays = self._step(self._flats, view, self._accum, self.frame_id)
-        else:
-            trace_closest, trace_any = self._trace
-            illum, rays = path_tracer.render_pixels(
-                self.flat, self.meta, trace_closest, trace_any, view, self.frame_id,
-                self._pixels[0], self._pixels[1], W, H, self.samples_per_pixel,
-            )
-            self._accum = path_tracer.progressive_accum(
-                self._accum, illum.reshape(H, W, 3), self.frame_id
-            )
-        rays = int(rays)  # waits for the frame's ray count
-        self._sync()
-        dt = time.perf_counter() - t0
+        with tracing.span("frame"):
+            if self._step is not None:
+                self._accum, rays = self._step(self._flats, view, self._accum, self.frame_id)
+            else:
+                trace_closest, trace_any = self._trace
+                illum, rays = path_tracer.render_pixels(
+                    self.flat, self.meta, trace_closest, trace_any, view, self.frame_id,
+                    self._pixels[0], self._pixels[1], W, H, self.samples_per_pixel,
+                )
+                self._accum = path_tracer.progressive_accum(
+                    self._accum, illum.reshape(H, W, 3), self.frame_id
+                )
+            with tracing.sync("frame.rays"):
+                rays = tracing.read_with(rays)  # waits for the frame's ray count
+            self._sync()
+            dt = time.perf_counter() - t0
 
-        stats = RenderStats(
-            render_time=dt * 1e3,
-            rays_per_second=rays / dt if dt > 0 else 0.0,
-            rays_traced=rays,
-        )
-        if readback_framebuffer:
-            self.img = self._tonemap()
+            stats = RenderStats(
+                render_time=dt * 1e3,
+                rays_per_second=rays / dt if dt > 0 else 0.0,
+                rays_traced=rays,
+            )
+            if readback_framebuffer:
+                with tracing.span("frame.readback"):
+                    self.img = self._tonemap()
         self.frame_id += 1
         return stats
 

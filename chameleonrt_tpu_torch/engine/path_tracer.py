@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from chameleonrt_tpu_torch.core import tracing
 from chameleonrt_tpu_torch.engine.device_scene import (
     FlatScene,
     SceneMeta,
@@ -194,11 +195,13 @@ def _shade_live(flat, meta, bounce, state, orig, dir, throughput, active, hit_p,
     full-width results. A dead lane keeps its state, throughput and
     direction and shoots no shadow ray."""
     R = orig.shape[0]
-    live = torch.nonzero(active).flatten()
-    sub = _shade_bounce(
-        flat, meta, bounce, state[live], orig[live], dir[live], throughput[live],
-        active[live], hit_p[live], hit.tri[live], hit.inst[live], hit.u[live], hit.v[live],
-    )
+    with tracing.sync("compact.nonzero"):
+        live = torch.nonzero(active).flatten()
+    tracing.count("lanes.shaded", live.shape[0])
+    lanes = (state[live], orig[live], dir[live], throughput[live], active[live], hit_p[live],
+             hit.tri[live], hit.inst[live], hit.u[live], hit.v[live])
+    with tracing.span("bounce.shade"):
+        sub = _shade_bounce(flat, meta, bounce, *lanes)
     z3 = torch.zeros((R, 3), dtype=torch.float32, device=orig.device)
     z3[:, 2] = 1.0
     z1 = torch.zeros((R,), dtype=torch.float32, device=orig.device)
@@ -257,31 +260,38 @@ def _bounce(flat: FlatScene, meta: SceneMeta, trace_closest: TraceClosestFn,
     lanes, the two occlusion traversals. Returns (the wavefront after it,
     rays traced as a 0-dim int64 tensor)."""
     state, orig, dir, throughput, illum, active, lane_pixel = wave
-    hit = trace_closest(flat, orig, dir, 0.0 if bounce == 0 else EPSILON, active)
-    rays = active.sum()
+    with tracing.span("bounce.closest", bounce):
+        hit = trace_closest(flat, orig, dir, 0.0 if bounce == 0 else EPSILON, active)
+    with tracing.span("bounce.combine", bounce):
+        closest_rays = active.sum()
+        missed = active & ~hit.hit
+        illum = illum + torch.where(
+            missed[..., None], throughput * camera_ops.miss_shader(dir), torch.zeros_like(illum)
+        )
+        active = active & hit.hit
+        hit_p = orig + hit.t[..., None] * dir
 
-    missed = active & ~hit.hit
-    illum = illum + torch.where(
-        missed[..., None], throughput * camera_ops.miss_shader(dir), torch.zeros_like(illum)
-    )
-    active = active & hit.hit
-    hit_p = orig + hit.t[..., None] * dir
-
-    sh = _shade_live(flat, meta, bounce, state, orig, dir, throughput, active, hit_p, hit)
+    with tracing.span("bounce.compact", bounce):
+        sh = _shade_live(flat, meta, bounce, state, orig, dir, throughput, active, hit_p, hit)
     state = sh.state
 
-    occluded1 = trace_any(flat, hit_p, sh.light_dir, sh.light_dist, sh.shoot1)
-    occluded2 = trace_any(flat, hit_p, sh.w_i2, sh.t_light, sh.shoot2)
-    rays = rays + sh.shoot1.sum() + sh.shoot2.sum()
-    zero = torch.zeros_like(illum)
-    direct = torch.where((sh.shoot1 & ~occluded1)[..., None], sh.c1, zero) + torch.where(
-        (sh.shoot2 & ~occluded2)[..., None], sh.c2, zero
-    )
-    illum = illum + torch.where(active[..., None], throughput * direct, zero)
+    with tracing.span("bounce.any", bounce):
+        occluded1 = trace_any(flat, hit_p, sh.light_dir, sh.light_dist, sh.shoot1)
+        occluded2 = trace_any(flat, hit_p, sh.w_i2, sh.t_light, sh.shoot2)
+    with tracing.span("bounce.combine", bounce):
+        any_rays = sh.shoot1.sum() + sh.shoot2.sum()
+        rays = closest_rays + any_rays
+        tracing.count_on_device("rays.closest", closest_rays)
+        tracing.count_on_device("rays.any", any_rays)
+        zero = torch.zeros_like(illum)
+        direct = torch.where((sh.shoot1 & ~occluded1)[..., None], sh.c1, zero) + torch.where(
+            (sh.shoot2 & ~occluded2)[..., None], sh.c2, zero
+        )
+        illum = illum + torch.where(active[..., None], throughput * direct, zero)
 
-    active = sh.new_active
-    orig = torch.where(active[..., None], hit_p, orig)
-    dir = torch.where(active[..., None], sh.cont_dir, dir)
+        active = sh.new_active
+        orig = torch.where(active[..., None], hit_p, orig)
+        dir = torch.where(active[..., None], sh.cont_dir, dir)
     return (state, orig, dir, sh.new_throughput, illum, active, lane_pixel), rays
 
 
@@ -305,7 +315,10 @@ def _exchange_wavefront(waves, bit: int):
     S = max(min(R // 8, 16384), 8)
     if R < S:
         raise ValueError(f"a shard of {R} lanes cannot swap a slice of {S} rows")
-    n_act = [int(w[5].sum()) for w in waves]
+    n_act = []
+    for w in waves:
+        with tracing.sync("exchange.counts"):
+            n_act.append(int(w[5].sum()))
     perm = _hypercube_perm(len(waves), bit)
     starts = []
     for d, p in perm:
@@ -338,14 +351,17 @@ def _trace_waves(meta: SceneMeta, shards, waves, rebalance: bool = False):
     rays = [0] * n
     moved = 0
     for bounce in range(MAX_PATH_DEPTH):
-        waves = [_sort_wavefront(*w) for w in waves]
+        with tracing.span("bounce.sort", bounce):
+            waves = [_sort_wavefront(*w) for w in waves]
         if rebalance and n > 1 and bounce >= 1:
-            waves, m = _exchange_wavefront(waves, 1 << ((bounce - 1) % dims))
+            with tracing.span("bounce.exchange", bounce):
+                waves, m = _exchange_wavefront(waves, 1 << ((bounce - 1) % dims))
             moved += m
         for i, (sh, wave) in enumerate(zip(shards, waves)):
             with _on(wave[1].device):
                 waves[i], r = _bounce(sh.flat, meta, sh.trace_closest, sh.trace_any, bounce, wave)
-            rays[i] = rays[i] + r
+            with tracing.span("bounce.combine", bounce):
+                rays[i] = rays[i] + r
     return waves, rays, moved
 
 
@@ -370,28 +386,32 @@ def render_shards(meta: SceneMeta, shards, view: camera_ops.ViewParams, frame_id
     (scatter_rows, 3) partial frame indexed by them. Returns (illumination
     averaged over spp, per shard; rays traced per shard as 0-dim int64
     tensors; active lanes moved between shards)."""
-    pixel_ids = [(s.pixel_x + s.pixel_y * fb_width) & rng_ops.MASK32 for s in shards]
-    sums = [torch.zeros((scatter_rows if s.scatter_ids is not None else p.shape[0], 3),
-                        dtype=torch.float32, device=p.device) for s, p in zip(shards, pixel_ids)]
-    rays = [torch.zeros((), dtype=torch.int64, device=p.device) for p in pixel_ids]
+    with tracing.span("frame.camera"):
+        pixel_ids = [(s.pixel_x + s.pixel_y * fb_width) & rng_ops.MASK32 for s in shards]
+        sums = [torch.zeros((scatter_rows if s.scatter_ids is not None else p.shape[0], 3),
+                            dtype=torch.float32, device=p.device) for s, p in zip(shards, pixel_ids)]
+        rays = [torch.zeros((), dtype=torch.int64, device=p.device) for p in pixel_ids]
     moved = 0
     for s in range(spp):
         waves = []
-        for sh, pixel_id in zip(shards, pixel_ids):
-            # embree-variant seeding (ispc:213-214)
-            state = rng_ops.get_rng(pixel_id, (frame_id * spp + 1 + s) & rng_ops.MASK32)
-            state, orig, dir = camera_ops.generate_primary_rays(
-                view, sh.pixel_x, sh.pixel_y, float(fb_width), float(fb_height), state
-            )
-            waves.append(_start_wavefront(orig, dir, state, sh.scatter_ids, sh.active0))
+        with tracing.span("frame.camera"):
+            for sh, pixel_id in zip(shards, pixel_ids):
+                # embree-variant seeding (ispc:213-214)
+                state = rng_ops.get_rng(pixel_id, (frame_id * spp + 1 + s) & rng_ops.MASK32)
+                state, orig, dir = camera_ops.generate_primary_rays(
+                    view, sh.pixel_x, sh.pixel_y, float(fb_width), float(fb_height), state
+                )
+                waves.append(_start_wavefront(orig, dir, state, sh.scatter_ids, sh.active0))
         waves, rays_s, moved_s = _trace_waves(meta, shards, waves, rebalance)
         moved += moved_s
-        for i, wave in enumerate(waves):
-            _, _, _, _, illum, _, lane_pixel = wave
-            # one scatter restores input order (or places the lanes in the frame)
-            sums[i] = sums[i] + torch.zeros_like(sums[i]).index_put((lane_pixel,), illum)
-            rays[i] = rays[i] + rays_s[i]
-    return [x / float(spp) for x in sums], rays, moved
+        with tracing.span("frame.accumulate"):
+            for i, wave in enumerate(waves):
+                _, _, _, _, illum, _, lane_pixel = wave
+                # one scatter restores input order (or places the lanes in the frame)
+                sums[i] = sums[i] + torch.zeros_like(sums[i]).index_put((lane_pixel,), illum)
+                rays[i] = rays[i] + rays_s[i]
+    with tracing.span("frame.accumulate"):
+        return [x / float(spp) for x in sums], rays, moved
 
 
 def render_pixels(flat: FlatScene, meta: SceneMeta, trace_closest: TraceClosestFn,
@@ -412,4 +432,5 @@ def render_pixels(flat: FlatScene, meta: SceneMeta, trace_closest: TraceClosestF
 def progressive_accum(accum, illum, frame_id: int):
     """Running average (ispc:345-353): (illum + n * accum) / (n + 1)."""
     fid = float(frame_id)
-    return (illum + fid * accum) / (fid + 1.0)
+    with tracing.span("frame.accumulate"):
+        return (illum + fid * accum) / (fid + 1.0)

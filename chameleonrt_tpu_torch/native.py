@@ -28,6 +28,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from chameleonrt_tpu_torch import _build
+from chameleonrt_tpu_torch.core import tracing
 
 _NATIVE_DIR = os.path.join(os.path.dirname(_build._PKG), "native")
 SOURCES = tuple(os.path.join(_NATIVE_DIR, f) for f in ("bvhbuilder.cpp", "objparser.cpp"))
@@ -42,6 +43,7 @@ def library_path(cxx: str) -> str:
                        f"libcrt_native_{_build._digest(SOURCES, (cxx, version, *CXX_FLAGS))}.so")
     with _build._file_lock("native"):
         if not os.path.exists(out):
+            tracing.count("native_builds")
             tmp = out + f".tmp{os.getpid()}"
             try:
                 _build._run([cxx, *CXX_FLAGS, "-o", tmp, *SOURCES], 300)
@@ -65,7 +67,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
     cxx = compiler()
     if cxx is None:
         return None
-    lib = ctypes.CDLL(library_path(cxx))
+    with tracing.span("native.load"):
+        lib = ctypes.CDLL(library_path(cxx))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     fptr = ctypes.POINTER(ctypes.c_float)
     lib.crt_obj_parse.restype = vp

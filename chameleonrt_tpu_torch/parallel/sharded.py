@@ -24,6 +24,7 @@ from typing import Dict, List
 
 import torch
 
+from chameleonrt_tpu_torch.core import tracing
 from chameleonrt_tpu_torch.engine import path_tracer
 from chameleonrt_tpu_torch.engine.device_scene import FlatScene, SceneMeta
 from chameleonrt_tpu_torch.ops import camera as camera_ops
@@ -110,13 +111,14 @@ class ShardedRenderStep:
             self.meta, shards, view, frame_id, W, self.fb_height, self.spp,
             scatter_rows=len(self.mesh) * rows, rebalance=self.rebalance,
         )
-        if self.rebalance:
-            illums = [sum(part[d * rows:(d + 1) * rows].to(dev) for part in illums)
-                      for d, dev in enumerate(self.mesh)]
-        accum = [path_tracer.progressive_accum(a, illum.reshape(shard_h, W, 3), frame_id)
-                 for a, illum in zip(accum_shards, illums)]
-        home = self.mesh[0]
-        return accum, sum(r.to(home) for r in rays)
+        with tracing.span("frame.accumulate"):
+            if self.rebalance:
+                illums = [sum(part[d * rows:(d + 1) * rows].to(dev) for part in illums)
+                          for d, dev in enumerate(self.mesh)]
+            accum = [path_tracer.progressive_accum(a, illum.reshape(shard_h, W, 3), frame_id)
+                     for a, illum in zip(accum_shards, illums)]
+            home = self.mesh[0]
+            return accum, sum(r.to(home) for r in rays)
 
 
 def make_sharded_render_step(meta: SceneMeta, trace_fns_by_device, mesh, fb_width: int,

@@ -7,10 +7,16 @@ from __future__ import annotations
 
 import os
 
+from chameleonrt_tpu_torch.core import tracing
 from chameleonrt_tpu_torch.scene.types import MaterialMode, Scene
 
 
 def load_scene(path: str, material_mode: MaterialMode = MaterialMode.DEFAULT) -> Scene:
+    with tracing.span("scene.load"):
+        return _load_scene(path, material_mode)
+
+
+def _load_scene(path: str, material_mode: MaterialMode) -> Scene:
     if path.startswith("proc://"):
         from chameleonrt_tpu_torch.scene import procedural
 

@@ -226,6 +226,27 @@ def test_profile_writes_a_trace(tmp_path):
     assert any(n and n.startswith("aten::") for n in names)
 
 
+def test_profile_traces_the_spans_and_prints_their_table(tmp_path, capsys):
+    from chameleonrt_tpu_torch.core import tracing
+
+    prof = tmp_path / "prof"
+    rc, _ = _run(["proc://cornell", "-frames", "2", "-profile", str(prof)], tmp_path)
+    assert rc == 0 and not tracing.enabled()
+    with open(prof / cli.PROFILE_TRACE) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    assert names.count("crt.frame") == 2 and names.count("crt.bounce.shade") == 10
+    assert "crt.sync.compact.nonzero" in names
+    out = capsys.readouterr().out
+    setup = out[out.index("Set-up, outside every frame"):out.index("Spans, host ms")].splitlines()
+    assert {"scene.load", "scene.set", "scene.set.tables"} <= {line.split()[0] for line in setup[1:]}
+    table = out[out.index("Spans, host ms"):].splitlines()
+    assert "(2 frames)" in table[0]
+    rows = {line.split()[0]: [float(x) for x in line.split()[1:]] for line in table[1:]
+            if line.startswith("  ")}
+    assert {"frame", "bounce.sort", "bounce.shade", "sync.frame.rays"} <= set(rows)
+    assert rows["host_syncs"] == [6, 12] and rows["rays.closest"][0] > 0
+
+
 @pytest.fixture
 def two_cameras(monkeypatch):
     """Both CLIs' proc://cornell with a second camera, moved to the left
