@@ -109,7 +109,7 @@ def _compile_all(nvcc: str, cus, obj_dir: str, timeout: int) -> str:
 
 
 def kernel_library_path() -> str:
-    """Path of the traversal kernels' library, compiled if missing. nvcc's
+    """Path of the kernels' library (B1-B7b and S1), compiled if missing. nvcc's
     output (ptxas register and spill counts) is kept beside it, with the
     extension .log."""
     sources = sorted(
@@ -138,7 +138,7 @@ def kernel_library_path() -> str:
 
 
 def load_library(path: str) -> ctypes.CDLL:
-    """The traversal kernels' library at path, loaded and bound. Every
+    """The kernels' library at path (B1-B7b and S1), loaded and bound. Every
     entry of B1-B6d takes the node rows' arity (2, 4 or 8) before the leaf
     size, and every entry the stack capacity after the depth; B7a/B7b take
     binary rows only."""
@@ -171,6 +171,9 @@ def load_library(path: str) -> ctypes.CDLL:
         for tier in ("", "_unified", "_stream", "_unified_stream", "_persistent",
                      "_unified_persistent", "_packet"):
             getattr(lib, f"crt_traverse_{kind}{tier}").restype = i
+    # Scene*, Lanes* (ops/shade_cuda.py), R, the bounce, the stream
+    lib.crt_shade_bounce.argtypes = [p, p, i, i, p]
+    lib.crt_shade_bounce.restype = i
     lib.crt_persistent_blocks.argtypes = [i, i, i]
     lib.crt_persistent_blocks.restype = i
     lib.crt_error_string.argtypes = [i]
@@ -189,7 +192,7 @@ def load_library(path: str) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
-    """The traversal kernels' library, compiled and loaded on first call
-    (load_library)."""
+    """The kernels' library (B1-B7b and S1), compiled and loaded on first
+    call (load_library)."""
     with tracing.span("kernels.load"):
         return load_library(kernel_library_path())

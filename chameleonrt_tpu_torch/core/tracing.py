@@ -40,7 +40,8 @@ Spans (each nested under the one that caused it):
     native.load           the native builder's library built or found, and loaded
 
 Counters: host_syncs (one a sync span), rays.closest and rays.any (their
-sum is RenderStats.rays_traced), lanes.shaded (lanes shaded), and
+sum is RenderStats.rays_traced), lanes.shaded (lanes shaded),
+lanes.shaded_kernel (of them, the lanes the shading kernel S1 shaded), and
 kernel_builds and native_builds (1 where this process ran nvcc or the
 C++ compiler).
 """

@@ -15,7 +15,9 @@ y; then per bounce light pick, light u, v, the bsdf-branch sample
 roulette draw after bounce 3.
 
 Shading runs only on live lanes (index compaction); a dead lane never
-revives, so skipping its draws cannot change the image.
+revives, so skipping its draws cannot change the image. On the card the
+live lanes' shading is one launch of S1 (ops/shade_cuda.py); on the CPU it
+is _shade_bounce, S1's plain version.
 
 A frame may be split into shards (render_shards; parallel/sharded.py), each
 traced on its own device with that device's tables, bounce by bounce
@@ -42,6 +44,7 @@ from chameleonrt_tpu_torch.ops import bsdf as bsdf_ops
 from chameleonrt_tpu_torch.ops import camera as camera_ops
 from chameleonrt_tpu_torch.ops import lights as light_ops
 from chameleonrt_tpu_torch.ops import rng as rng_ops
+from chameleonrt_tpu_torch.ops import shade_cuda
 from chameleonrt_tpu_torch.ops.intersect import Hit
 from chameleonrt_tpu_torch.ops.math import (
     EPSILON,
@@ -85,7 +88,9 @@ def _shade_bounce(
 ) -> ShadeOut:
     """The shading stage of one bounce for a set of lanes
     (render_embree.ispc:105-181 without the occlusion calls, then the
-    continuation sample and Russian roulette). Pure per-lane math."""
+    continuation sample and Russian roulette). Pure per-lane math: the
+    plain version of S1 (ops/shade_cuda.py, csrc/shade.cu), which runs it
+    on CUDA lanes; this runs on CPU lanes."""
     w_o = -dir
 
     tri = torch.clamp(hit_tri, 0, max(meta.num_tris - 1, 0)).long()
@@ -191,9 +196,10 @@ def _shade_bounce(
 
 
 def _shade_live(flat, meta, bounce, state, orig, dir, throughput, active, hit_p, hit: Hit) -> ShadeOut:
-    """_shade_bounce over the live lanes only, scattered back into
-    full-width results. A dead lane keeps its state, throughput and
-    direction and shoots no shadow ray."""
+    """_shade_bounce over the live lanes only (S1 on CUDA lanes,
+    ops/shade_cuda.py), scattered back into full-width results. A dead
+    lane keeps its state, throughput and direction and shoots no shadow
+    ray."""
     R = orig.shape[0]
     with tracing.sync("compact.nonzero"):
         live = torch.nonzero(active).flatten()
@@ -201,7 +207,7 @@ def _shade_live(flat, meta, bounce, state, orig, dir, throughput, active, hit_p,
     lanes = (state[live], orig[live], dir[live], throughput[live], active[live], hit_p[live],
              hit.tri[live], hit.inst[live], hit.u[live], hit.v[live])
     with tracing.span("bounce.shade"):
-        sub = _shade_bounce(flat, meta, bounce, *lanes)
+        sub = shade_cuda.shade_bounce(flat, meta, bounce, *lanes)
     z3 = torch.zeros((R, 3), dtype=torch.float32, device=orig.device)
     z3[:, 2] = 1.0
     z1 = torch.zeros((R,), dtype=torch.float32, device=orig.device)

@@ -7,9 +7,13 @@ nor the JAX package (it asserts so at its end). Phases:
 
 1. device and toolchain: the card's name and power limit (nvidia-smi),
    torch, CUDA and nvcc versions;
-2. build: the traversal kernels (csrc/*.cu, one nvcc each, in parallel),
-   with ptxas's registers and spills for each kernel, arity and stack
-   capacity (every kernel at 64 and 128 entries);
+2. build: the kernels (csrc/*.cu, one nvcc each, in parallel), with
+   ptxas's registers and spills for each traversal kernel, arity and stack
+   capacity (every kernel at 64 and 128 entries); then S1, the shading
+   kernel (csrc/shade.cu), against the plain shading on the live lanes of
+   a 2880x2880 Cornell frame at bounces 0 and 3, bit for bit, timed beside
+   the plain version and its bytes bound (phase_shade), and on every main
+   path launched 5 times a frame a sample;
 3. kernels against their plain torch versions on the card, each with
    kernel and plain times on a sorted primary wavefront and a
    diffuse-bounce wavefront from its hit points:
@@ -297,18 +301,20 @@ def phase_toolchain(torch):
 
 # a kernel instantiation in ptxas's log: its launch-count key and its
 # template arguments, the node rows' arity and the stack capacity, or the
-# capacity alone (B7a, B7b: binary rows only)
+# capacity alone (B7a, B7b: binary rows only), or neither (S1)
 # (_ZN12_GLOBAL__N_114closest_kernelILi8ELi64EEEv...,
-# ..._packet_kernelILi64EEvPKf..., ..._packet_kernelEPKf...)
+# ..._packet_kernelILi64EEvPKf..., ..._packet_kernelEPKf...,
+# ..._shade_cu_77d03ee319shade_bounce_kernelEN3crt5shade5SceneE...)
 _PTXAS_KERNEL = re.compile(
-    r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent|_packet)?)_kernel"
+    r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent|_packet)?|shade_bounce)_kernel"
     r"(?:ILi(\d+)E(?:Li(\d+)E)?)?")
 
 
 def _ptxas_table(log_text):
     """{(launch-count key, arity or None, stack capacity or None):
     {"registers", "spill_stores", "spill_loads", "stack_frame"}} from
-    nvcc's ptxas -v output; B7a's instantiations are at arity 2."""
+    nvcc's ptxas -v output; B7a's instantiations are at arity 2, S1's
+    one kernel is ("shade_bounce", None, None)."""
     out, key = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -340,7 +346,7 @@ def phase_build():
     t0 = time.perf_counter()
     _build.kernels()
     secs = time.perf_counter() - t0
-    log(f"[build] traversal kernels built and loaded in {secs:.2f} s")
+    log(f"[build] kernels built and loaded in {secs:.2f} s")
     with open(_build.kernel_library_path()[: -len(".so")] + ".log") as f:
         text = f.read()
     for line in text.splitlines():
@@ -350,6 +356,81 @@ def phase_build():
     log(f"[build] per kernel, arity and stack capacity: "
         f"{json.dumps({'@'.join(map(str, k)): v for k, v in sorted(ptxas.items(), key=str)})}")
     return secs, ptxas
+
+
+# S1 (csrc/shade.cu) on the live lanes of one 1-spp Cornell Box frame at
+# these bounces and this size
+SHADE_SCENE = "proc://cornell"
+SHADE_SIZE = 2880
+SHADE_BOUNCES = (0, 3)
+SHADE_REPS = 9
+SHADE_PLAIN_REPS = 3
+# the bytes S1 reads a lane (state, dir, throughput, active, hit_p, hit_tri,
+# hit_u, hit_v; hit_inst too where the scene has instances) and writes
+# (ShadeOut's 12 fields)
+SHADE_IN_BYTES = 8 + 12 + 12 + 1 + 12 + 4 + 4 + 4
+SHADE_INST_BYTES = 4
+SHADE_OUT_BYTES = 8 + 12 + 12 + 1 + 12 + 4 + 1 + 12 + 4 + 12 + 12 + 1
+
+
+def phase_shade(torch):
+    """S1 (csrc/shade.cu) against the plain shading, _shade_bounce, on the
+    live lanes of one SHADE_SIZE x SHADE_SIZE 1-spp frame of the Cornell Box
+    at each of SHADE_BOUNCES (captured at ops/shade_cuda.shade_bounce):
+    every field bit-equal on every lane (NaN where both are NaN), since
+    both sides round alike; S1's time (median of SHADE_REPS CUDA-event
+    timings) beside the plain version's and beside its bound, the bytes it
+    moves (SHADE_IN_BYTES, SHADE_INST_BYTES where the scene has instances,
+    and SHADE_OUT_BYTES a lane) at HBM_BYTES_PER_S. Returns the record."""
+    from chameleonrt_tpu_torch.core.registry import get_backend
+    from chameleonrt_tpu_torch.engine import path_tracer
+    from chameleonrt_tpu_torch.ops import shade_cuda
+
+    scene = _load(SHADE_SCENE)
+    backend = get_backend("cuda")
+    backend.initialize(SHADE_SIZE, SHADE_SIZE)
+    backend.set_scene(scene)
+    shade = shade_cuda.shade_bounce
+    calls = {}
+
+    def capture(flat, meta, bounce, *lanes):
+        if bounce in SHADE_BOUNCES:
+            calls[bounce] = (flat, meta, tuple(x.clone() for x in lanes))
+        return shade(flat, meta, bounce, *lanes)
+
+    shade_cuda.shade_bounce = capture
+    try:
+        backend.render(*_view(scene), True, readback_framebuffer=False)
+    finally:
+        shade_cuda.shade_bounce = shade
+    res = {"scene": SHADE_SCENE, "width": SHADE_SIZE, "height": SHADE_SIZE}
+    for bounce, (flat, meta, lanes) in sorted(calls.items()):
+        R = lanes[0].shape[0]
+        got = shade(flat, meta, bounce, *lanes)
+        want = path_tracer._shade_bounce(flat, meta, bounce, *lanes)
+        torch.cuda.synchronize()
+        differ = {}
+        for field in want._fields:
+            a, w = getattr(got, field).reshape(R, -1), getattr(want, field).reshape(R, -1)
+            bad = (a != w) & ~(a.isnan() & w.isnan()) if a.is_floating_point() else a != w
+            differ[field] = int(bad.any(1).sum())
+        if any(differ.values()):
+            raise AssertionError(f"S1 at bounce {bounce}: lanes that differ from the plain "
+                                 f"shading {differ}")
+        ms = _median_ms(torch, lambda: shade(flat, meta, bounce, *lanes), SHADE_REPS)
+        plain_ms = _median_ms(torch, lambda: path_tracer._shade_bounce(flat, meta, bounce, *lanes),
+                              SHADE_PLAIN_REPS)
+        lane_bytes = (SHADE_IN_BYTES + SHADE_OUT_BYTES
+                      + (SHADE_INST_BYTES if meta.num_instances > 1 else 0))
+        n_bytes = R * lane_bytes
+        res[f"bounce{bounce}"] = {"lanes": R, "ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": n_bytes,
+                                  "lane_bytes": lane_bytes}
+    del backend, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[shade] {json.dumps(res)}")
+    return res
 
 
 _SCENES = {}
@@ -1813,10 +1894,11 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     (_profile_frames), with every launch count set to 0 just before and
     read just after. expect maps each count to its launches per frame.
     Returns {count: (launches in the run, launches per frame, {stack
-    capacity: launches})} of the kernels that ran."""
+    capacity: launches})} of the traversal kernels that ran, and S1's under
+    "shade_bounce" (its stack capacities None)."""
     from chameleonrt_tpu_torch.core.registry import get_backend
     from chameleonrt_tpu_torch.engine import trace_bvh
-    from chameleonrt_tpu_torch.ops import traverse_cuda
+    from chameleonrt_tpu_torch.ops import shade_cuda, traverse_cuda
 
     scene = _load(uri)
     pos, d, up, fov = _view(scene)
@@ -1846,6 +1928,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     profiled = _profile_frames(torch, backend, (pos, d, up, fov), statistics.median(ms), expect)
     n_frames += PROFILE_FRAMES
     launches = dict(traverse_cuda.LAUNCHES)
+    shade_launches = shade_cuda.LAUNCHES
     stacks = {k: {cap: n for cap, n in caps.items() if n}
               for k, caps in traverse_cuda.STACK_LAUNCHES.items() if any(caps.values())}
     # the table the path's kernels traced (both hit kinds: the wide one, or
@@ -1866,13 +1949,18 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
         "ms_per_frame": ms, "min_ms": min(ms), "median_ms": statistics.median(ms),
         "rays_per_frame": rays, "mray_s_median": statistics.median(mray_s),
         "peak_mem_bytes": peak, "allocated_before_bytes": allocated_before,
-        "launches": launches, "stack_launches": stacks, "frames": n_frames, "table": table_res,
+        "launches": launches, "shade_launches": shade_launches, "stack_launches": stacks,
+        "frames": n_frames, "table": table_res,
     }
     log(f"[main] {json.dumps(res)}")
     log(f"[profile] {uri}: {json.dumps(profiled)}")
     want = {k: expect.get(k, 0) * n_frames for k in launches}
     if launches != want:
         raise AssertionError(f"expected {want} launches over {n_frames} frames, got {launches}")
+    # S1 shades every bounce's live lanes, once a sample
+    if shade_launches != 5 * spp * n_frames:
+        raise AssertionError(f"expected {5 * spp * n_frames} S1 launches over {n_frames} frames, "
+                             f"got {shade_launches}")
     # the BVH4 tables and the hall's binary one keep the 64-entry stacks
     want_cap = {k: {64: n} for k, n in launches.items() if n}
     if stacks != want_cap:
@@ -1884,7 +1972,8 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
         raise AssertionError("accumulated image is all black")
     log(f"[main] {uri}: image mean {float(accum.mean()):.5f}, max {float(accum.max()):.5f}; "
         f"8-bit image mean {float(backend.img[..., :3].mean()):.3f}")
-    return {k: (n, n // n_frames, stacks[k]) for k, n in launches.items() if n}
+    return {**{k: (n, n // n_frames, stacks[k]) for k, n in launches.items() if n},
+            "shade_bounce": (shade_launches, shade_launches // n_frames, None)}
 
 
 def _main_paths():
@@ -1928,8 +2017,9 @@ def _bench_paths():
 
 def _zero_launches():
     """Every kernel's launch counts, in all and by stack capacity, set to 0."""
-    from chameleonrt_tpu_torch.ops import traverse_cuda
+    from chameleonrt_tpu_torch.ops import shade_cuda, traverse_cuda
 
+    shade_cuda.LAUNCHES = 0
     for k in traverse_cuda.LAUNCHES:
         traverse_cuda.LAUNCHES[k] = 0
         for cap in traverse_cuda.STACK_LAUNCHES[k]:
@@ -2061,6 +2151,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_toolchain(torch)
     build_s, ptxas = phase_build()
+    sres = phase_shade(torch)
     kres = {path: phase_kernels(torch, path) for path in TIERS}
     pres = phase_packet(torch)
     ares = phase_arities(torch)
@@ -2286,6 +2377,16 @@ def main() -> int:
         else:
             entry["shadow"] = shadow(pres["shadow"])
         kernels.append(entry)
+    kernels.append({
+        "name": "S1 shading of a bounce's live lanes", "route": "cuda",
+        "source": "chameleonrt_tpu_torch/csrc/shade.cu",
+        "replaces": "none (the JAX package leaves _shade_bounce to XLA's fusion)",
+        "launches": {path: counts["shade_bounce"][0] for path, counts in launches.items()},
+        "launches_per_frame": {path: counts["shade_bounce"][1]
+                               for path, counts in launches.items()},
+        **{k: v for k, v in sres.items() if k.startswith("bounce")},
+        "ptxas": ptxas["shade_bounce", None, None], "library_ms": None,
+    })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(build {build_s:.1f} s)")
     print(f"nvidia-smi: {smi}")
