@@ -21,12 +21,15 @@ in PROFILE.
 
 Spans (each nested under the one that caused it):
     frame                 TorchRenderBackend.render, launch to the end of device work
+    frame.sample          one sample's wavefront: its camera and bounce loop
     frame.camera          seeding and primary rays
     bounce.sort           the wavefront's re-sort
     bounce.exchange       the rebalance exchange between shards
     bounce.closest        the closest-hit traversal
     bounce.compact        the live lanes' nonzero, gathers and scatter-back
     bounce.shade          the shading of the live lanes (inside bounce.compact)
+    bounce.lobes          the lobe counters' own ops (inside bounce.compact; only
+                          with tracing on)
     bounce.any            both occlusion traversals
     bounce.combine        the rest of a bounce
     frame.accumulate      the scatter to input order and the progressive average
@@ -41,9 +44,15 @@ Spans (each nested under the one that caused it):
 
 Counters: host_syncs (one a sync span), rays.closest and rays.any (their
 sum is RenderStats.rays_traced), lanes.shaded (lanes shaded),
-lanes.shaded_kernel (of them, the lanes the shading kernel S1 shaded), and
+lanes.shaded_kernel (of them, the lanes the shading kernel S1 shaded),
+lanes.metallic and lanes.transmissive (of them, the lanes whose hit
+material has metallic > 0, or specular transmission > 0), and
 kernel_builds and native_builds (1 where this process ran nvcc or the
-C++ compiler).
+C++ compiler). Set-up counters of set_scene: tables.instances,
+tables.triangles (unique, before instancing), tables.bytes (the BVH
+tables' node and leaf rows) and tables.streamed (1 where the trace
+functions took the streamed tier, B5a-B5d; counted once a set of trace
+functions).
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ from chameleonrt_tpu_torch.core import tracing
 from chameleonrt_tpu_torch.core.backend import RenderBackend, RenderStats
 from chameleonrt_tpu_torch.engine import path_tracer
 from chameleonrt_tpu_torch.engine.device_scene import FlatScene, SceneMeta, check_scene
+from chameleonrt_tpu_torch.engine.trace_bvh import blas_bytes
 from chameleonrt_tpu_torch.ops import camera as camera_ops
 from chameleonrt_tpu_torch.ops.tonemap import linear_to_srgb_u8
 from chameleonrt_tpu_torch.parallel import sharded
@@ -111,6 +112,9 @@ class TorchRenderBackend(RenderBackend):
             self.samples_per_pixel = int(scene.samples_per_pixel)
             with tracing.span("scene.set.tables"):
                 self.flat, self.meta = self.prepare_scene(scene)
+                tracing.count("tables.instances", self.meta.num_instances)
+                tracing.count("tables.triangles", self.meta.num_tris)
+                tracing.count("tables.bytes", blas_bytes(self.flat.blas))
             with tracing.span("scene.set.trace_fns"):
                 self._trace = self.make_trace_fns(self.meta)
             self._step = None

@@ -195,6 +195,24 @@ def _shade_bounce(
     )
 
 
+def _count_lobes(flat: FlatScene, meta: SceneMeta, tri, inst) -> None:
+    """Count, on the device, the live lanes (hits: tri and inst valid) whose
+    hit material has metallic > 0 (lanes.metallic) and specular
+    transmission > 0 (lanes.transmissive); a textured field (a handle,
+    negative as a float) counts as 0. Only with tracing on: the counts come
+    back with the frame's ray count."""
+    tri = tri.long()
+    if meta.num_instances == 1:
+        # the packed material rides in the shade row, from column 16
+        metallic, transmission = flat.shade_rows[tri, 19], flat.shade_rows[tri, 29]
+    else:
+        slot = flat.shade_rows[:, 12].view(torch.int32)[tri]
+        mat = flat.inst_mat_table[inst.long(), slot.long()].long()
+        metallic, transmission = flat.mat_rows[mat, 3], flat.mat_rows[mat, 13]
+    tracing.count_on_device("lanes.metallic", (metallic > 0.0).sum())
+    tracing.count_on_device("lanes.transmissive", (transmission > 0.0).sum())
+
+
 def _shade_live(flat, meta, bounce, state, orig, dir, throughput, active, hit_p, hit: Hit) -> ShadeOut:
     """_shade_bounce over the live lanes only (S1 on CUDA lanes,
     ops/shade_cuda.py), scattered back into full-width results. A dead
@@ -204,6 +222,9 @@ def _shade_live(flat, meta, bounce, state, orig, dir, throughput, active, hit_p,
     with tracing.sync("compact.nonzero"):
         live = torch.nonzero(active).flatten()
     tracing.count("lanes.shaded", live.shape[0])
+    if tracing.enabled():
+        with tracing.span("bounce.lobes"):
+            _count_lobes(flat, meta, hit.tri[live], hit.inst[live])
     lanes = (state[live], orig[live], dir[live], throughput[live], active[live], hit_p[live],
              hit.tri[live], hit.inst[live], hit.u[live], hit.v[live])
     with tracing.span("bounce.shade"):
@@ -399,20 +420,25 @@ def render_shards(meta: SceneMeta, shards, view: camera_ops.ViewParams, frame_id
         rays = [torch.zeros((), dtype=torch.int64, device=p.device) for p in pixel_ids]
     moved = 0
     for s in range(spp):
-        waves = []
-        with tracing.span("frame.camera"):
-            for sh, pixel_id in zip(shards, pixel_ids):
-                # embree-variant seeding (ispc:213-214)
-                state = rng_ops.get_rng(pixel_id, (frame_id * spp + 1 + s) & rng_ops.MASK32)
-                state, orig, dir = camera_ops.generate_primary_rays(
-                    view, sh.pixel_x, sh.pixel_y, float(fb_width), float(fb_height), state
-                )
-                waves.append(_start_wavefront(orig, dir, state, sh.scatter_ids, sh.active0))
-        waves, rays_s, moved_s = _trace_waves(meta, shards, waves, rebalance)
+        with tracing.span("frame.sample"):
+            waves = []
+            with tracing.span("frame.camera"):
+                for sh, pixel_id in zip(shards, pixel_ids):
+                    # embree-variant seeding (ispc:213-214)
+                    state = rng_ops.get_rng(pixel_id, (frame_id * spp + 1 + s) & rng_ops.MASK32)
+                    state, orig, dir = camera_ops.generate_primary_rays(
+                        view, sh.pixel_x, sh.pixel_y, float(fb_width), float(fb_height), state
+                    )
+                    waves.append(_start_wavefront(orig, dir, state, sh.scatter_ids, sh.active0))
+            waves, rays_s, moved_s = _trace_waves(meta, shards, waves, rebalance)
         moved += moved_s
         with tracing.span("frame.accumulate"):
             for i, wave in enumerate(waves):
                 _, _, _, _, illum, _, lane_pixel = wave
+                # a sample whose radiance left float32 (a throughput grown past its range at
+                # grazing angles on near-specular glass, then inf, or inf * 0) is dropped, so
+                # that it cannot poison its pixel's progressive average for good
+                illum = torch.where(torch.isfinite(illum).all(-1, keepdim=True), illum, 0.0)
                 # one scatter restores input order (or places the lanes in the frame)
                 sums[i] = sums[i] + torch.zeros_like(sums[i]).index_put((lane_pixel,), illum)
                 rays[i] = rays[i] + rays_s[i]

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from chameleonrt_tpu_torch import native
+from chameleonrt_tpu_torch.core import tracing
 from chameleonrt_tpu_torch.engine.device_scene import (
     BlasPair,
     FlatScene,
@@ -417,6 +418,18 @@ def table_bytes(pbvh) -> int:
         pbvh.leaf_rows.numel() * pbvh.leaf_rows.element_size()
 
 
+def blas_bytes(blas) -> int:
+    """Bytes of a FlatScene's tables (its blas): the node and leaf rows of
+    every BlasPair or UnifiedPair, a table the pair's two share (a
+    BlasPair's leaf rows) counted once."""
+    sizes = {}
+    for pair in blas:
+        for table in (pair.closest, pair.any):
+            for rows in (table.nodes, table.leaf_rows):
+                sizes[rows.data_ptr()] = rows.numel() * rows.element_size()
+    return sum(sizes.values())
+
+
 def streamed_tier(pbvh, l2_bytes: Optional[int] = None) -> bool:
     """The streamed tier's gate, the counterpart of the JAX package's
     slotlane_eligible / slotlane_stream_eligible (ops/traverse_slotlane.py):
@@ -486,11 +499,14 @@ def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[b
         return bool(stream)
 
     if multi and blas is not None and not isinstance(blas[0], UnifiedPair):
-        routes = {m: _route(False, use_kernels, tier(m), persistent, False)
-                  for m in set(meta.inst_mesh)}
+        tiers = {m: tier(m) for m in set(meta.inst_mesh)}
+        tracing.count("tables.streamed", int(use_kernels and not persistent and any(tiers.values())))
+        routes = {m: _route(False, use_kernels, t, persistent, False) for m, t in tiers.items()}
         return _instance_trace_fns(meta, routes, closest_table)
     mesh_id = 0 if multi else meta.inst_mesh[0]
-    closest_fn, any_fn = _route(multi, use_kernels, tier(mesh_id), persistent, grid_packet)
+    streamed = tier(mesh_id)
+    tracing.count("tables.streamed", int(use_kernels and not (persistent or grid_packet) and streamed))
+    closest_fn, any_fn = _route(multi, use_kernels, streamed, persistent, grid_packet)
     if multi:
         return _unified_trace_fns(closest_fn, any_fn, closest_table)
     any_table = "closest" if grid_packet else "any"
