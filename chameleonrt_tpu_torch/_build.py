@@ -109,7 +109,7 @@ def _compile_all(nvcc: str, cus, obj_dir: str, timeout: int) -> str:
 
 
 def kernel_library_path() -> str:
-    """Path of the kernels' library (B1-B7b and S1), compiled if missing. nvcc's
+    """Path of the kernels' library (B1-B7b, S1 and R1-R3), compiled if missing. nvcc's
     output (ptxas register and spill counts) is kept beside it, with the
     extension .log."""
     sources = sorted(
@@ -138,7 +138,7 @@ def kernel_library_path() -> str:
 
 
 def load_library(path: str) -> ctypes.CDLL:
-    """The kernels' library at path (B1-B7b and S1), loaded and bound. Every
+    """The kernels' library at path (B1-B7b, S1 and R1-R3), loaded and bound. Every
     entry of B1-B6d takes the node rows' arity (2, 4 or 8) before the leaf
     size, and every entry the stack capacity after the depth; B7a/B7b take
     binary rows only."""
@@ -174,6 +174,15 @@ def load_library(path: str) -> ctypes.CDLL:
     # Scene*, Lanes* (ops/shade_cuda.py), R, the bounce, the stream
     lib.crt_shade_bounce.argtypes = [p, p, i, i, p]
     lib.crt_shade_bounce.restype = i
+    # R1-R3 (ops/sort_cuda.py): R1's grid for R lanes; R1: orig, R, partials, counter, bounds,
+    # the stream; R2: orig, dir, active, bounds, key, R, the stream; R3: perm, Wave* in,
+    # Wave* out, R, the stream
+    lib.crt_sort_bounds_blocks.argtypes = [i]
+    lib.crt_sort_bounds.argtypes = [p, i, p, p, p, p]
+    lib.crt_sort_key.argtypes = [p, p, p, p, p, i, p]
+    lib.crt_sort_gather.argtypes = [p, p, p, i, p]
+    for name in ("bounds_blocks", "bounds", "key", "gather"):
+        getattr(lib, f"crt_sort_{name}").restype = i
     lib.crt_persistent_blocks.argtypes = [i, i, i]
     lib.crt_persistent_blocks.restype = i
     lib.crt_error_string.argtypes = [i]
@@ -192,7 +201,7 @@ def load_library(path: str) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
-    """The kernels' library (B1-B7b and S1), compiled and loaded on first
+    """The kernels' library (B1-B7b, S1 and R1-R3), compiled and loaded on first
     call (load_library)."""
     with tracing.span("kernels.load"):
         return load_library(kernel_library_path())

@@ -39,12 +39,14 @@ Spans (each nested under the one that caused it):
     scene.load            load_scene
     scene.set             set_scene, with scene.set.tables and scene.set.trace_fns
     kernels.load          the CUDA kernels' library built or found, and loaded
-                          (at the first traversal launch, so in the first frame)
+                          (at the first kernel launch, so in the first frame)
     native.load           the native builder's library built or found, and loaded
 
 Counters: host_syncs (one a sync span), rays.closest and rays.any (their
 sum is RenderStats.rays_traced), lanes.shaded (lanes shaded),
 lanes.shaded_kernel (of them, the lanes the shading kernel S1 shaded),
+lanes.sorted_kernel (the lanes the re-sort's kernels R1-R3 sorted, every
+lane of every bounce on the card),
 lanes.metallic and lanes.transmissive (of them, the lanes whose hit
 material has metallic > 0, or specular transmission > 0), and
 kernel_builds and native_builds (1 where this process ran nvcc or the

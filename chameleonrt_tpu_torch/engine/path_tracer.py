@@ -2,7 +2,8 @@
 chameleonrt_tpu/engine/path_tracer.py.
 
 Jittered camera rays, then MAX_PATH_DEPTH bounces of: a stable re-sort of
-the whole wavefront by ray coherence, one closest-hit traversal, shading of
+the whole wavefront by ray coherence (R1-R3 and an int32 sort on the card,
+ops/sort_cuda.py), one closest-hit traversal, shading of
 the live lanes (Disney BSDF, next-event estimation with MIS on quad lights,
 continuation sample, Russian roulette after bounce 3), and two occlusion
 traversals, one per MIS branch; then the progressive average.
@@ -44,7 +45,7 @@ from chameleonrt_tpu_torch.ops import bsdf as bsdf_ops
 from chameleonrt_tpu_torch.ops import camera as camera_ops
 from chameleonrt_tpu_torch.ops import lights as light_ops
 from chameleonrt_tpu_torch.ops import rng as rng_ops
-from chameleonrt_tpu_torch.ops import shade_cuda
+from chameleonrt_tpu_torch.ops import shade_cuda, sort_cuda
 from chameleonrt_tpu_torch.ops.intersect import Hit
 from chameleonrt_tpu_torch.ops.math import (
     EPSILON,
@@ -56,7 +57,6 @@ from chameleonrt_tpu_torch.ops.math import (
     ortho_basis,
     power_heuristic,
 )
-from chameleonrt_tpu_torch.ops.traverse import ray_sort_perm_only
 
 # trace_closest(flat, orig, dir, t_min, active) -> Hit
 TraceClosestFn = Callable[..., Hit]
@@ -244,9 +244,10 @@ def _shade_live(flat, meta, bounce, state, orig, dir, throughput, active, hit_p,
 def _sort_wavefront(state, orig, dir, throughput, illum, active, lane_pixel):
     """Re-sort the whole path state by (active, coarse origin Morton,
     direction octant, fine origin Morton): one stable permutation applied
-    to every field."""
-    perm = ray_sort_perm_only(orig, dir, active)
-    return tuple(x[perm] for x in (state, orig, dir, throughput, illum, active, lane_pixel))
+    to every field. On CUDA fields R1-R3 around an int32 sort
+    (ops/sort_cuda.py), on the fields' own device; on CPU fields the plain
+    argsort and gathers."""
+    return sort_cuda.sort_wavefront(state, orig, dir, throughput, illum, active, lane_pixel)
 
 
 def _on(device: torch.device):

@@ -507,10 +507,13 @@ def _expand_bits_10(v):
     return v
 
 
-def ray_sort_perm_only(orig, dir, active):
-    """Stable sort permutation of the wavefront. Key, most significant
-    first: inactive bit, coarse origin Morton (top 18 of 27 bits), direction
-    octant (3 bits), fine origin Morton (low 9 bits)."""
+def ray_sort_key(orig, dir, active):
+    """The wavefront's int64 sort key. Most significant first: inactive bit
+    (bit 30), coarse origin Morton (top 18 of 27 bits, bits 12-29),
+    direction octant (bits 9-11), fine origin Morton (low 9 bits). The
+    origins are quantised to 9 bits an axis between the min and max of all
+    lanes, dead ones included. The key never reaches bit 31, so it fits an
+    int32 (R2, csrc/sort.cu)."""
     octant = (
         (dir[:, 0] < 0).to(torch.int64) * 4
         + (dir[:, 1] < 0).to(torch.int64) * 2
@@ -525,10 +528,14 @@ def ray_sort_perm_only(orig, dir, active):
         | (_expand_bits_10(q[:, 1]) << 1)
         | _expand_bits_10(q[:, 2])
     )
-    key = (
+    return (
         ((~active).to(torch.int64) << 30)
         | ((morton >> 9) << 12)
         | (octant << 9)
         | (morton & 0x1FF)
     )
-    return torch.argsort(key, stable=True)
+
+
+def ray_sort_perm_only(orig, dir, active):
+    """Stable sort permutation of the wavefront by ray_sort_key."""
+    return torch.argsort(ray_sort_key(orig, dir, active), stable=True)

@@ -13,7 +13,13 @@ nor the JAX package (it asserts so at its end). Phases:
    kernel (csrc/shade.cu), against the plain shading on the live lanes of
    a 2880x2880 Cornell frame at bounces 0 and 3, bit for bit, timed beside
    the plain version and its bytes bound (phase_shade), and on every main
-   path launched 5 times a frame a sample;
+   path launched 5 times a frame a sample; then R1-R3, the re-sort's
+   kernels (csrc/sort.cu), with the int32 stable sort against the plain
+   re-sort on the wavefronts of a 2880x2880 Cornell frame before bounces 0
+   and 2: bounds, keys, permutation and the seven fields equal on every
+   lane, each kernel and the sort timed beside its bytes bound, the plain
+   re-sort and torch.argsort of the int64 key beside them (phase_sort);
+   on every main path launched 3 times a bounce;
 3. kernels against their plain torch versions on the card, each with
    kernel and plain times on a sorted primary wavefront and a
    diffuse-bounce wavefront from its hit points:
@@ -301,12 +307,13 @@ def phase_toolchain(torch):
 
 # a kernel instantiation in ptxas's log: its launch-count key and its
 # template arguments, the node rows' arity and the stack capacity, or the
-# capacity alone (B7a, B7b: binary rows only), or neither (S1)
+# capacity alone (B7a, B7b: binary rows only), or neither (S1, R1-R3)
 # (_ZN12_GLOBAL__N_114closest_kernelILi8ELi64EEEv...,
 # ..._packet_kernelILi64EEvPKf..., ..._packet_kernelEPKf...,
 # ..._shade_cu_77d03ee319shade_bounce_kernelEN3crt5shade5SceneE...)
 _PTXAS_KERNEL = re.compile(
-    r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent|_packet)?|shade_bounce)_kernel"
+    r"(?<![a-z_])((?:closest|any)(?:_unified)?(?:_stream|_persistent|_packet)?|shade_bounce"
+    r"|sort_(?:bounds|key|gather))_kernel"
     r"(?:ILi(\d+)E(?:Li(\d+)E)?)?")
 
 
@@ -430,6 +437,119 @@ def phase_shade(torch):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[shade] {json.dumps(res)}")
+    return res
+
+
+# R1-R3 (csrc/sort.cu) around the int32 stable sort, on the re-sorts of one
+# 1-spp Cornell Box frame at this size, before these bounces
+SORT_SCENE = "proc://cornell"
+SORT_SIZE = 2880
+SORT_BOUNCES = (0, 2)
+SORT_REPS = 9
+SORT_PLAIN_REPS = 5
+# the bytes a lane each step moves at least: R1 reads orig; R2 reads orig,
+# dir and active and writes the int32 key; the radix sort reads and writes
+# the key and an int64 index in each of its 4 passes; R3 reads the
+# permutation and the seven fields (state 8, orig, dir, throughput and
+# illum 12 each, active 1, lane_pixel 8) and writes the fields
+SORT_FIELD_BYTES = 8 + 4 * 12 + 1 + 8
+SORT_LANE_BYTES = {"R1": 12, "R2": 12 + 12 + 1 + 4, "sort": 4 * 2 * (4 + 8),
+                   "R3": 8 + 2 * SORT_FIELD_BYTES}
+
+
+def _sort_differ(torch, wave):
+    """Lanes where the kernel path differs from the plain path on one CUDA
+    wavefront: R1's bounds against torch's min and max (NaN where it is),
+    R2's key against ray_sort_key, the stable sort's permutation against
+    ray_sort_perm_only, and each of the seven sorted fields bit for bit.
+    Returns {what: lanes (or bounds) that differ}."""
+    from chameleonrt_tpu_torch.ops import sort_cuda
+    from chameleonrt_tpu_torch.ops.traverse import ray_sort_key, ray_sort_perm_only
+
+    orig, dir, active = wave[1], wave[2], wave[5]
+    R = orig.shape[0]
+    lohi = sort_cuda.bounds(orig)
+    want = torch.cat([orig.min(0).values, orig.max(0).values])
+    key = sort_cuda.keys(orig, dir, active, lohi)
+    perm = torch.sort(key, stable=True).indices
+    got = sort_cuda.sort_wavefront(*wave)
+    plain = sort_cuda.sort_wavefront_plain(*wave)
+    torch.cuda.synchronize()
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    differ = {"bounds": int((~((lohi == want) | (lohi.isnan() & want.isnan()))).sum()),
+              "key": int((key.long() != ray_sort_key(orig, dir, active)).sum()),
+              "perm": int((perm != ray_sort_perm_only(orig, dir, active)).sum())}
+    for (name, _, _), g, w in zip(sort_cuda.FIELDS, got, plain):
+        differ[name] = int((bits(g) != bits(w)).reshape(R, -1).any(1).sum())
+    return differ
+
+
+def phase_sort(torch):
+    """R1-R3 (csrc/sort.cu) and the int32 stable sort against the plain
+    re-sort (sort_wavefront_plain: ray_sort_perm_only's int64 key, its
+    argsort and seven gathers) on the wavefronts of one SORT_SIZE x
+    SORT_SIZE 1-spp frame of the Cornell Box before each of SORT_BOUNCES
+    (captured at ops/sort_cuda.sort_wavefront): bounds, keys, permutation
+    and every field equal on every lane (_sort_differ). Times (median of
+    SORT_REPS CUDA-event timings): each kernel and the sort beside its
+    bytes bound (SORT_LANE_BYTES at HBM_BYTES_PER_S), the whole kernel
+    path, the plain re-sort, and torch.argsort of the int64 key, the
+    yardstick the kernel path's sort replaces. Returns the record."""
+    from chameleonrt_tpu_torch.core.registry import get_backend
+    from chameleonrt_tpu_torch.ops import sort_cuda
+    from chameleonrt_tpu_torch.ops.traverse import ray_sort_key
+
+    scene = _load(SORT_SCENE)
+    backend = get_backend("cuda")
+    backend.initialize(SORT_SIZE, SORT_SIZE)
+    backend.set_scene(scene)
+    sort = sort_cuda.sort_wavefront
+    calls, seen = {}, [0]
+
+    def capture(*wave):
+        if seen[0] in SORT_BOUNCES:
+            calls[seen[0]] = tuple(x.clone() for x in wave)
+        seen[0] += 1
+        return sort(*wave)
+
+    sort_cuda.sort_wavefront = capture
+    try:
+        backend.render(*_view(scene), True, readback_framebuffer=False)
+    finally:
+        sort_cuda.sort_wavefront = sort
+    res = {"scene": SORT_SCENE, "width": SORT_SIZE, "height": SORT_SIZE,
+           "lane_bytes": SORT_LANE_BYTES}
+    for bounce, wave in sorted(calls.items()):
+        R = wave[0].shape[0]
+        differ = _sort_differ(torch, wave)
+        if any(differ.values()):
+            raise AssertionError(f"the re-sort before bounce {bounce}: lanes that differ from "
+                                 f"the plain re-sort {differ}")
+        orig, dir, active = wave[1], wave[2], wave[5]
+        lohi = sort_cuda.bounds(orig)
+        key = sort_cuda.keys(orig, dir, active, lohi)
+        perm = torch.sort(key, stable=True).indices
+        key64 = ray_sort_key(orig, dir, active)
+        ms = {"R1": _median_ms(torch, lambda: sort_cuda.bounds(orig), SORT_REPS),
+              "R2": _median_ms(torch, lambda: sort_cuda.keys(orig, dir, active, lohi), SORT_REPS),
+              "sort": _median_ms(torch, lambda: torch.sort(key, stable=True), SORT_REPS),
+              "R3": _median_ms(torch, lambda: sort_cuda.gather(perm, wave), SORT_REPS)}
+        bound = {k: R * b / HBM_BYTES_PER_S * 1e3 for k, b in SORT_LANE_BYTES.items()}
+        res[f"bounce{bounce}"] = {
+            "lanes": R, "live": int(active.sum()), "ms": ms, "bound_ms": bound,
+            "kernel_path_ms": _median_ms(torch, lambda: sort(*wave), SORT_REPS),
+            "kernel_path_bound_ms": sum(bound.values()),
+            "plain_ms": _median_ms(torch, lambda: sort_cuda.sort_wavefront_plain(*wave),
+                                   SORT_PLAIN_REPS),
+            "library_ms": _median_ms(torch, lambda: torch.argsort(key64, stable=True), SORT_REPS),
+        }
+    del backend, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[sort] {json.dumps(res)}")
     return res
 
 
@@ -1894,11 +2014,11 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     (_profile_frames), with every launch count set to 0 just before and
     read just after. expect maps each count to its launches per frame.
     Returns {count: (launches in the run, launches per frame, {stack
-    capacity: launches})} of the traversal kernels that ran, and S1's under
-    "shade_bounce" (its stack capacities None)."""
+    capacity: launches})} of the traversal kernels that ran, S1's under
+    "shade_bounce" and R1-R3's under "sort" (their stack capacities None)."""
     from chameleonrt_tpu_torch.core.registry import get_backend
     from chameleonrt_tpu_torch.engine import trace_bvh
-    from chameleonrt_tpu_torch.ops import shade_cuda, traverse_cuda
+    from chameleonrt_tpu_torch.ops import shade_cuda, sort_cuda, traverse_cuda
 
     scene = _load(uri)
     pos, d, up, fov = _view(scene)
@@ -1929,6 +2049,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     n_frames += PROFILE_FRAMES
     launches = dict(traverse_cuda.LAUNCHES)
     shade_launches = shade_cuda.LAUNCHES
+    sort_launches = sort_cuda.LAUNCHES
     stacks = {k: {cap: n for cap, n in caps.items() if n}
               for k, caps in traverse_cuda.STACK_LAUNCHES.items() if any(caps.values())}
     # the table the path's kernels traced (both hit kinds: the wide one, or
@@ -1949,7 +2070,8 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
         "ms_per_frame": ms, "min_ms": min(ms), "median_ms": statistics.median(ms),
         "rays_per_frame": rays, "mray_s_median": statistics.median(mray_s),
         "peak_mem_bytes": peak, "allocated_before_bytes": allocated_before,
-        "launches": launches, "shade_launches": shade_launches, "stack_launches": stacks,
+        "launches": launches, "shade_launches": shade_launches, "sort_launches": sort_launches,
+        "stack_launches": stacks,
         "frames": n_frames, "table": table_res,
     }
     log(f"[main] {json.dumps(res)}")
@@ -1961,6 +2083,10 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     if shade_launches != 5 * spp * n_frames:
         raise AssertionError(f"expected {5 * spp * n_frames} S1 launches over {n_frames} frames, "
                              f"got {shade_launches}")
+    # R1-R3 re-sort every bounce's wavefront, once a sample
+    if sort_launches != 3 * 5 * spp * n_frames:
+        raise AssertionError(f"expected {3 * 5 * spp * n_frames} R1-R3 launches over {n_frames} "
+                             f"frames, got {sort_launches}")
     # the BVH4 tables and the hall's binary one keep the 64-entry stacks
     want_cap = {k: {64: n} for k, n in launches.items() if n}
     if stacks != want_cap:
@@ -1973,7 +2099,8 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     log(f"[main] {uri}: image mean {float(accum.mean()):.5f}, max {float(accum.max()):.5f}; "
         f"8-bit image mean {float(backend.img[..., :3].mean()):.3f}")
     return {**{k: (n, n // n_frames, stacks[k]) for k, n in launches.items() if n},
-            "shade_bounce": (shade_launches, shade_launches // n_frames, None)}
+            "shade_bounce": (shade_launches, shade_launches // n_frames, None),
+            "sort": (sort_launches, sort_launches // n_frames, None)}
 
 
 def _main_paths():
@@ -2017,9 +2144,10 @@ def _bench_paths():
 
 def _zero_launches():
     """Every kernel's launch counts, in all and by stack capacity, set to 0."""
-    from chameleonrt_tpu_torch.ops import shade_cuda, traverse_cuda
+    from chameleonrt_tpu_torch.ops import shade_cuda, sort_cuda, traverse_cuda
 
     shade_cuda.LAUNCHES = 0
+    sort_cuda.LAUNCHES = 0
     for k in traverse_cuda.LAUNCHES:
         traverse_cuda.LAUNCHES[k] = 0
         for cap in traverse_cuda.STACK_LAUNCHES[k]:
@@ -2152,6 +2280,7 @@ def main() -> int:
     smi = phase_toolchain(torch)
     build_s, ptxas = phase_build()
     sres = phase_shade(torch)
+    rres = phase_sort(torch)
     kres = {path: phase_kernels(torch, path) for path in TIERS}
     pres = phase_packet(torch)
     ares = phase_arities(torch)
@@ -2386,6 +2515,15 @@ def main() -> int:
                                for path, counts in launches.items()},
         **{k: v for k, v in sres.items() if k.startswith("bounce")},
         "ptxas": ptxas["shade_bounce", None, None], "library_ms": None,
+    })
+    kernels.append({
+        "name": "R1-R3 the re-sort's bounds, int32 key and gather around torch.sort",
+        "route": "cuda", "source": "chameleonrt_tpu_torch/csrc/sort.cu",
+        "replaces": "none (the JAX package's re-sort is jnp.argsort and seven gathers)",
+        "launches": {path: counts["sort"][0] for path, counts in launches.items()},
+        "launches_per_frame": {path: counts["sort"][1] for path, counts in launches.items()},
+        **{k: v for k, v in rres.items() if k.startswith("bounce")},
+        "ptxas": {name: ptxas[f"sort_{name}", None, None] for name in ("bounds", "key", "gather")},
     })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(build {build_s:.1f} s)")
