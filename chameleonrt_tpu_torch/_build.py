@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 )
 # what the traversal kernels hold (kSmallStack, kMaxStack, kMaxLeaf in
 # csrc/traverse_common.cuh): every kernel is instantiated at each
-# stack capacity; kernels() checks the library against the largest
+# stack capacity; ops/traverse_cuda.py checks the library against the largest
 STACK_CAPACITIES = (64, 128)
 MAX_STACK = STACK_CAPACITIES[-1]
 MAX_LEAF = 16
@@ -138,64 +138,13 @@ def kernel_library_path() -> str:
 
 
 def load_library(path: str) -> ctypes.CDLL:
-    """The kernels' library at path (B1-B7b, S1 and R1-R3), loaded and bound. Every
-    entry of B1-B6d takes the node rows' arity (2, 4 or 8) before the leaf
-    size, and every entry the stack capacity after the depth; B7a/B7b take
-    binary rows only."""
+    """The kernels' library at path, loaded. Each wrapper module binds its
+    own entries' C signatures at first use (ops/traverse_cuda.py,
+    ops/shade_cuda.py, ops/sort_cuda.py); here only the error string that
+    every launch failure reads."""
     lib = ctypes.CDLL(path)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # B1 / B5a: nodes, leaf rows, leaves, arity, L, depth, capacity, rays..., R, stream
-    flat_closest = [p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_closest.argtypes = flat_closest
-    lib.crt_traverse_closest_stream.argtypes = flat_closest
-    # B2 / B5b: nodes, leaf rows, leaves, arity, L, depth, capacity, rays..., R, stream
-    flat_any = [p, p, i, i, i, i, i, p, p, p, p, p, p, i, p]
-    lib.crt_traverse_any.argtypes = flat_any
-    lib.crt_traverse_any_stream.argtypes = flat_any
-    # B3 / B4, B5c / B5d: nodes, leaf rows, n_tri, tlas_lo, arity, L, depth, capacity, rays...,
-    # R, stream
-    unified_closest = [p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p]
-    unified_any = [p, p, i, i, i, i, i, i, p, p, p, p, p, p, i, p]
-    for tier in ("_unified", "_unified_stream"):
-        getattr(lib, f"crt_traverse_closest{tier}").argtypes = unified_closest
-        getattr(lib, f"crt_traverse_any{tier}").argtypes = unified_any
-    # the work-queue kernels take one more pointer, the queue's counter, before R
-    for kind in ("closest", "any"):
-        for tier in ("", "_unified"):
-            base = getattr(lib, f"crt_traverse_{kind}{tier}").argtypes
-            getattr(lib, f"crt_traverse_{kind}{tier}_persistent").argtypes = base[:-2] + [p, i, p]
-    # the grid-packet kernels: B5a's and B5b's arguments without the arity
-    lib.crt_traverse_closest_packet.argtypes = flat_closest[:3] + flat_closest[4:]
-    lib.crt_traverse_any_packet.argtypes = flat_any[:3] + flat_any[4:]
-    for kind in ("closest", "any"):
-        for tier in ("", "_unified", "_stream", "_unified_stream", "_persistent",
-                     "_unified_persistent", "_packet"):
-            getattr(lib, f"crt_traverse_{kind}{tier}").restype = i
-    # Scene*, Lanes* (ops/shade_cuda.py), R, the bounce, the stream
-    lib.crt_shade_bounce.argtypes = [p, p, i, i, p]
-    lib.crt_shade_bounce.restype = i
-    # R1-R3 (ops/sort_cuda.py): R1's grid for R lanes; R1: orig, R, partials, counter, bounds,
-    # the stream; R2: orig, dir, active, bounds, key, R, the stream; R3: perm, Wave* in,
-    # Wave* out, R, the stream
-    lib.crt_sort_bounds_blocks.argtypes = [i]
-    lib.crt_sort_bounds.argtypes = [p, i, p, p, p, p]
-    lib.crt_sort_key.argtypes = [p, p, p, p, p, i, p]
-    lib.crt_sort_gather.argtypes = [p, p, p, i, p]
-    for name in ("bounds_blocks", "bounds", "key", "gather"):
-        getattr(lib, f"crt_sort_{name}").restype = i
-    lib.crt_persistent_blocks.argtypes = [i, i, i]
-    lib.crt_persistent_blocks.restype = i
-    lib.crt_error_string.argtypes = [i]
+    lib.crt_error_string.argtypes = [ctypes.c_int]
     lib.crt_error_string.restype = ctypes.c_char_p
-    lib.crt_max_stack.argtypes = []
-    lib.crt_max_stack.restype = i
-    lib.crt_max_leaf.argtypes = []
-    lib.crt_max_leaf.restype = i
-    if (lib.crt_max_stack(), lib.crt_max_leaf()) != (MAX_STACK, MAX_LEAF):
-        raise RuntimeError(
-            f"the kernels hold stack {lib.crt_max_stack()} and leaf {lib.crt_max_leaf()}, "
-            f"the wrappers expect {MAX_STACK} and {MAX_LEAF}"
-        )
     return lib
 
 

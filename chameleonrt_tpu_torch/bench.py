@@ -96,7 +96,7 @@ def _parity_wavefront(scene, W, H, device):
 def _kernel_parity(url, device):
     """One gate scene: its primary wavefront traced through the route that
     make_trace_fns picks by default (B1/B2 flat, B3/B4 two-level) and
-    through the plain walk (use_kernels=False); closest-hit triangle
+    through the plain walk (traversal "plain"); closest-hit triangle
     mismatches, the largest |dt| where both hit, and any-hit mismatches to
     1.001 of the hit (100 on a miss) from t_min 1e-4, as bench.py counts
     them. "kernels" lists the launch counts that the default route raised."""
@@ -113,7 +113,7 @@ def _kernel_parity(url, device):
     R = orig.shape[0]
     before = dict(traverse_cuda.LAUNCHES)
     kernel_closest, kernel_any = make_trace_fns(meta, blas=flat.blas)
-    plain_closest, plain_any = make_trace_fns(meta, use_kernels=False, blas=flat.blas)
+    plain_closest, plain_any = make_trace_fns(meta, "plain", blas=flat.blas)
     h1 = kernel_closest(flat, orig, dirs, 0.0, active)
     h0 = plain_closest(flat, orig, dirs, 0.0, active)
     p0, p1, t0, t1 = (x.cpu().numpy() for x in (h0.tri, h1.tri, h0.t, h1.t))

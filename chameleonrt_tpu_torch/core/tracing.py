@@ -28,8 +28,6 @@ Spans (each nested under the one that caused it):
     bounce.closest        the closest-hit traversal
     bounce.compact        the live lanes' nonzero, gathers and scatter-back
     bounce.shade          the shading of the live lanes (inside bounce.compact)
-    bounce.lobes          the lobe counters' own ops (inside bounce.compact; only
-                          with tracing on)
     bounce.any            both occlusion traversals
     bounce.combine        the rest of a bounce
     frame.accumulate      the scatter to input order and the progressive average
@@ -46,15 +44,11 @@ Counters: host_syncs (one a sync span), rays.closest and rays.any (their
 sum is RenderStats.rays_traced), lanes.shaded (lanes shaded),
 lanes.shaded_kernel (of them, the lanes the shading kernel S1 shaded),
 lanes.sorted_kernel (the lanes the re-sort's kernels R1-R3 sorted, every
-lane of every bounce on the card),
-lanes.metallic and lanes.transmissive (of them, the lanes whose hit
-material has metallic > 0, or specular transmission > 0), and
+lane of every bounce on the card), and
 kernel_builds and native_builds (1 where this process ran nvcc or the
 C++ compiler). Set-up counters of set_scene: tables.instances,
-tables.triangles (unique, before instancing), tables.bytes (the BVH
-tables' node and leaf rows) and tables.streamed (1 where the trace
-functions took the streamed tier, B5a-B5d; counted once a set of trace
-functions).
+tables.triangles (unique, before instancing) and tables.bytes (the BVH
+tables' node and leaf rows).
 """
 
 from __future__ import annotations

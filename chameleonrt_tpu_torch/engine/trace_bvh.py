@@ -7,19 +7,10 @@ binary table and a wide table (BVH4, or BVH8 under
 CHAMELEONRT_WIDE_ARITY=8) over shared leaf rows, unpadded.
 
 - A single-instance (flat) scene keeps one BlasPair per mesh: rays move
-  into the instance's object space and traverse the wide table, through
-  kernels B1 and B2 on the card, or B5a and B5b where the table exceeds
-  the card's L2 (streamed_tier).
+  into the instance's object space and traverse its mesh's tables.
 - A multi-instance scene fuses every mesh's BLAS and a TLAS over the
   instances' world boxes into one UnifiedPair, and one launch traces the
-  whole two-level scene, through kernels B3 and B4 on the card, or B5c
-  and B5d where the two-level table exceeds the card's L2.
-- With the slot-lane tier switched off (slotlane=False, or
-  CHAMELEONRT_SLOTLANE=0 as in the JAX package), every scene goes through
-  the work-queue kernels instead: B6a and B6b flat, B6c and B6d
-  two-level, at any table size.
-- With grid_packet=True a flat scene traces both hit kinds on its binary
-  table through the grid-packet kernels B7a and B7b.
+  whole two-level scene.
 - Where the native builder is unavailable (no C++ compiler), each mesh
   gets an LBVH built on the device (ops/lbvh.py): one binary table with
   its certified height, which the same kernels trace at arity 2. A flat
@@ -27,28 +18,29 @@ CHAMELEONRT_WIDE_ARITY=8) over shared leaf rows, unpadded.
   instance, each walk culled by the instance's world box, as the JAX
   engine does without its builder.
 
-The table switches are read as the JAX package's engine/trace_bvh.py reads
-them, with its error messages: CHAMELEONRT_CLOSEST_ARITY=2 traces closest
-hit on the binary table (closest_arity), CHAMELEONRT_WIDE_ARITY (4 or 8)
-and CHAMELEONRT_LEAF_SIZE (2-12) shape the builds (wide_arity,
-native_leaf_size), and CHAMELEONRT_PACKET=0 turns the kernels off
-(kernels_enabled). Kernels B1-B6d take binary, BVH4 and BVH8 rows, B7a
-and B7b binary rows only.
+Which kernels (or the plain walk) trace which table is the route, one
+value (traversal) that choose_route maps, with the environment and the
+scene, as its table states. The table switches are read as the JAX
+package's engine/trace_bvh.py reads them, with its error messages:
+CHAMELEONRT_CLOSEST_ARITY=2 traces closest hit on the binary table
+(closest_arity), CHAMELEONRT_WIDE_ARITY (4 or 8) and CHAMELEONRT_LEAF_SIZE
+(2-12) shape the builds (wide_arity, native_leaf_size), and
+CHAMELEONRT_PACKET and CHAMELEONRT_SLOTLANE move the route
+(choose_route).
 
-The kernels' wrappers are in ops/traverse_cuda.py, their plain versions in
-ops/traverse.py.
+The kernels, their table and their launchers are in ops/traverse_cuda.py,
+their plain versions in ops/traverse.py.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from chameleonrt_tpu_torch import native
-from chameleonrt_tpu_torch.core import tracing
 from chameleonrt_tpu_torch.engine.device_scene import (
     BlasPair,
     FlatScene,
@@ -96,12 +88,6 @@ def native_leaf_size() -> int:
     if not 2 <= s <= 12:
         raise ValueError("CHAMELEONRT_LEAF_SIZE must be in [2, 12]")
     return s
-
-
-def kernels_enabled() -> bool:
-    """False where CHAMELEONRT_PACKET is "0", "false" or "off", which in
-    the JAX package turns every Pallas kernel off; unset keeps them."""
-    return os.environ.get("CHAMELEONRT_PACKET") not in ("0", "false", "off")
 
 
 def _native_build(v0, e1, e2, leaf_size: int, arity: int):
@@ -298,14 +284,14 @@ def _instance_cull(flat: FlatScene, inst_id: int, orig, dir, t_min, t_max):
     return entry <= exit_
 
 
-def _instance_trace_fns(meta: SceneMeta, routes, closest_table: str):
+def _instance_trace_fns(meta: SceneMeta, routes):
     """(trace_closest, trace_any) of a multi-instance scene over one table
     per mesh (the LBVH fallback): a loop over the instances, as the JAX
     engine's make_trace_fns unrolls it, each instance's walk one call of
-    its mesh's routes[mesh] = (closest_fn, any_fn) (_route, flat), closest
-    hit on the pair's closest_table, with the lanes whose ray misses the
-    instance's world box (_instance_cull), or meets it past the nearest hit
-    so far, masked off."""
+    its mesh's flat route, routes[mesh] (choose_route), with the lanes
+    whose ray misses the instance's world box (_instance_cull), or meets
+    it past the nearest hit so far, masked off."""
+    walks = {m: _walks(r, False) for m, r in routes.items()}
 
     def _object_rays(flat: FlatScene, inst_id: int, orig, dir):
         inv = flat.inst_inv[inst_id]
@@ -327,8 +313,9 @@ def _instance_trace_fns(meta: SceneMeta, routes, closest_table: str):
                 continue
             inst_active = active & _instance_cull(flat, inst_id, orig, dir, tmin, best.t)
             o, d = _object_rays(flat, inst_id, orig, dir)
-            t, prim, u, v = routes[mesh_id][0](getattr(flat.blas[mesh_id], closest_table), o, d,
-                                               tmin, inst_active, best.t)
+            t, prim, u, v = walks[mesh_id][0](
+                getattr(flat.blas[mesh_id], routes[mesh_id].closest_table), o, d, tmin,
+                inst_active, best.t)
             found = prim >= 0
             ovf |= prim == -2
             best = best.merge(Hit(
@@ -358,35 +345,19 @@ def _instance_trace_fns(meta: SceneMeta, routes, closest_table: str):
                 continue
             inst_mask = mask & ~occluded & _instance_cull(flat, inst_id, orig, dir, tmin, t_max)
             o, d = _object_rays(flat, inst_id, orig, dir)
-            occluded = occluded | routes[mesh_id][1](flat.blas[mesh_id].any, o, d, tmin, t_max,
-                                                     inst_mask)
+            occluded = occluded | walks[mesh_id][1](
+                getattr(flat.blas[mesh_id], routes[mesh_id].any_table), o, d, tmin, t_max,
+                inst_mask)
         return occluded & mask
 
     return trace_closest, trace_any
 
 
-def _route(multi: bool, use_kernels: bool, stream: bool, persistent: bool, grid_packet: bool):
-    """(closest, any) traversal functions: the plain traversal where
-    use_kernels is False; otherwise the kernels' wrappers: the grid-packet
-    kernels (B7a, B7b) where grid_packet is True, else flat or two-level of
-    the work-queue tier (B6a-B6d) where persistent is True, else of the
-    streamed tier (B5a-B5d) where stream is True, else B1-B4."""
-    if not use_kernels:
-        if multi:
-            return plain.traverse_closest_unified, plain.traverse_any_unified
-        return plain.traverse_closest, plain.traverse_any
-    kind = "_unified" if multi else ""
-    tier = ("_packet" if grid_packet else "_persistent" if persistent
-            else "_stream" if stream else "")
-    return (getattr(traverse_cuda, f"traverse_closest{kind}{tier}"),
-            getattr(traverse_cuda, f"traverse_any{kind}{tier}"))
-
-
-def _unified_trace_fns(closest_fn, any_fn, closest_table: str):
+def _unified_trace_fns(route: Route):
     """(trace_closest, trace_any) over the two-level tables: one traversal
-    for the whole scene through closest_fn and any_fn (_route), closest hit
-    on the UnifiedPair's closest_table ("closest" or "any"), any hit on its
-    wide table."""
+    for the whole scene on the route (choose_route), closest hit on the
+    UnifiedPair's route.closest_table, any hit on its wide table."""
+    closest_fn, any_fn = _walks(route, True)
 
     def trace_closest(flat: FlatScene, orig, dir, t_min: float, active) -> Hit:
         """Closest hit from t_min; tri is the global triangle id and inst
@@ -396,7 +367,7 @@ def _unified_trace_fns(closest_fn, any_fn, closest_table: str):
         tmin = torch.full((R,), t_min, dtype=torch.float32, device=orig.device)
         tmax = torch.full((R,), T_MAX, dtype=torch.float32, device=orig.device)
         t, prim, inst, u, v = closest_fn(
-            getattr(flat.blas[0], closest_table), orig.contiguous(), dir.contiguous(), tmin,
+            getattr(flat.blas[0], route.closest_table), orig.contiguous(), dir.contiguous(), tmin,
             active, tmax
         )
         return Hit(t=t, tri=prim, inst=inst, u=u, v=v)
@@ -405,8 +376,8 @@ def _unified_trace_fns(closest_fn, any_fn, closest_table: str):
         """Occlusion along (EPSILON, t_max); shadow rays start at EPSILON."""
         R = orig.shape[0]
         tmin = torch.full((R,), EPSILON, dtype=torch.float32, device=orig.device)
-        return any_fn(flat.blas[0].any, orig.contiguous(), dir.contiguous(), tmin,
-                      t_max.contiguous(), mask.contiguous())
+        return any_fn(getattr(flat.blas[0], route.any_table), orig.contiguous(), dir.contiguous(),
+                      tmin, t_max.contiguous(), mask.contiguous())
 
     return trace_closest, trace_any
 
@@ -444,72 +415,100 @@ def streamed_tier(pbvh, l2_bytes: Optional[int] = None) -> bool:
     return table_bytes(pbvh) > l2_bytes
 
 
-def slotlane_enabled(slotlane: Optional[bool] = None) -> bool:
-    """Whether the slot-lane tier (B1-B5d) traces, the counterpart of the
-    JAX package's engine/trace_bvh.py _slotlane_enabled: slotlane if given,
-    else the environment's CHAMELEONRT_SLOTLANE, read as the JAX package
-    reads it ("0", "false" or "off" switch the tier off; unset keeps it)."""
-    if slotlane is not None:
-        return bool(slotlane)
-    return os.environ.get("CHAMELEONRT_SLOTLANE") not in ("0", "false", "off")
+class Route(NamedTuple):
+    """How a scene, or one mesh of it, is traced (choose_route): for each
+    hit kind the KERNELS key of ops/traverse_cuda.py whose kernel walks it,
+    or "plain" for the plain walk of ops/traverse.py, and which table of
+    the pair ("closest": binary, "any": wide) it traces."""
+
+    closest: str
+    any: str
+    closest_table: str
+    any_table: str
 
 
-def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[bool] = None,
-                   blas=None, l2_bytes: Optional[int] = None, slotlane: Optional[bool] = None,
-                   grid_packet: bool = False):
-    """(trace_closest, trace_any) for the scene: the two-level tables of a
-    multi-instance scene, or the one instanced mesh's tables of a flat
-    scene. Any hit traces the wide table; closest hit traces the binary
+TRAVERSALS = ("auto", "plain", "lane", "stream", "persistent", "packet")
+
+
+def _off(var: str) -> bool:
+    """Whether the environment switches var off, as the JAX package reads
+    its switches: "0", "false" or "off"; unset keeps it on."""
+    return os.environ.get(var) in ("0", "false", "off")
+
+
+def choose_route(traversal: str, instances: int, two_level: bool, table=None,
+                 l2_bytes: Optional[int] = None) -> Route:
+    """The route of a scene of `instances` instances over flat tables (a
+    flat scene's mesh, or one mesh of the LBVH fallback's multi-instance
+    scene) or two-level ones (two_level), for traversal:
+
+    ============  ==========================  ==============================
+    traversal     flat tables                 two-level tables
+    ============  ==========================  ==============================
+    "auto"        B5a/B5b where               B5c/B5d where
+                  streamed_tier(table), else  streamed_tier(table), else
+                  B1/B2                       B3/B4
+    "plain"       the plain walk              the plain walk
+    "lane"        B1/B2                       B3/B4
+    "stream"      B5a/B5b                     B5c/B5d
+    "persistent"  B6a/B6b                     B6c/B6d
+    "packet"      B7a/B7b, both on the        ValueError
+                  binary table
+    ============  ==========================  ==============================
+
+    The environment, read here as the JAX package reads it:
+    CHAMELEONRT_PACKET=0 ("false", "off") gives the plain walk whatever the
+    value (over "packet"'s binary tables for "packet"), and
+    CHAMELEONRT_SLOTLANE=0 gives "auto" B6a/B6b or B6c/B6d (the JAX
+    package's work-queue kernels; on the card one kernel serves both of its
+    stream values) without the gate; an explicit value is not moved by it.
+    "packet" on a scene of more than one instance raises ValueError
+    whatever the environment: the JAX package has no two-level grid
+    kernel. Any hit traces the wide table; closest hit traces the binary
     table where closest_arity() is 2, else the wide one, as the JAX
-    package's _closest_table chooses. use_kernels=False runs the plain
-    traversal on any device (the card's parity checks use it); otherwise
-    CUDA tensors go through the kernels. With the slot-lane tier on
-    (slotlane_enabled(slotlane); the default), a flat scene goes through
-    B1 and B2, or B5a and B5b of the streamed tier where stream is True; a
-    multi-instance scene through B3 and B4, or B5c and B5d where stream is
-    True; stream=None decides by streamed_tier on the scene's wide table
-    (blas, the FlatScene's; l2_bytes as there). With it off, a flat scene
-    goes through the work-queue kernels B6a and B6b and a multi-instance
-    scene through B6c and B6d, whatever stream says: on the card one
-    kernel serves both of the JAX package's stream values.
+    package's _closest_table chooses; "packet" traces both on the binary
+    one, whatever closest_arity says (the JAX engine's route past both
+    failed persistent VMEM gates, its trace_bvh.py:680-688, :871-879).
 
-    grid_packet=True stands for the JAX engine's route past both failed
-    persistent VMEM gates (its trace_bvh.py:680-688, :871-879): a flat
-    scene traces both hit kinds on its binary table, through B7a and B7b
-    (the plain traversal where use_kernels is False), whatever stream,
-    slotlane and closest_arity say. The JAX package has no two-level grid
-    kernel, so a multi-instance scene raises ValueError.
+    table is the wide table the gate weighs (l2_bytes as in
+    streamed_tier); "auto" with the kernels on raises without it."""
+    if traversal not in TRAVERSALS:
+        raise ValueError(f"traversal must be one of {', '.join(TRAVERSALS)}, got {traversal!r}")
+    packet = traversal == "packet"
+    if packet and instances > 1:
+        raise ValueError("the packet traversal traces flat scenes only: there is no two-level "
+                         f"grid-packet kernel, and this scene has {instances} instances")
+    closest_table = "closest" if packet or closest_arity() == 2 else "any"
+    any_table = "closest" if packet else "any"
+    if traversal == "plain" or _off("CHAMELEONRT_PACKET"):
+        return Route("plain", "plain", closest_table, any_table)
+    if traversal == "auto":
+        if _off("CHAMELEONRT_SLOTLANE"):
+            traversal = "persistent"
+        elif table is None:
+            raise ValueError("the streamed tier's gate needs the scene's tables (blas)")
+        else:
+            traversal = "stream" if streamed_tier(table, l2_bytes) else "lane"
+    return Route(traverse_cuda.kernel_for(traversal, "closest", two_level),
+                 traverse_cuda.kernel_for(traversal, "any", two_level), closest_table, any_table)
 
-    A multi-instance scene over one table per mesh (the LBVH fallback's,
-    known from blas) traces instance by instance (_instance_trace_fns),
-    each instance through its mesh's flat route, chosen as a flat scene's
-    (B1/B2, B5a/B5b, B6a/B6b, or the plain walk)."""
-    multi = meta.num_instances > 1
-    if grid_packet and multi:
-        raise ValueError("grid_packet traces flat scenes only: there is no two-level grid-packet "
-                         f"kernel, and this scene has {meta.num_instances} instances")
-    persistent = use_kernels and not grid_packet and not slotlane_enabled(slotlane)
-    closest_table = "closest" if grid_packet or closest_arity() == 2 else "any"
 
-    def tier(mesh_id) -> bool:
-        if use_kernels and not (persistent or grid_packet) and stream is None:
-            if blas is None:
-                raise ValueError("the streamed tier's gate needs the scene's tables (blas)")
-            return streamed_tier(blas[mesh_id].any, l2_bytes)
-        return bool(stream)
+def _walks(route: Route, two_level: bool):
+    """(closest, any) walk functions of a route: the kernels' launchers
+    bound to its keys, or the plain walks."""
+    if route.closest == "plain":
+        if two_level:
+            return plain.traverse_closest_unified, plain.traverse_any_unified
+        return plain.traverse_closest, plain.traverse_any
+    return (lambda *args: traverse_cuda.launch_closest(route.closest, *args),
+            lambda *args: traverse_cuda.launch_any(route.any, *args))
 
-    if multi and blas is not None and not isinstance(blas[0], UnifiedPair):
-        tiers = {m: tier(m) for m in set(meta.inst_mesh)}
-        tracing.count("tables.streamed", int(use_kernels and not persistent and any(tiers.values())))
-        routes = {m: _route(False, use_kernels, t, persistent, False) for m, t in tiers.items()}
-        return _instance_trace_fns(meta, routes, closest_table)
-    mesh_id = 0 if multi else meta.inst_mesh[0]
-    streamed = tier(mesh_id)
-    tracing.count("tables.streamed", int(use_kernels and not (persistent or grid_packet) and streamed))
-    closest_fn, any_fn = _route(multi, use_kernels, streamed, persistent, grid_packet)
-    if multi:
-        return _unified_trace_fns(closest_fn, any_fn, closest_table)
-    any_table = "closest" if grid_packet else "any"
+
+def _flat_trace_fns(meta: SceneMeta, route: Route, mesh_id: int):
+    """(trace_closest, trace_any) of a flat scene: rays move into the one
+    instance's object space and trace its mesh's tables on the route
+    (choose_route)."""
+    closest_fn, any_fn = _walks(route, False)
     start = meta.mesh_tri_ranges[mesh_id][0]
 
     def _object_rays(flat: FlatScene, orig, dir):
@@ -527,8 +526,8 @@ def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[b
         o, d = _object_rays(flat, orig, dir)
         tmin = torch.full((R,), t_min, dtype=torch.float32, device=orig.device)
         tmax = torch.full((R,), T_MAX, dtype=torch.float32, device=orig.device)
-        t, prim, u, v = closest_fn(getattr(flat.blas[mesh_id], closest_table), o, d, tmin, active,
-                                   tmax)
+        t, prim, u, v = closest_fn(getattr(flat.blas[mesh_id], route.closest_table), o, d, tmin,
+                                   active, tmax)
         found = prim >= 0
         zero = torch.zeros_like(u)
         return Hit(
@@ -544,7 +543,30 @@ def make_trace_fns(meta: SceneMeta, use_kernels: bool = True, stream: Optional[b
         R = orig.shape[0]
         o, d = _object_rays(flat, orig, dir)
         tmin = torch.full((R,), EPSILON, dtype=torch.float32, device=orig.device)
-        return any_fn(getattr(flat.blas[mesh_id], any_table), o, d, tmin, t_max.contiguous(),
+        return any_fn(getattr(flat.blas[mesh_id], route.any_table), o, d, tmin, t_max.contiguous(),
                       mask.contiguous())
 
     return trace_closest, trace_any
+
+
+def make_trace_fns(meta: SceneMeta, traversal: str = "auto", blas=None):
+    """(trace_closest, trace_any) for the scene on the traversal's route
+    (choose_route, which states the routing rules): over the two-level
+    tables of a multi-instance scene, or the one instanced mesh's tables
+    of a flat scene. On CUDA tensors a kernel route launches its kernels;
+    on CPU tensors every route runs the plain walk. blas, the FlatScene's
+    tables, feeds the gate of "auto". A multi-instance scene over one
+    table per mesh (the LBVH fallback's, known from blas) traces instance
+    by instance (_instance_trace_fns), each instance through its mesh's
+    flat route."""
+    multi = meta.num_instances > 1
+    if multi and blas is not None and not isinstance(blas[0], UnifiedPair):
+        routes = {m: choose_route(traversal, meta.num_instances, False, blas[m].any)
+                  for m in set(meta.inst_mesh)}
+        return _instance_trace_fns(meta, routes)
+    mesh_id = 0 if multi else meta.inst_mesh[0]
+    route = choose_route(traversal, meta.num_instances, multi,
+                         None if blas is None else blas[mesh_id].any)
+    if multi:
+        return _unified_trace_fns(route)
+    return _flat_trace_fns(meta, route, mesh_id)

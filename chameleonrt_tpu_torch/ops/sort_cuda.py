@@ -21,6 +21,7 @@ lanes.sorted_kernel counts the lanes they sorted.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,6 +44,20 @@ _SCRATCH = {}
 class Wave(ctypes.Structure):
     """crt::sort::Wave (csrc/sort.cu), field for field."""
     _fields_ = [(name, ctypes.c_void_p) for name, _, _ in FIELDS]
+
+
+@functools.lru_cache(maxsize=None)
+def _bind(lib):
+    """Bind R1-R3's entries of a loaded kernels' library, once."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # R1's grid for R lanes; R1: orig, R, partials, counter, bounds, the stream; R2: orig, dir,
+    # active, bounds, key, R, the stream; R3: perm, Wave* in, Wave* out, R, the stream
+    for name, argtypes in (("crt_sort_bounds_blocks", [i]), ("crt_sort_bounds", [p, i, p, p, p, p]),
+                           ("crt_sort_key", [p, p, p, p, p, i, p]),
+                           ("crt_sort_gather", [p, p, p, i, p])):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = i
+    return lib
 
 
 def _check(fields):
@@ -75,7 +90,7 @@ def _launch(device, entry: str, *args) -> None:
     """Call the C entry on device's current stream, with device current;
     raise if the launch failed."""
     global LAUNCHES
-    lib = _build.kernels()
+    lib = _bind(_build.kernels())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
@@ -90,7 +105,7 @@ def bounds(orig):
     dev = orig.device
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if key not in _SCRATCH:
-        blocks = _build.kernels().crt_sort_bounds_blocks(2**31 - 1)
+        blocks = _bind(_build.kernels()).crt_sort_bounds_blocks(2**31 - 1)
         _SCRATCH[key] = torch.zeros(4 + 12 * blocks, dtype=torch.int32, device=dev)
     scratch = _SCRATCH[key]
     out = torch.empty(6, dtype=torch.float32, device=dev)

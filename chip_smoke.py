@@ -63,14 +63,14 @@ nor the JAX package (it asserts so at its end). Phases:
      shadow-ray wavefronts of one hall / San Miguel frame (B6d timed on
      each beside its bound, and logged whether that frame's rays digest
      as those of B4's frame); and B6a, exactly, on the 5 closest-hit
-     wavefronts of one slotlane=False hall frame, beside B1 and its bound;
+     wavefronts of one "persistent" hall frame, beside B1 and its bound;
    - B7a/B7b (the grid-packet kernels, binary rows only, whose plain
      versions are B1/B2's on the same binary table; per-lane walks held
      exactly) on the hall's binary table: proc://hall?subdiv=2 at 320x180
      and the textured hall at 1280x720, any hit at both t_max factors on
      both wavefronts, with B1/B2 timed on the same rays on the binary table
      and on the BVH4 table; B7b, exactly, on the 10 masked shadow-ray
-     wavefronts of one 1280x720 hall frame with grid_packet=True, beside B2
+     wavefronts of one 1280x720 hall frame on the "packet" route, beside B2
      on the binary table, and B7a, exactly, on the 5 closest-hit wavefronts
      of one, as B5a;
    - B1-B6d at every arity they take (2, 4 and 8 children a row) on the
@@ -98,10 +98,10 @@ nor the JAX package (it asserts so at its end). Phases:
    any-hit kernel is timed on its main-path frame's 10 shadow wavefronts
    beside its bound there;
 4. images through the kernels against images through the plain traversal
-   (textured hall, proc://instances?nx=6&ny=6&subdiv=3, with stream=True
-   proc://city?n=60 and proc://instances?nx=6&ny=6&subdiv=3, with
-   slotlane=False the textured hall and proc://instances?nx=6&ny=6&subdiv=3,
-   with grid_packet=True the textured hall, and the textured hall and
+   (textured hall, proc://instances?nx=6&ny=6&subdiv=3, with traversal
+   "stream" proc://city?n=60 and proc://instances?nx=6&ny=6&subdiv=3, with
+   "persistent" the textured hall and proc://instances?nx=6&ny=6&subdiv=3,
+   with "packet" the textured hall, and the textured hall and
    proc://instances?nx=6&ny=6&subdiv=3 under each of the table switches
    CHAMELEONRT_CLOSEST_ARITY=2, CHAMELEONRT_WIDE_ARITY=8 and
    CHAMELEONRT_LEAF_SIZE=8; 128x72, 2 frames each): 8-bit mean abs
@@ -148,9 +148,9 @@ nor the JAX package (it asserts so at its end). Phases:
    triangles, generated as bench.py does) at 1280x720, 4 spp (B3/B4), the
    city proc://city?n=610 at 640x360, 1 spp (B5a/B5b), the large San
    Miguel proxy at 1280x720, 4 spp (B5c/B5d), and with
-   get_backend("cuda", slotlane=False) the hall (B6a/B6b) and the San
-   Miguel proxy (B6c/B6d) at the same sizes, and with
-   get_backend("cuda", grid_packet=True) the hall on its binary table
+   get_backend("cuda", traversal="persistent") the hall (B6a/B6b) and the
+   San Miguel proxy (B6c/B6d) at the same sizes, and with
+   get_backend("cuda", traversal="packet") the hall on its binary table
    (B7a/B7b) at 1280x720, 1 spp, and after them, as paths of their own
    (_bench_paths), the three bench configs that no main path runs, at
    the bench's sizes and 1 spp: proc://cornell at
@@ -347,11 +347,14 @@ def _ptxas_table(log_text):
 
 
 def phase_build():
-    """Build and load the kernels. Returns (seconds, _ptxas_table)."""
+    """Build and load the kernels, and bind the traversal entries (which
+    checks the library's stack and leaf limits). Returns (seconds,
+    _ptxas_table)."""
     from chameleonrt_tpu_torch import _build
+    from chameleonrt_tpu_torch.ops import traverse_cuda
 
     t0 = time.perf_counter()
-    _build.kernels()
+    traverse_cuda.library()
     secs = time.perf_counter() - t0
     log(f"[build] kernels built and loaded in {secs:.2f} s")
     with open(_build.kernel_library_path()[: -len(".so")] + ".log") as f:
@@ -390,7 +393,6 @@ def phase_shade(torch):
     moves (SHADE_IN_BYTES, SHADE_INST_BYTES where the scene has instances,
     and SHADE_OUT_BYTES a lane) at HBM_BYTES_PER_S. Returns the record."""
     from chameleonrt_tpu_torch.core.registry import get_backend
-    from chameleonrt_tpu_torch.engine import path_tracer
     from chameleonrt_tpu_torch.ops import shade_cuda
 
     scene = _load(SHADE_SCENE)
@@ -414,7 +416,7 @@ def phase_shade(torch):
     for bounce, (flat, meta, lanes) in sorted(calls.items()):
         R = lanes[0].shape[0]
         got = shade(flat, meta, bounce, *lanes)
-        want = path_tracer._shade_bounce(flat, meta, bounce, *lanes)
+        want = shade_cuda._shade_bounce(flat, meta, bounce, *lanes)
         torch.cuda.synchronize()
         differ = {}
         for field in want._fields:
@@ -425,7 +427,7 @@ def phase_shade(torch):
             raise AssertionError(f"S1 at bounce {bounce}: lanes that differ from the plain "
                                  f"shading {differ}")
         ms = _median_ms(torch, lambda: shade(flat, meta, bounce, *lanes), SHADE_REPS)
-        plain_ms = _median_ms(torch, lambda: path_tracer._shade_bounce(flat, meta, bounce, *lanes),
+        plain_ms = _median_ms(torch, lambda: shade_cuda._shade_bounce(flat, meta, bounce, *lanes),
                               SHADE_PLAIN_REPS)
         lane_bytes = (SHADE_IN_BYTES + SHADE_OUT_BYTES
                       + (SHADE_INST_BYTES if meta.num_instances > 1 else 0))
@@ -733,6 +735,15 @@ PER_LANE = ("B1", "B2", "B3", "B4", "B5a", "B5b", "B5c", "B5d", "B6a", "B6b", "B
 TIERS = ("flat", "unified", "stream", "unified_stream")
 QUEUE = {"flat": "persistent", "stream": "persistent",
          "unified": "unified_persistent", "unified_stream": "unified_persistent"}
+# each path's traversal (trace_bvh.choose_route): the work-queue paths
+# "persistent", the grid-packet path "packet", the slot-lane tiers "auto",
+# whose gate picks the streamed tier on the streamed paths' scenes
+_TRAVERSAL = {"persistent": "persistent", "unified_persistent": "persistent",
+              "grid_packet": "packet"}
+
+
+def _traversal(path: str) -> str:
+    return _TRAVERSAL.get(path, "auto")
 
 
 def _kernel_pair(path: str, closest: bool):
@@ -1009,9 +1020,8 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
     (_shadow_calls), captured through the backend and traced again by the
     plain version on the same table. Requires zero mismatches, some
     occluded rays, and 10 launches of the path's any-hit kernel, so on a
-    streamed path the gate must have picked it. A work-queue path (QUEUE's
-    values) renders with the slot-lane tier off, the others with it on; the
-    grid-packet path renders with grid_packet=True, and traces the binary
+    streamed path the gate must have picked it. Each path renders with its
+    traversal (_traversal); the grid-packet path traces the binary
     table. The kernel is also timed on each wavefront (median of
     KERNEL_REPS) beside its bound there (_bound, from the plain walk's
     WalkCount on those rays), and a streamed or grid-packet flat kernel
@@ -1026,12 +1036,11 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
 
     name, kernel, plain = _kernel_pair(path, closest=False)
     count = _ANY_COUNT[path]
-    grid_packet = path == "grid_packet"
+    packet = path == "grid_packet"
     before = traverse_cuda.LAUNCHES[count]
-    b, calls = _shadow_calls(torch, scene, tables, W, H, spp, slotlane=path not in QUEUE.values(),
-                             grid_packet=grid_packet)
+    b, calls = _shadow_calls(torch, scene, tables, W, H, spp, traversal=_traversal(path))
     launched = traverse_cuda.LAUNCHES[count] - before
-    table = b.flat.blas[0].closest if grid_packet else b.flat.blas[0].any
+    table = b.flat.blas[0].closest if packet else b.flat.blas[0].any
     beside_b2 = path in ("stream", "grid_packet")
     per_call, timed = [], {"ms": [], "bound_ms": [], "bound_by": []}
     if beside_b2:
@@ -1065,29 +1074,31 @@ def _check_any_shadow(torch, scene, tables, path, W, H, spp=1):
 
 # the backend options of the main paths whose closest hit _check_closest_frame
 # holds on a frame's own wavefronts
-_CLOSEST_FRAME = {"flat": {}, "stream": {}, "persistent": {"slotlane": False},
-                  "grid_packet": {"grid_packet": True}}
+_CLOSEST_FRAME = {"flat": {}, "stream": {}, "persistent": {"traversal": "persistent"},
+                  "grid_packet": {"traversal": "packet"}}
 
 
 def _closest_frame_calls(torch, scene, tables, path, W, H):
     """The 5 closest-hit wavefronts of one W x H frame at one sample per
     pixel through CudaBackend(**_CLOSEST_FRAME[path]) on the scene's tables
-    (already built), captured at the path's closest-hit kernel's wrapper as
-    the backend calls it: [(table, (orig, dir, t_min, active, t_max),
-    result)] in call order."""
+    (already built), captured at the launches of the path's closest-hit
+    kernel as the backend asks for them: [(table, (orig, dir, t_min,
+    active, t_max), result)] in call order."""
     from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
     from chameleonrt_tpu_torch.ops import traverse_cuda
 
-    wrapper = _PATHS[path][0][1]
-    real = getattr(traverse_cuda, wrapper)
+    label = _PATHS[path][0][0]
+    key = next(k for k, kernel in traverse_cuda.KERNELS.items() if kernel.label == label)
+    real = traverse_cuda.launch_closest
     calls = []
 
-    def capture(table, *args):
-        out = real(table, *args)
-        calls.append((table, tuple(a.clone() for a in args), tuple(x.clone() for x in out)))
+    def capture(k, table, *args):
+        out = real(k, table, *args)
+        if k == key:
+            calls.append((table, tuple(a.clone() for a in args), tuple(x.clone() for x in out)))
         return out
 
-    setattr(traverse_cuda, wrapper, capture)
+    traverse_cuda.launch_closest = capture
     try:
         b = CudaBackend(**_CLOSEST_FRAME[path])
         b.prepare_scene = lambda _scene: tables
@@ -1095,7 +1106,7 @@ def _closest_frame_calls(torch, scene, tables, path, W, H):
         b.set_scene(scene)
         b.render(*_view(scene), True, readback_framebuffer=False)
     finally:
-        setattr(traverse_cuda, wrapper, real)
+        traverse_cuda.launch_closest = real
     return calls
 
 
@@ -1224,7 +1235,7 @@ def phase_kernels(torch, path: str):
         out["queue_shadow"] = q = _check_any_shadow(torch, scene, (flat, meta), QUEUE[path], W, H)
         q["same_rays"] = q["rays_sha256"] == out["shadow"]["rays_sha256"]
         log(f"[kernels] {QUEUE[path]} shadow rays equal to {path}'s: {q['same_rays']}")
-    if path == "flat":  # B6a on the slotlane=False hall frame's closest-hit wavefronts
+    if path == "flat":  # B6a on the "persistent" hall frame's closest-hit wavefronts
         out["queue_frame"] = _check_closest_frame(torch, scene, (flat, meta), QUEUE[path], W, H)
     return out
 
@@ -1237,7 +1248,7 @@ def phase_packet(torch):
     hit) and B2 (any hit) timed on the same rays on the binary table
     (flat_binary_ms) and on the BVH4 table (flat_ms), and the kernels' least
     times on the main-path primary wavefront; then B7b on the shadow rays of
-    one grid_packet=True frame, beside B2 on the binary table.
+    one "packet" frame, beside B2 on the binary table.
     Returns phase_kernels' form: {"closest": (primary, bounce), "any":
     (primary, bounce), "any_all": [...], "shadow": ...}."""
     from chameleonrt_tpu_torch.ops import traverse_cuda
@@ -1451,8 +1462,9 @@ def _queue_grids(torch):
     resident blocks of 128 threads on the card, by label, arity and stack
     capacity (0 for an instantiation that never launched)."""
     from chameleonrt_tpu_torch import _build
+    from chameleonrt_tpu_torch.ops import traverse_cuda
 
-    lib = _build.kernels()
+    lib = traverse_cuda.library()
     grids = {label: {f"{a}@{cap}": lib.crt_persistent_blocks(i, a, cap)
                      for a in ARITIES for cap in _build.STACK_CAPACITIES}
              for i, label in enumerate(("B6a", "B6b", "B6c", "B6d"))}
@@ -1462,14 +1474,14 @@ def _queue_grids(torch):
     return grids
 
 
-def phase_image(torch, uri, stream=None, expect=None, slotlane=True, grid_packet=False, tables=None):
-    """Two 128x72 frames through the kernels against two through the plain
-    traversal, under the environment as it stands (phase 4 sets the table
-    switches around some calls). stream=True forces the streamed tier,
-    slotlane=False the work-queue kernels, grid_packet=True the grid-packet
-    kernels; expect, if given, is the set of launch counts that must have
-    moved (and no other); tables, if given, the (closest, any, leaf) row
-    widths in floats that the kernels' backend must have built."""
+def phase_image(torch, uri, traversal="auto", expect=None, tables=None):
+    """Two 128x72 frames through the kernels of the traversal's route
+    (trace_bvh.choose_route) against two through the plain traversal,
+    under the environment as it stands (phase 4 sets the table switches
+    around some calls); expect, if given, is the set of launch counts that
+    must have moved (and no other); tables, if given, the (closest, any,
+    leaf) row widths in floats that the kernels' backend must have
+    built."""
     import numpy as np
 
     from chameleonrt_tpu_torch.engine.backend_cuda import CudaBackend
@@ -1479,15 +1491,14 @@ def phase_image(torch, uri, stream=None, expect=None, slotlane=True, grid_packet
     pos, d, up, fov = _view(scene)
     imgs = {}
     before = dict(traverse_cuda.LAUNCHES)
-    for use_kernels in (True, False):
-        b = CudaBackend(use_kernels=use_kernels, stream=stream, slotlane=slotlane,
-                        grid_packet=grid_packet)
+    for kernels in (True, False):
+        b = CudaBackend(traversal=traversal if kernels else "plain")
         b.initialize(128, 72)
         b.set_scene(scene)
         for i in range(2):
             b.render(pos, d, up, fov, i == 0, readback_framebuffer=(i == 1))
-        imgs[use_kernels] = b.img[..., :3].astype(np.float32)
-        if use_kernels:
+        imgs[kernels] = b.img[..., :3].astype(np.float32)
+        if kernels:
             pair = b.flat.blas[0]
             widths = (pair.closest.nodes.shape[1], pair.any.nodes.shape[1],
                       pair.any.leaf_rows.shape[1])
@@ -1496,8 +1507,7 @@ def phase_image(torch, uri, stream=None, expect=None, slotlane=True, grid_packet
     launched = {k: n - before[k] for k, n in traverse_cuda.LAUNCHES.items() if n != before[k]}
     switches = {k: v for k, v in os.environ.items()
                 if k in ("CHAMELEONRT_CLOSEST_ARITY", "CHAMELEONRT_WIDE_ARITY", "CHAMELEONRT_LEAF_SIZE")}
-    mode = ((", stream=True" if stream else "") + ("" if slotlane else ", slotlane=False")
-            + (", grid_packet=True" if grid_packet else "")
+    mode = (("" if traversal == "auto" else f", traversal={traversal}")
             + "".join(f", {k}={v}" for k, v in sorted(switches.items())))
     log(f"[image] {uri} 128x72 x2 frames{mode}, kernels vs plain "
         f"traversal: 8-bit mean abs diff {mad:.6f} (gate < 1.0), max {float(diff.max())}, "
@@ -1585,7 +1595,7 @@ def phase_reference(torch):
         out["gate"][uri] = res
 
     scene, flat, meta = _scene_tables(torch, HALL_SCENE)
-    bvh_closest, bvh_any = trace_bvh.make_trace_fns(meta, stream=False, blas=flat.blas, slotlane=True)
+    bvh_closest, bvh_any = trace_bvh.make_trace_fns(meta, "lane", blas=flat.blas)
     bf_closest, bf_any = trace_bruteforce.make_trace_fns(meta)
     orig, dirs, active = _primary_wavefront(torch, scene, ORACLE_W, ORACLE_H)
     R = orig.shape[0]
@@ -2006,9 +2016,8 @@ def _profile_frames(torch, backend, view, median_ms, expect):
     return res
 
 
-def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_packet=False):
-    """get_backend("cuda", slotlane=slotlane, grid_packet=grid_packet) on
-    uri at W x H and spp
+def phase_main(torch, uri, W, H, spp, timed_frames, expect, traversal="auto"):
+    """get_backend("cuda", traversal=traversal) on uri at W x H and spp
     samples per pixel (set after set_scene, as bench.py does): one warmup,
     timed_frames frames timed on the host clock and PROFILE_FRAMES profiled frames
     (_profile_frames), with every launch count set to 0 just before and
@@ -2026,7 +2035,7 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     torch.cuda.reset_peak_memory_stats()
     allocated_before = torch.cuda.memory_allocated()
     _zero_launches()
-    backend = get_backend("cuda", slotlane=slotlane, grid_packet=grid_packet)
+    backend = get_backend("cuda", traversal=traversal)
     backend.initialize(W, H)
     t0 = time.perf_counter()
     backend.set_scene(scene)
@@ -2053,17 +2062,16 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
     stacks = {k: {cap: n for cap, n in caps.items() if n}
               for k, caps in traverse_cuda.STACK_LAUNCHES.items() if any(caps.values())}
     # the table the path's kernels traced (both hit kinds: the wide one, or
-    # the binary one with grid_packet)
+    # the binary one on the "packet" route)
     pair = backend.flat.blas[0 if backend.meta.num_instances > 1 else backend.meta.inst_mesh[0]]
-    table = pair.closest if grid_packet else pair.any
+    table = pair.closest if traversal == "packet" else pair.any
     depth = traverse_cuda.stack_depth(table)
     table_res = {"arity": table.arity, "node_rows": int(table.nodes.shape[0]),
                  "leaf_rows": int(table.leaf_rows.shape[0]), "bytes": trace_bvh.table_bytes(table),
                  "stack": depth, "stack_capacity": traverse_cuda.stack_capacity(depth),
                  "beyond_l2": trace_bvh.streamed_tier(table)}
     res = {
-        "scene": uri, "width": W, "height": H, "spp": spp, "slotlane": slotlane,
-        "grid_packet": grid_packet,
+        "scene": uri, "width": W, "height": H, "spp": spp, "traversal": traversal,
         "unique_tris": backend.meta.num_tris, "instances": backend.meta.num_instances,
         "instanced_tris": scene.total_tris(),
         "set_scene_s": set_scene_s, "warmup_ms": stats[0][0] * 1e3,
@@ -2105,9 +2113,8 @@ def phase_main(torch, uri, W, H, spp, timed_frames, expect, slotlane=True, grid_
 
 def _main_paths():
     """Each main path: (scene, width, height, spp, timed frames, launches
-    per frame by launch-count key); the work-queue paths (QUEUE's values)
-    run with the slot-lane tier off, the grid_packet path with
-    grid_packet=True."""
+    per frame by launch-count key); each path runs with its traversal
+    (_traversal)."""
     return {
         "flat": (HALL_SCENE, MAIN_W, MAIN_H, 1, HALL_TIMED_FRAMES, {"closest": 5, "any": 10}),
         "unified": (SAN_MIGUEL, MAIN_W, MAIN_H, SM_SPP, SM_TIMED_FRAMES,
@@ -2288,13 +2295,13 @@ def main() -> int:
     grids = _queue_grids(torch)
     phase_image(torch, HALL_IMAGE)
     phase_image(torch, INST_IMAGE)
-    phase_image(torch, CITY_PARITY, stream=True, expect={"closest_stream", "any_stream"})
-    phase_image(torch, INST_IMAGE, stream=True,
+    phase_image(torch, CITY_PARITY, "stream", expect={"closest_stream", "any_stream"})
+    phase_image(torch, INST_IMAGE, "stream",
                 expect={"closest_unified_stream", "any_unified_stream"})
-    phase_image(torch, HALL_IMAGE, slotlane=False, expect={"closest_persistent", "any_persistent"})
-    phase_image(torch, INST_IMAGE, slotlane=False,
+    phase_image(torch, HALL_IMAGE, "persistent", expect={"closest_persistent", "any_persistent"})
+    phase_image(torch, INST_IMAGE, "persistent",
                 expect={"closest_unified_persistent", "any_unified_persistent"})
-    phase_image(torch, HALL_IMAGE, grid_packet=True, expect={"closest_packet", "any_packet"},
+    phase_image(torch, HALL_IMAGE, "packet", expect={"closest_packet", "any_packet"},
                 tables=(16, 32, 40))
     # the JAX engine's table switches: closest hit on the binary table, BVH8
     # rows, leaves of 8 triangles (node and leaf row widths in floats)
@@ -2314,8 +2321,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_bench(torch)
-    launches = {path: phase_main(torch, *args, slotlane=path not in QUEUE.values(),
-                                 grid_packet=path == "grid_packet")
+    launches = {path: phase_main(torch, *args, traversal=_traversal(path))
                 for path, args in _main_paths().items()}
     for args in _bench_paths().values():
         phase_main(torch, *args)

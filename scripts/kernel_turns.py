@@ -19,10 +19,10 @@ checkout's chip_smoke.py helpers, with the plain walk's results on each:
   its BVH4 table, the one its main path traces (B1, B2, B6a and B6b), and
   on the city and the binary hall the two masked shadow-ray wavefronts of
   the first bounce of one 1-spp frame, captured as on San Miguel (the
-  binary hall's with grid_packet=True; any hit only); on the hall's BVH4
-  table the 5 closest-hit wavefronts of one 1-spp 1280x720 frame of its
-  main path, captured at B1's wrapper as chip_smoke.py captures them
-  (closest hit only), and all 10 shadow-ray wavefronts of that frame
+  binary hall's over the "packet" route's binary tables; any hit only); on
+  the hall's BVH4 table the 5 closest-hit wavefronts of one 1-spp 1280x720
+  frame of its main path, captured at B1's launches as chip_smoke.py
+  captures them (closest hit only), and all 10 shadow-ray wavefronts of that frame
   (shadow0-shadow9, light and bsdf samples of each bounce in call order;
   any hit only).
 --tables picks one of the two sets or both. Then one worker process a tree
@@ -216,7 +216,7 @@ def _cases(torch, path, kinds):
         _closest_and_any(torch, out, scene_name, table, closest, any_, orig, dirs,
                          torch.full((R,), EPSILON, device="cuda"), active, "bounce", 0.999)
         if kind == "hall4":
-            # closest hit only: the main path's frame, captured at B1's wrapper
+            # closest hit only: the main path's frame, captured at B1's launches
             for n, (t, args, _) in enumerate(cs._closest_frame_calls(torch, scene, (flat, meta),
                                                                      "flat", W, H)):
                 assert t is table
@@ -229,8 +229,12 @@ def _cases(torch, path, kinds):
         if scene_name in ("san_miguel", "city", "hall", "hall4"):
             # any hit only: the first bounce's two shadow wavefronts, and on
             # the hall's BVH4 table all 10 of the frame, its main path's
-            _, calls = cs._shadow_calls(torch, scene, (flat, meta), W, H, use_kernels=False,
-                                        grid_packet=kind == "binary")
+            # the plain walk; the binary hall's over both of the "packet" route's binary
+            # tables (CHAMELEONRT_PACKET=0 keeps that route's tables and turns its kernels off)
+            binary = kind == "binary"
+            with cs._env(**({"CHAMELEONRT_PACKET": "0"} if binary else {})):
+                _, calls = cs._shadow_calls(torch, scene, (flat, meta), W, H,
+                                            traversal="packet" if binary else "plain")
             shadows = ([f"shadow{n}" for n in range(len(calls))] if kind == "hall4"
                        else ["shadow_light", "shadow_bsdf"])
             for shadow, (o, d, t_max, mask, occ) in zip(shadows, calls):

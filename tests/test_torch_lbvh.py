@@ -15,9 +15,9 @@ no-builder branches of engine/trace_bvh.py) against the JAX package's
   occluded (any) on the same lanes.
 - With native.get_lib() None: build_blas_set gives LBVH BlasPairs (one
   table in both slots, max_depth its height), and make_trace_fns routes
-  them through the kernels' wrappers under use_kernels=True, as a native
-  table of the same scene (the default, streamed, work-queue and
-  grid-packet routes; a multi-instance scene one call an instance).
+  them through the flat kernels, as a native table of the same scene (the
+  "auto", "stream", "persistent" and "packet" routes; a multi-instance
+  scene one launch an instance).
 - A 2x2-instance frame with no native builder against the JAX `tpu`
   backend with its native.get_lib patched to None (in the JAX frame's own
   process, tests/subproc_render.py says why), under
@@ -302,43 +302,41 @@ def test_instance_boxes_over_lbvh_equal_jax(monkeypatch):
         trace_bvh.compute_instance_aabbs(flat)
 
 
-# make_trace_fns's switches, and the kernel wrappers' suffix they pick
+# make_trace_fns's traversal, and the suffix of the KERNELS keys it picks
 ROUTES = {
-    "default": ({}, ""),
-    "stream": ({"stream": True}, "_stream"),
-    "queue": ({"slotlane": False}, "_persistent"),
-    "grid_packet": ({"grid_packet": True}, "_packet"),
+    "default": ("auto", ""),
+    "stream": ("stream", "_stream"),
+    "queue": ("persistent", "_persistent"),
+    "grid_packet": ("packet", "_packet"),
 }
 
 
 @pytest.mark.parametrize("uri", [FLAT, INSTANCED])
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_lbvh_tables_take_the_kernel_route(uri, route, monkeypatch):
-    """use_kernels=True on LBVH tables: every walk is one call of the flat
-    kernel wrapper that the route's switches pick (B1/B2, B5a/B5b,
-    B6a/B6b or B7a/B7b; on the CPU it runs the plain walk), one call an
-    instance in a multi-instance scene, each on a table whose certified
-    stack the kernels take; no two-level wrapper is called."""
+    """LBVH tables: every walk is one launch of the flat kernel that the
+    traversal picks (B1/B2, B5a/B5b, B6a/B6b or B7a/B7b; on the CPU it
+    runs the plain walk), one launch an instance in a multi-instance
+    scene, each on a table whose certified stack the kernels take; no
+    two-level kernel is launched."""
     flat, meta = _flat_scene(uri, monkeypatch)
+    for k in ("CHAMELEONRT_SLOTLANE", "CHAMELEONRT_PACKET"):
+        monkeypatch.delenv(k, raising=False)
     multi = meta.num_instances > 1
-    switches, suffix = ROUTES[route]
+    traversal, suffix = ROUTES[route]
     if multi and route == "grid_packet":
         with pytest.raises(ValueError, match="flat scenes only"):
-            trace_bvh.make_trace_fns(meta, blas=flat.blas, grid_packet=True)
+            trace_bvh.make_trace_fns(meta, "packet", blas=flat.blas)
         return
     calls = []
-
-    def record(name, fn):
-        def f(table, *args):
-            calls.append(name)
+    for name in ("launch_closest", "launch_any"):
+        def record(key, table, *args, _real=getattr(traverse_cuda, name)):
+            calls.append(key)
             assert traverse_cuda.stack_depth(table) == table.max_depth + 1
-            return fn(table, *args)
-        return f
+            return _real(key, table, *args)
 
-    for name in dir(traverse_cuda):
-        if name.startswith("traverse_"):
-            monkeypatch.setattr(traverse_cuda, name, record(name, getattr(traverse_cuda, name)))
-    closest, any_ = trace_bvh.make_trace_fns(meta, use_kernels=True, blas=flat.blas, **switches)
+        monkeypatch.setattr(traverse_cuda, name, record)
+    closest, any_ = trace_bvh.make_trace_fns(meta, traversal, blas=flat.blas)
     R = 64
     r = np.random.default_rng(3)
     o = torch.from_numpy(r.uniform(-0.5, 0.5, (R, 3)).astype(np.float32))
@@ -350,7 +348,7 @@ def test_lbvh_tables_take_the_kernel_route(uri, route, monkeypatch):
     assert hit.tri.dtype == torch.int32 and hit.inst.dtype == torch.int32
     assert (hit.tri >= 0).any() and occ.any()
     walks = len(meta.inst_mesh) if multi else 1
-    assert calls == [f"traverse_closest{suffix}"] * walks + [f"traverse_any{suffix}"] * walks
+    assert calls == [f"closest{suffix}"] * walks + [f"any{suffix}"] * walks
 
 
 def test_instanced_frame_without_builder_matches_jax(monkeypatch, tmp_path):

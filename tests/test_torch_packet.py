@@ -1,6 +1,6 @@
 """The port's grid-packet kernels B7a/B7b (ops/traverse_cuda.py
 traverse_closest_packet / traverse_any_packet) and their route
-(grid_packet=True) against the JAX package.
+(traversal "packet") against the JAX package.
 
 - The wrappers, which run the plain flat traversal on CPU tensors, against
   the JAX traverse_closest_packet / traverse_any_packet that they replace,
@@ -8,13 +8,11 @@ traverse_closest_packet / traverse_any_packet) and their route
   tests/test_traverse_packet.py's case: 3000 random triangles, 4096 sorted
   rays with 100 inactive, the same binary table (the JAX package's native
   binding over the port's library, test_torch_host).
-- The wrappers take binary rows of a flat table only and size the stack
-  from the certified depth.
-- The route: make_trace_fns(grid_packet=True) traces both hit kinds of a
-  flat scene on its binary table through B7a/B7b, whatever stream,
-  slotlane and CHAMELEONRT_CLOSEST_ARITY say, and refuses a multi-instance
-  scene; a grid_packet=True frame of the textured hall against the JAX
-  `tpu` backend under CHAMELEONRT_CLOSEST_ARITY=2.
+- The route: make_trace_fns(traversal "packet") traces both hit kinds of
+  a flat scene on its binary table through B7a/B7b, whatever
+  CHAMELEONRT_SLOTLANE and CHAMELEONRT_CLOSEST_ARITY say, and refuses a
+  multi-instance scene; a "packet" frame of the textured hall against the
+  JAX `tpu` backend under CHAMELEONRT_CLOSEST_ARITY=2.
 
 Tolerances are those of tests/test_torch_traverse.py (XLA on the CPU fuses
 multiply-adds, the port does not): t within rtol 1e-5, u/v within 2e-5;
@@ -36,16 +34,16 @@ from chameleonrt_tpu import native as jnative
 from chameleonrt_tpu.ops import traverse_packet as tp
 from chameleonrt_tpu.ops.lbvh import PackedBvh as JaxPackedBvh
 from chameleonrt_tpu.ops.traverse import ray_sort_perm
-from chameleonrt_tpu_torch import _build, native
+from chameleonrt_tpu_torch import native
 from chameleonrt_tpu_torch.core.registry import get_backend
 from chameleonrt_tpu_torch.engine import device_scene as tds
 from chameleonrt_tpu_torch.engine import trace_bvh as ttb
-from chameleonrt_tpu_torch.ops import traverse as plain
 from chameleonrt_tpu_torch.ops import traverse_cuda
 from chameleonrt_tpu_torch.scene.loader import load_scene
 from test_cross_backend import _assert_images_match, render_frames
 from test_torch_host import jax_native_on_port_library
 from test_torch_path_tracer import _render_port
+from test_torch_route import spy_launches
 
 torch.set_num_threads(1)
 
@@ -56,7 +54,6 @@ UV_ATOL = 2e-5
 HALL = "proc://hall?subdiv=1&textured=1&columns=4"
 CITY = "proc://city?n=8"
 INSTANCES = "proc://instances?nx=3&ny=3&subdiv=1"
-WRAPPERS = {"closest": traverse_cuda.traverse_closest_packet, "any": traverse_cuda.traverse_any_packet}
 
 
 @pytest.fixture(scope="module")
@@ -124,15 +121,6 @@ def test_any_packet_matches_jax_packet_kernel(soup, jax_closest):
     assert got.sum() > 0 and not got[~a].any()
 
 
-def _call(kind, table, R=8, t_max=None):
-    o, d = torch.full((R, 3), 0.1), torch.nn.functional.normalize(torch.ones((R, 3)), dim=1)
-    tmin, tmax = torch.full((R,), 1e-4), torch.full((R,), 1e20) if t_max is None else t_max
-    flag = torch.ones((R,), dtype=torch.bool)
-    if kind == "closest":
-        return WRAPPERS[kind](table, o, d, tmin, flag, tmax)
-    return WRAPPERS[kind](table, o, d, tmin, tmax, flag)
-
-
 @pytest.fixture(scope="module")
 def city():
     scene = load_scene(CITY)
@@ -147,128 +135,59 @@ def instances():
     return scene, flat._replace(blas=ttb.build_blas_set(flat, meta)), meta
 
 
-@pytest.mark.parametrize("kind", sorted(WRAPPERS))
-@pytest.mark.parametrize("fault", ["bvh4", "bvh8", "two_level", "dtype", "shape"])
-def test_packet_wrappers_take_binary_flat_tables_only(city, instances, kind, fault, monkeypatch):
-    """BVH4 and BVH8 rows, a two-level table, float64 node rows and a wrong
-    t_max shape raise before any traversal."""
-
-    def no_traversal(*args, **kwargs):
-        raise AssertionError("traversed what the kernels cannot take")
-
-    monkeypatch.setattr(plain, "traverse_closest", no_traversal)
-    monkeypatch.setattr(plain, "traverse_any", no_traversal)
-    table = city[1].blas[0].closest
-    t_max = None
-    if fault == "bvh4":
-        table = city[1].blas[0].any
-    elif fault == "bvh8":
-        table = table._replace(nodes=torch.zeros((4, 64)))
-    elif fault == "two_level":
-        table = instances[1].blas[0].closest
-    elif fault == "shape":
-        t_max = torch.full((9,), 1e20)
-    if fault == "dtype":
-        with pytest.raises(TypeError):
-            _call(kind, table._replace(nodes=table.nodes.double()))
-    else:
-        with pytest.raises(ValueError):
-            _call(kind, table, t_max=t_max)
-
-
-@pytest.mark.parametrize("kind", sorted(WRAPPERS))
-def test_packet_wrappers_pass_the_certified_stack_depth(city, kind, monkeypatch):
-    """The stack is the certified binary depth + 1, as the TPU kernels size
-    theirs (traverse_packet.py:2406, :2454): a depth of 48 gives 49; one of
-    MAX_STACK raises before any traversal, as in B1-B6d."""
-    table = city[1].blas[0].closest
-    seen = []
-    real = traverse_cuda.stack_depth
-    monkeypatch.setattr(traverse_cuda, "stack_depth", lambda t: seen.append(real(t)) or seen[-1])
-    _call(kind, table._replace(max_depth=48))
-    assert seen == [49]
-    monkeypatch.setattr(_build, "kernels", None)
-    with pytest.raises(ValueError, match="stack depth"):
-        _call(kind, table._replace(max_depth=_build.MAX_STACK))
-
-
-def test_packet_wrappers_route_cpu_tensors_to_plain_without_counting(city):
-    table = city[1].blas[0].closest
-    g = torch.Generator().manual_seed(7)
-    R = 300
-    o = torch.rand((R, 3), generator=g) * 2 - 1
-    d = torch.nn.functional.normalize(torch.randn((R, 3), generator=g), dim=1)
-    tmin, tmax = torch.full((R,), 1e-4), torch.full((R,), 30.0)
-    flag = torch.rand((R,), generator=g) > 0.2
-    before = dict(traverse_cuda.LAUNCHES)
-    got = traverse_cuda.traverse_closest_packet(table, o, d, tmin, flag, tmax)
-    ref = plain.traverse_closest(table, o, d, tmin, flag, tmax)
-    assert all(torch.equal(x, y) for x, y in zip(got, ref))
-    assert torch.equal(traverse_cuda.traverse_any_packet(table, o, d, tmin, tmax, flag),
-                       plain.traverse_any(table, o, d, tmin, tmax, flag))
-    assert traverse_cuda.LAUNCHES == before
-
-
-@pytest.mark.parametrize("kwargs, env", [
-    ({}, {}),
-    ({"stream": True}, {}),
-    ({"slotlane": False}, {"CHAMELEONRT_CLOSEST_ARITY": "4"}),
-    ({"stream": False, "slotlane": True}, {"CHAMELEONRT_CLOSEST_ARITY": "2"}),
+@pytest.mark.parametrize("env", [
+    {},
+    {"CHAMELEONRT_SLOTLANE": "1"},
+    {"CHAMELEONRT_SLOTLANE": "0", "CHAMELEONRT_CLOSEST_ARITY": "4"},
+    {"CHAMELEONRT_CLOSEST_ARITY": "2"},
 ])
-def test_grid_packet_routes_both_hit_kinds_through_b7_on_the_binary_table(city, kwargs, env,
-                                                                          monkeypatch):
-    """grid_packet=True: closest and any hit of a flat scene both trace its
-    binary table (16 floats a row) through B7a and B7b, whatever stream,
-    slotlane and CHAMELEONRT_CLOSEST_ARITY say."""
+def test_grid_packet_routes_both_hit_kinds_through_b7_on_the_binary_table(city, env, monkeypatch):
+    """Traversal "packet": closest and any hit of a flat scene both trace
+    its binary table (16 floats a row) through B7a and B7b, whatever
+    CHAMELEONRT_SLOTLANE and CHAMELEONRT_CLOSEST_ARITY say."""
     _, flat, meta = city
+    for k in ("CHAMELEONRT_SLOTLANE", "CHAMELEONRT_CLOSEST_ARITY", "CHAMELEONRT_PACKET"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    calls = []
-    for name in ("traverse_closest_packet", "traverse_any_packet"):
-        real = getattr(traverse_cuda, name)
-
-        def spy(table, *args, _real=real, _name=name):
-            calls.append((_name, table.nodes.shape[1]))
-            return _real(table, *args)
-
-        monkeypatch.setattr(traverse_cuda, name, spy)
-    closest, any_ = ttb.make_trace_fns(meta, blas=flat.blas, grid_packet=True, **kwargs)
+    calls = spy_launches(monkeypatch, tables=True)
+    closest, any_ = ttb.make_trace_fns(meta, "packet", blas=flat.blas)
     g = torch.Generator().manual_seed(3)
     o = torch.rand((64, 3), generator=g) * 2 - 1
     d = torch.nn.functional.normalize(torch.randn((64, 3), generator=g), dim=1)
     active = torch.ones((64,), dtype=torch.bool)
     hit = closest(flat, o, d, 1e-4, active)
     any_(flat, o, d, torch.where(hit.tri >= 0, hit.t, torch.full_like(hit.t, 30.0)), active)
-    assert calls == [("traverse_closest_packet", 16), ("traverse_any_packet", 16)]
+    assert calls == [("closest_packet", 16), ("any_packet", 16)]
 
 
 def test_grid_packet_refuses_a_multi_instance_scene(instances):
     """The JAX package has no two-level grid-packet kernel: make_trace_fns
-    and the backend's set_scene raise ValueError."""
+    and the backend's set_scene raise ValueError, with the kernels off
+    (CHAMELEONRT_PACKET=0) too."""
     scene, flat, meta = instances
-    with pytest.raises(ValueError, match="grid_packet"):
-        ttb.make_trace_fns(meta, blas=flat.blas, grid_packet=True)
-    with pytest.raises(ValueError, match="grid_packet"):
-        ttb.make_trace_fns(meta, use_kernels=False, grid_packet=True)
-    b = get_backend("cuda", device="cpu", grid_packet=True)
+    with pytest.raises(ValueError, match="packet traversal"):
+        ttb.make_trace_fns(meta, "packet", blas=flat.blas)
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("CHAMELEONRT_PACKET", "0")
+        with pytest.raises(ValueError, match="packet traversal"):
+            ttb.make_trace_fns(meta, "packet")
+    b = get_backend("cuda", device="cpu", traversal="packet")
     b.initialize(8, 8)
-    with pytest.raises(ValueError, match="grid_packet"):
+    with pytest.raises(ValueError, match="packet traversal"):
         b.set_scene(scene)
 
 
 def test_grid_packet_frame_matches_jax_tpu_backend(tmp_path, monkeypatch):
-    """A grid_packet=True frame of the textured hall on the CPU (both hit
-    kinds on the binary table) against the JAX tpu backend with closest
-    hit on the binary table (CHAMELEONRT_CLOSEST_ARITY=2), the JAX
-    engine's table for B7a."""
+    """A "packet" frame of the textured hall on the CPU (both hit kinds on
+    the binary table) against the JAX tpu backend with closest hit on the
+    binary table (CHAMELEONRT_CLOSEST_ARITY=2), the JAX engine's table for
+    B7a."""
     monkeypatch.setenv("CHAMELEONRT_CLOSEST_ARITY", "2")
     img_ref, acc_ref, _ = render_frames("tpu", HALL, 40, 1, tmpdir=str(tmp_path))
-    calls = []
-    real = traverse_cuda.traverse_closest_packet
-    monkeypatch.setattr(traverse_cuda, "traverse_closest_packet",
-                        lambda *a: calls.append(1) or real(*a))
-    b = _render_port(HALL, 40, 1, grid_packet=True)
+    launches = spy_launches(monkeypatch)
+    b = _render_port(HALL, 40, 1, traversal="packet")
     acc = b._accum.numpy()
     assert np.isfinite(acc).all() and acc.max() > 0
     _assert_images_match(img_ref, b.img[..., :3].astype(np.float32), acc_ref, acc)
-    assert len(calls) == 5
+    assert launches.count("closest_packet") == 5

@@ -1,6 +1,7 @@
 """The port's path tracer against chameleonrt_tpu's.
 
-- One shading stage (_shade_bounce) on the same lanes, tables and hits.
+- One shading stage (ops/shade_cuda.py's _shade_bounce against the JAX
+  path tracer's) on the same lanes, tables and hits.
 - Whole frames: the port's `cuda` backend on the port's own loader's
   scene, on the CPU (plain traversal), against the JAX `tpu` backend
   rendered in its own process by
@@ -23,7 +24,7 @@ from chameleonrt_tpu.ops import rng as jrng
 from chameleonrt_tpu.scene.loader import load_scene as jax_load_scene
 from chameleonrt_tpu_torch import convert, native
 from chameleonrt_tpu_torch.core import get_backend
-from chameleonrt_tpu_torch.engine import path_tracer as tpt
+from chameleonrt_tpu_torch.ops import shade_cuda
 from chameleonrt_tpu_torch.scene.loader import load_scene
 from test_cross_backend import _assert_images_match, render_frames
 
@@ -107,8 +108,8 @@ def _shade_both(uri):
         x = np.asarray(x)
         return torch.from_numpy(x.astype(np.int64) if x.dtype == np.uint32 else x.copy())
 
-    got = tpt._shade_bounce(flat, meta, bounce, t(state), t(orig), t(dirs), t(tp), t(active),
-                            t(hit_p), t(hit.tri), t(hit.inst), t(hit.u), t(hit.v))
+    got = shade_cuda._shade_bounce(flat, meta, bounce, t(state), t(dirs), t(tp), t(active),
+                                   t(hit_p), t(hit.tri), t(hit.inst), t(hit.u), t(hit.v))
     return got, want, np.asarray(active), hit
 
 

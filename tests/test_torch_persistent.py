@@ -13,11 +13,11 @@ against the JAX package.
   package's native binding over the port's library
   (test_torch_host.jax_native_on_port_library), the two-level JAX table is
   built from the port's arrays.
-- The route: make_trace_fns with slotlane False / True / None (None reads
-  CHAMELEONRT_SLOTLANE as the JAX package does), for a flat and a
-  two-level scene and every stream value; the backend passes slotlane on.
-- The new wrappers' stack sizing, input checks and CPU dispatch.
-- The whole slice: the `cuda` backend on the CPU with slotlane=False
+- The route: make_trace_fns with each kernel traversal under
+  CHAMELEONRT_SLOTLANE (read as the JAX package reads it; it moves "auto"
+  only), for a flat and a two-level scene; the backend passes its
+  traversal on.
+- The whole slice: the `cuda` backend on the CPU with traversal "persistent"
   against the JAX `tpu` backend, held to tests/test_cross_backend.py's
   _assert_images_match, on a flat and an instanced scene.
 - chip_smoke.py's contract for these kernels: every launch count has a
@@ -45,7 +45,7 @@ from chameleonrt_tpu.ops import traverse_packet as tp
 from chameleonrt_tpu.ops.lbvh import PackedBvh as JaxPackedBvh
 from chameleonrt_tpu.ops.lbvh import UnifiedBvh as JaxUnifiedBvh
 from chameleonrt_tpu.ops.traverse import ray_sort_perm
-from chameleonrt_tpu_torch import _build, native
+from chameleonrt_tpu_torch import native
 from chameleonrt_tpu_torch.core.registry import get_backend
 from chameleonrt_tpu_torch.engine import device_scene as tds
 from chameleonrt_tpu_torch.engine import trace_bvh as ttb
@@ -55,6 +55,7 @@ from chameleonrt_tpu_torch.scene.loader import load_scene
 from test_cross_backend import _assert_images_match, render_frames
 from test_torch_host import jax_native_on_port_library
 from test_torch_path_tracer import _render_port
+from test_torch_route import spy_launches
 
 torch.set_num_threads(1)
 
@@ -67,15 +68,6 @@ UNIFIED_UV_ATOL = 5e-5
 CITY = "proc://city?n=8"
 INSTANCES = "proc://instances?nx=3&ny=3&subdiv=1"
 FACTORS = {"closest": None, "any_1.001": 1.001, "any_0.999": 0.999}
-
-# name -> (wrapper, kind, two-level)
-WRAPPERS = {
-    "closest_persistent": (traverse_cuda.traverse_closest_persistent, "closest", False),
-    "any_persistent": (traverse_cuda.traverse_any_persistent, "any", False),
-    "closest_unified_persistent": (traverse_cuda.traverse_closest_unified_persistent, "closest", True),
-    "any_unified_persistent": (traverse_cuda.traverse_any_unified_persistent, "any", True),
-}
-
 
 def _torch(*xs):
     return tuple(torch.from_numpy(np.array(x)) for x in xs)
@@ -209,20 +201,6 @@ def city():
     return scene, flat._replace(blas=ttb.build_blas_set(flat, meta)), meta
 
 
-def _spy_all(monkeypatch):
-    """Record every traverse_cuda wrapper the trace functions call."""
-    calls = []
-    for name in traverse_cuda.LAUNCHES:
-        real = getattr(traverse_cuda, f"traverse_{name}")
-
-        def spy(*args, _name=name, _real=real):
-            calls.append(_name)
-            return _real(*args)
-
-        monkeypatch.setattr(traverse_cuda, f"traverse_{name}", spy)
-    return calls
-
-
 def _trace_once(fns, flat):
     closest, any_ = fns
     g = torch.Generator().manual_seed(3)
@@ -234,145 +212,56 @@ def _trace_once(fns, flat):
 
 
 @pytest.mark.parametrize("scene", ["flat", "two_level"])
-@pytest.mark.parametrize("stream", [None, True, False])
-@pytest.mark.parametrize("slotlane, env, want", [
-    (False, None, "_persistent"),
-    (None, "0", "_persistent"),
-    (None, "off", "_persistent"),
-    (None, "false", "_persistent"),
-    (None, None, "slotlane"),
-    (None, "1", "slotlane"),
-    (True, "0", "slotlane"),
-])
-def test_make_trace_fns_routes_by_slotlane(city, instances, scene, stream, slotlane, env, want,
-                                           monkeypatch):
-    """slotlane=False, or CHAMELEONRT_SLOTLANE 0 / off / false with
-    slotlane=None, routes every scene to B6a/B6b or B6c/B6d whatever
-    stream says, without the tier gate; otherwise the slot-lane tier keeps
-    its routes (stream=True: B5, False: B1-B4, None: the gate, whose L2
-    budget here holds the table)."""
+@pytest.mark.parametrize("traversal", ["auto", "lane", "stream", "persistent"])
+@pytest.mark.parametrize("env", [None, "0", "off", "false", "1", "true"])
+def test_make_trace_fns_routes_by_slotlane(city, instances, scene, traversal, env, monkeypatch):
+    """"persistent", or "auto" under CHAMELEONRT_SLOTLANE 0 / off / false,
+    routes every scene to B6a/B6b or B6c/B6d without the tier gate; "auto"
+    otherwise asks the gate (a table on the CPU stays in B1-B4), and "lane"
+    and "stream" keep their tiers whatever the variable says."""
     _, flat, meta = city if scene == "flat" else instances
     if env is None:
         monkeypatch.delenv("CHAMELEONRT_SLOTLANE", raising=False)
     else:
         monkeypatch.setenv("CHAMELEONRT_SLOTLANE", env)
-    calls = _spy_all(monkeypatch)
-    blas = None if want == "_persistent" else flat.blas  # the work-queue route needs no gate
-    fns = ttb.make_trace_fns(meta, stream=stream, blas=blas, l2_bytes=1 << 40, slotlane=slotlane)
-    _trace_once(fns, flat)
+    monkeypatch.delenv("CHAMELEONRT_PACKET", raising=False)
+    calls = spy_launches(monkeypatch)
+    queue = traversal == "persistent" or (traversal == "auto" and env in ("0", "off", "false"))
+    blas = None if queue else flat.blas  # the work-queue route needs no gate
+    _trace_once(ttb.make_trace_fns(meta, traversal, blas=blas), flat)
     kind = "_unified" if scene == "two_level" else ""
-    tier = want if want == "_persistent" else "_stream" if stream else ""
+    tier = "_persistent" if queue else "_stream" if traversal == "stream" else ""
     assert calls == [f"closest{kind}{tier}", f"any{kind}{tier}"]
 
 
 @pytest.mark.parametrize("value", ["0", "false", "off", "1", "true", "on", ""])
-def test_slotlane_switch_reads_the_environment_as_the_jax_package(value, monkeypatch):
+def test_slotlane_switch_reads_the_environment_as_the_jax_package(city, value, monkeypatch):
+    """CHAMELEONRT_SLOTLANE turns "auto" to the work-queue kernels exactly
+    where the JAX package's reader turns its slot-lane tier off."""
     monkeypatch.setenv("CHAMELEONRT_SLOTLANE", value)
-    assert ttb.slotlane_enabled() == jtb._slotlane_enabled()
-    assert ttb.slotlane_enabled(True) and not ttb.slotlane_enabled(False)
+    monkeypatch.delenv("CHAMELEONRT_PACKET", raising=False)
+    route = ttb.choose_route("auto", 1, False, city[1].blas[0].any)
+    assert (route.closest == "closest_persistent") == (not jtb._slotlane_enabled())
 
 
 def test_backend_passes_slotlane_on(instances, monkeypatch):
-    """get_backend("cuda", slotlane=False) hands the switch to
-    make_trace_fns, as it hands on stream; plain traversal still wins over
-    it (use_kernels=False)."""
+    """get_backend("cuda", traversal="persistent") hands its traversal to
+    make_trace_fns; "auto" is the default; "plain" traces no kernel."""
     scene, _, _ = instances
     monkeypatch.delenv("CHAMELEONRT_SLOTLANE", raising=False)
-    calls = _spy_all(monkeypatch)
-    b = get_backend("cuda", device="cpu", slotlane=False, stream=True)
-    assert b.slotlane is False
+    calls = spy_launches(monkeypatch)
+    b = get_backend("cuda", device="cpu", traversal="persistent")
+    assert b.traversal == "persistent"
     b.initialize(8, 8)
     b.set_scene(scene)
     _trace_once(b._trace, b.flat)
     assert calls == ["closest_unified_persistent", "any_unified_persistent"]
-    assert get_backend("cuda", device="cpu").slotlane is None
-    plain_b = get_backend("cuda", device="cpu", use_kernels=False, slotlane=False)
+    assert get_backend("cuda", device="cpu").traversal == "auto"
+    plain_b = get_backend("cuda", device="cpu", traversal="plain")
     plain_b.initialize(8, 8)
     plain_b.set_scene(scene)
     _trace_once(plain_b._trace, plain_b.flat)
     assert len(calls) == 2
-
-
-def _call(name, table, o, d, t_max=None):
-    fn, kind, _ = WRAPPERS[name]
-    R = o.shape[0]
-    tmin = torch.full((R,), 1e-4)
-    tmax = torch.full((R,), 1e20) if t_max is None else t_max
-    flag = torch.ones((R,), dtype=torch.bool)
-    if kind == "closest":
-        return fn(table, o, d, tmin, flag, tmax)
-    return fn(table, o, d, tmin, tmax, flag)
-
-
-def _table(name, city, instances):
-    return (instances if WRAPPERS[name][2] else city)[1].blas[0].any
-
-
-@pytest.mark.parametrize("name", sorted(WRAPPERS))
-def test_persistent_wrappers_pass_the_certified_stack_depth(city, instances, name, monkeypatch):
-    """A certified bound of 48 (the soup's stack4) gives the kernels a stack
-    of 49, as for B1-B5d; a bound of MAX_STACK raises before any traversal."""
-    table = _table(name, city, instances)
-    bound = "stack_bound" if WRAPPERS[name][2] else "max_depth"
-    seen = []
-    real = traverse_cuda.stack_depth
-    monkeypatch.setattr(traverse_cuda, "stack_depth", lambda t: seen.append(real(t)) or seen[-1])
-    o, d = torch.full((16, 3), 0.1), torch.nn.functional.normalize(torch.ones((16, 3)), dim=1)
-    _call(name, table._replace(**{bound: 48}), o, d)
-    assert seen == [49]
-    monkeypatch.setattr(_build, "kernels", None)
-    with pytest.raises(ValueError, match="stack depth"):
-        _call(name, table._replace(**{bound: _build.MAX_STACK}), o, d)
-
-
-@pytest.mark.parametrize("name", sorted(WRAPPERS))
-@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity", "arity", "device_mix"])
-def test_persistent_wrappers_refuse_what_the_kernels_do_not_take(city, instances, name, fault):
-    """float64 rays, a wrong t_max shape, non-contiguous directions, node
-    rows of 24 floats (arity 3: the kernels take 2, 4 and 8) and inputs
-    on two devices raise before any traversal."""
-    table = _table(name, city, instances)
-    R = 8
-    o = torch.full((R, 3), 0.1)
-    d = torch.nn.functional.normalize(torch.ones((R, 3)), dim=1)
-    t_max = None
-    if fault == "dtype":
-        o = o.double()
-    elif fault == "shape":
-        t_max = torch.full((R + 1,), 1e20)
-    elif fault == "contiguity":
-        d = torch.from_numpy(np.asfortranarray(d.numpy()))
-        assert not d.is_contiguous()
-    elif fault == "arity":
-        table = table._replace(nodes=table.nodes[:, :24].contiguous())
-    else:
-        t_max = torch.full((R,), 1e20, device="meta")
-    with pytest.raises(TypeError if fault == "dtype" else ValueError):
-        _call(name, table, o, d, t_max)
-
-
-@pytest.mark.parametrize("name", sorted(WRAPPERS))
-def test_persistent_wrappers_route_cpu_tensors_to_plain_without_counting(city, instances, name):
-    table = _table(name, city, instances)
-    fn, kind, unified = WRAPPERS[name]
-    g = torch.Generator().manual_seed(7)
-    R = 200
-    o = torch.rand((R, 3), generator=g) * 2 - 1
-    d = torch.nn.functional.normalize(torch.randn((R, 3), generator=g), dim=1)
-    tmin = torch.full((R,), 1e-4)
-    tmax = torch.full((R,), 30.0)
-    flag = torch.rand((R,), generator=g) > 0.2
-    before = dict(traverse_cuda.LAUNCHES)
-    if kind == "closest":
-        ref = (plain.traverse_closest_unified if unified else plain.traverse_closest)(
-            table, o, d, tmin, flag, tmax)
-        got = fn(table, o, d, tmin, flag, tmax)
-        assert all(torch.equal(x, y) for x, y in zip(got, ref))
-    else:
-        ref = (plain.traverse_any_unified if unified else plain.traverse_any)(
-            table, o, d, tmin, tmax, flag)
-        assert torch.equal(fn(table, o, d, tmin, tmax, flag), ref)
-    assert traverse_cuda.LAUNCHES == before
 
 
 @pytest.mark.parametrize("uri, res, n_frames, unified", [
@@ -381,12 +270,12 @@ def test_persistent_wrappers_route_cpu_tensors_to_plain_without_counting(city, i
 ])
 def test_persistent_backend_frames_match_jax_tpu_backend(uri, res, n_frames, unified, tmp_path,
                                                          monkeypatch):
-    """The whole slice: the cuda backend on the CPU with slotlane=False
-    (each bounce traces through the B6 wrappers) against the JAX tpu
-    backend."""
-    calls = _spy_all(monkeypatch)
+    """The whole slice: the cuda backend on the CPU with traversal
+    "persistent" (each bounce traces through the B6 kernels' launches)
+    against the JAX tpu backend."""
+    calls = spy_launches(monkeypatch)
     img_ref, acc_ref, _ = render_frames("tpu", uri, res, n_frames, tmpdir=str(tmp_path))
-    b = _render_port(uri, res, n_frames, slotlane=False)
+    b = _render_port(uri, res, n_frames, traversal="persistent")
     acc = b._accum.numpy()
     assert np.isfinite(acc).all() and acc.max() > 0
     _assert_images_match(img_ref, b.img[..., :3].astype(np.float32), acc_ref, acc)
@@ -448,7 +337,7 @@ def test_chip_smoke_holds_every_per_lane_closest_kernel_exactly():
     closest = {pair[0][0] for pair in cs._PATHS.values()}
     assert closest == {"B1", "B3", "B5a", "B5c", "B6a", "B6c", "B7a"}
     assert closest <= set(cs.EXACT)
-    assert cs._CLOSEST_FRAME["persistent"] == {"slotlane": False}
+    assert cs._CLOSEST_FRAME["persistent"] == {"traversal": "persistent"}
     assert {cs._PATHS[p][0][0] for p in cs._CLOSEST_FRAME} == {"B1", "B5a", "B6a", "B7a"}
 
 

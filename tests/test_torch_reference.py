@@ -216,7 +216,7 @@ def test_brute_force_matches_the_bvh_walk_on_the_gate_wavefront():
     R = orig.shape[0]
     active = torch.ones(R, dtype=torch.bool)
     active[::9] = False
-    bvh_closest, bvh_any = trace_bvh.make_trace_fns(meta, use_kernels=False)
+    bvh_closest, bvh_any = trace_bvh.make_trace_fns(meta, "plain")
     bf_closest, bf_any = trace_bruteforce.make_trace_fns(meta)
     want, got = bvh_closest(flat, orig, dirs, 0.0, active), bf_closest(flat, orig, dirs, 0.0, active)
     mism = got.tri != want.tri

@@ -11,8 +11,9 @@ levels 1 (the spheres) and 3 (the ground), 64x48 pixels, 2 spp.
   the sRGB8 image and the ray counts within the cell's limits, with the
   RNG seeded alike; the reference with bfloat16 state fails them.
 - The counters this scene feeds: off, a frame records nothing and adds no
-  sync span; on, lanes.metallic, lanes.transmissive, the set-up's tables.*
-  and one frame.sample span a sample.
+  sync span; on, lanes.shaded, the set-up's tables.* and one frame.sample
+  span a sample; the route "auto" picks for its two-level table on either
+  side of the L2 gate.
 """
 
 import copy
@@ -278,67 +279,39 @@ def test_on_the_counters_and_spans_read_as_documented(small_scene):
     # each sample's camera and bounces nest in its frame.sample; the frame's own
     # set-up (its pixel ids and sums) is the one frame.camera outside them
     for name, n in (("frame.camera", SPP), ("bounce.closest", 5 * SPP), ("bounce.shade", 5 * SPP),
-                    ("bounce.lobes", 5 * SPP), ("bounce.any", 5 * SPP)):
+                    ("bounce.any", 5 * SPP)):
         assert sum(1 for i, sp in enumerate(spans) if sp[0] == name and in_sample(i)) == n, name
     assert sum(1 for i, sp in enumerate(spans) if sp[0] == "frame.camera" and not in_sample(i)) == 1
-    assert all(spans[sp[1]][0] == "bounce.compact" for sp in spans if sp[0] == "bounce.lobes")
     summary = tracing.frame_summary()
     counts, setup = summary["counts"], summary["setup_counts"]
-    # one nonzero sync a bounce a sample, one ray count: the lobe counters add none
+    # one nonzero sync a bounce a sample, one ray count
     assert counts["host_syncs"] == 5 * SPP + 1
     assert counts["rays.closest"] + counts["rays.any"] == stats.rays_traced
-    assert 0 < counts["lanes.metallic"] < counts["lanes.shaded"]
-    assert 0 < counts["lanes.transmissive"] < counts["lanes.shaded"]
-    assert counts["lanes.metallic"] + counts["lanes.transmissive"] < counts["lanes.shaded"]
+    assert 0 < counts["lanes.shaded"] <= counts["rays.closest"]
     n = len(scene.instances)
     assert setup["tables.instances"] == n and setup["tables.triangles"] == scene.unique_tris()
     blas = b.flat.blas[0]
     distinct = {t.data_ptr(): t.numel() * 4 for t in (blas.closest.nodes, blas.closest.leaf_rows,
                                                       blas.any.nodes, blas.any.leaf_rows)}
     assert setup["tables.bytes"] == sum(distinct.values()) > 0
-    assert setup["tables.streamed"] == 0  # a table on the CPU stays in the B1-B4 tier
 
 
-def test_tables_streamed_counts_the_tier_the_trace_functions_took(small_scene):
+def test_tables_streamed_counts_the_tier_the_trace_functions_took(small_scene, monkeypatch):
+    """The route "auto" takes for the scene's two-level table: B5c/B5d of
+    the streamed tier where the table exceeds the L2 (l2_bytes one byte
+    short of it), B3/B4 where it fits; a table on the CPU, which has no L2,
+    stays in the B1-B4 tier."""
+    from chameleonrt_tpu_torch.engine import trace_bvh
+
+    monkeypatch.delenv("CHAMELEONRT_SLOTLANE", raising=False)
+    monkeypatch.delenv("CHAMELEONRT_PACKET", raising=False)
     scene = small_scene[0]
-    for stream, streamed in ((True, 1), (False, 0)):
-        tracing.enable(True)
-        b = get_backend("cuda", device="cpu", stream=stream)
-        b.initialize(W, H)
-        b.set_scene(scene)
-        assert tracing.frame_summary()["setup_counts"]["tables.streamed"] == streamed
-
-
-@pytest.mark.parametrize("instanced", [True, False])
-def test_the_lobe_counts_match_the_hit_materials(instanced):
-    """_count_lobes on hand-made lanes: the lanes whose material has
-    metallic > 0 or transmission > 0, the materials found through each
-    lane's instance (instanced) or in the one instance's shade rows."""
-    from chameleonrt_tpu_torch.engine import path_tracer
-    from chameleonrt_tpu_torch.engine.device_scene import build_device_scene
-    from chameleonrt_tpu_torch.scene.types import (DisneyMaterial, Geometry, Instance, Mesh,
-                                                   ParameterizedMesh, Scene)
-
-    v = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
-    tri = np.array([[0, 1, 2]])
-    mats = [DisneyMaterial(metallic=1.0), DisneyMaterial(specular_transmission=1.0), DisneyMaterial()]
-    if instanced:  # one triangle, instanced with materials 0, 1, 2, 0
-        scene = Scene(meshes=[Mesh([Geometry(v, tri)])],
-                      parameterized_meshes=[ParameterizedMesh(0, [m]) for m in range(3)],
-                      instances=[Instance(np.eye(4), p) for p in (0, 1, 2, 0)], materials=mats)
-        lanes = (torch.zeros(6, dtype=torch.int32), torch.tensor([0, 1, 2, 3, 3, 1], dtype=torch.int32))
-    else:  # three geometries of one mesh, instanced once, with materials 0, 1, 2
-        scene = Scene(meshes=[Mesh([Geometry(v, tri) for _ in range(3)])],
-                      parameterized_meshes=[ParameterizedMesh(0, [0, 1, 2])],
-                      instances=[Instance(np.eye(4), 0)], materials=mats)
-        lanes = (torch.tensor([0, 1, 2, 0, 0, 1], dtype=torch.int32), torch.zeros(6, dtype=torch.int32))
-    flat, meta = build_device_scene(scene, torch.device("cpu"))
-    tracing.enable(True)
-    with tracing.span("frame"):
-        path_tracer._count_lobes(flat, meta, *lanes)
-        tracing.read_with(torch.zeros((), dtype=torch.int64))
-    counts = tracing.frame_summary()["counts"]
-    assert (counts["lanes.metallic"], counts["lanes.transmissive"]) == (3, 2)
+    b = _backend(scene)
+    table = b.flat.blas[0].any
+    n, size = len(scene.instances), trace_bvh.table_bytes(table)
+    for l2, want in ((size - 1, "_stream"), (size, ""), (None, "")):
+        route = trace_bvh.choose_route("auto", n, True, table, l2_bytes=l2)
+        assert route == (f"closest_unified{want}", f"any_unified{want}", "any", "any"), l2
 
 
 def test_a_sample_that_left_float32_is_dropped(small_scene, monkeypatch):

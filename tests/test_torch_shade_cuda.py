@@ -6,7 +6,7 @@ imports, so there the file runs without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_shade_cuda.py
 
-  - S1 against the plain shading (engine/path_tracer.py's _shade_bounce,
+  - S1 against the plain shading (ops/shade_cuda.py's _shade_bounce,
     torch's CUDA ops) on the same CUDA lanes: every shading call of a frame
     of each of tests/shade_scenes.py's scenes. Both sides are built with
     -fmad=false and call CUDA's own math functions, so every field should
@@ -29,7 +29,6 @@ import torch
 from shade_scenes import SCENES, frame_lanes
 
 from chameleonrt_tpu_torch.core import get_backend, tracing
-from chameleonrt_tpu_torch.engine import path_tracer
 from chameleonrt_tpu_torch.ops import shade_cuda
 from chameleonrt_tpu_torch.scene.loader import load_scene
 
@@ -58,7 +57,7 @@ def test_s1_matches_the_plain_shading(card, name):
     assert [c[2] for c in calls] == list(range(5))
     for flat, meta, bounce, lanes in calls:
         R = lanes[0].shape[0]
-        want = path_tracer._shade_bounce(flat, meta, bounce, *lanes)
+        want = shade_cuda._shade_bounce(flat, meta, bounce, *lanes)
         got = shade_cuda.shade_bounce(flat, meta, bounce, *lanes)
         torch.cuda.synchronize()
         assert torch.equal(got.state, want.state), (name, bounce)
@@ -90,7 +89,7 @@ def _cornell_frame(card, spp=1):
 
 def test_a_frame_through_s1_is_the_plain_shadings_frame(card, monkeypatch):
     stats, img = _cornell_frame(card)
-    monkeypatch.setattr(shade_cuda, "shade_bounce", path_tracer._shade_bounce)
+    monkeypatch.setattr(shade_cuda, "shade_bounce", shade_cuda._shade_bounce)
     plain_stats, plain_img = _cornell_frame(card)
     assert stats.rays_traced == plain_stats.rays_traced
     diff = np.abs(img.astype(np.int16) - plain_img.astype(np.int16)).max(-1)

@@ -17,7 +17,7 @@ tests/shade_scenes.py's scenes: the Cornell Box, with anisotropic metal,
 clearcoat, sheen and a rough dielectric hit from both sides, with rotated
 instances inside it, and with three lights, and the textured hall.
 
-Two comparisons with engine/path_tracer.py's _shade_bounce:
+Two comparisons with ops/shade_cuda.py's _shade_bounce:
   - exact: the harness's sinf, cosf, logf and powf, and the plain
     version's torch.sqrt, sin, cos, log and pow, are the correctly rounded
     ones (computed in double, rounded once), so that both sides round
@@ -47,7 +47,6 @@ import torch
 from shade_scenes import SCENES, frame_lanes
 
 from chameleonrt_tpu_torch import _build
-from chameleonrt_tpu_torch.engine import path_tracer
 from chameleonrt_tpu_torch.ops import rng, shade_cuda
 
 torch.set_num_threads(1)
@@ -143,7 +142,7 @@ def frame(request):
 def _run_harness(harness, flat, meta, bounce, lanes):
     outs = shade_cuda.empty_outputs(lanes[0].shape[0], "cpu")
     assert harness.shade_all(*shade_cuda.launch_args(flat, meta, bounce, lanes, outs)) == 0
-    return path_tracer.ShadeOut(*outs)
+    return shade_cuda.ShadeOut(*outs)
 
 
 def _in_double(fn):
@@ -188,7 +187,7 @@ def test_shade_lane_is_bit_equal_to_the_plain_shading(harness, frame, bounce, ro
     name, calls = frame
     flat, meta, b, lanes = calls[bounce]
     assert b == bounce
-    want = path_tracer._shade_bounce(flat, meta, bounce, *lanes)
+    want = shade_cuda._shade_bounce(flat, meta, bounce, *lanes)
     got = _run_harness(harness, flat, meta, bounce, lanes)
     for field in want._fields:
         a, w = getattr(got, field), getattr(want, field)
@@ -207,7 +206,7 @@ def test_shade_lane_agrees_with_torchs_own_functions(harness, name):
     into more than 1e-5."""
     _, calls = _frame(name)
     for flat, meta, bounce, lanes in calls:
-        want = path_tracer._shade_bounce(flat, meta, bounce, *lanes)
+        want = shade_cuda._shade_bounce(flat, meta, bounce, *lanes)
         got = _run_harness(harness, flat, meta, bounce, lanes)
         assert torch.equal(got.state, want.state), (name, bounce)
         same = torch.ones_like(want.shoot1)
@@ -228,19 +227,19 @@ def test_the_scenes_reach_every_branch(frame):
     anisotropic, clearcoat and sheen lanes, a textured material, every
     instance, every light picked."""
     name, calls = frame
-    shots = [path_tracer._shade_bounce(flat, meta, b, *lanes) for flat, meta, b, lanes in calls]
+    shots = [shade_cuda._shade_bounce(flat, meta, b, *lanes) for flat, meta, b, lanes in calls]
     assert sum(int(s.shoot1.sum()) for s in shots) > 0 and sum(int(s.shoot2.sum()) for s in shots) > 0
     # bounces 3 and 4 draw the roulette: the same lanes shaded as bounce 0
     # (no roulette, the same draws before it) lose fewer paths
     kept = sum(int(s.new_active.sum()) for c, s in zip(calls, shots) if c[2] >= 3)
-    unculled = sum(int(path_tracer._shade_bounce(flat, meta, 0, *lanes).new_active.sum())
+    unculled = sum(int(shade_cuda._shade_bounce(flat, meta, 0, *lanes).new_active.sum())
                    for flat, meta, b, lanes in calls if b >= 3)
     assert kept < unculled
     flat, meta = calls[0][0], calls[0][1]
     if name == "materials":
-        tri = torch.cat([c[3][6] for c in calls]).long()
+        tri = torch.cat([c[3][5] for c in calls]).long()
         n_obj = torch.cross(flat.shade_rows[tri, 0:3], flat.shade_rows[tri, 3:6], dim=1)
-        dirs = torch.cat([c[3][2] for c in calls])
+        dirs = torch.cat([c[3][1] for c in calls])
         mat = flat.shade_rows[tri, 16:30]
         back = (dirs * n_obj).sum(1) > 0
         glass = mat[:, 13] > 0
@@ -248,11 +247,11 @@ def test_the_scenes_reach_every_branch(frame):
         assert int((mat[:, 7] > 0).sum()) > 20
         assert int((mat[:, 10] > 0).sum()) > 20 and int((mat[:, 8] > 0).sum()) > 20
     if name == "textured":
-        tri = torch.cat([c[3][6] for c in calls]).long()
+        tri = torch.cat([c[3][5] for c in calls]).long()
         handles = flat.shade_rows[tri, 16:30].contiguous().view(torch.int32) < 0
         assert shade_cuda.textured_mask(meta) != 0 and int(handles.any(1).sum()) > 20
     if name == "instances":
-        inst = torch.cat([c[3][7] for c in calls])
+        inst = torch.cat([c[3][6] for c in calls])
         assert meta.num_instances == 7 and len(torch.unique(inst)) == 7
     if name == "three_lights":
         _, u_l = rng.lcg_randomf(torch.cat([c[3][0] for c in calls]))

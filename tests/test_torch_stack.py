@@ -5,8 +5,8 @@
   certified stack + 1 (traverse_cuda.stack_capacity: 64, else 128), at
   every arity; the input check takes stacks up to MAX_STACK = 128 and
   refuses 129.
-- Each C entry gets the arguments its binding in _build.load_library
-  declares, in order: the wrappers run against a stand-in for the
+- Each C entry gets the arguments its binding (traverse_cuda's, from
+  KERNELS) declares, in order: the wrappers run against a stand-in for the
   kernels' library on tensors of the meta device, which take the kernel
   path without a card, and the capacity and the launch counts by capacity
   are read off the calls.
@@ -84,26 +84,9 @@ def _rays(R, device="cpu"):
 
 # wrapper: (launch-count key, C entry, closest hit?, table kind)
 WRAPPERS = {
-    "traverse_closest": ("closest", "crt_traverse_closest", True, "flat"),
-    "traverse_any": ("any", "crt_traverse_any", False, "flat"),
-    "traverse_closest_unified": ("closest_unified", "crt_traverse_closest_unified", True, "two_level"),
-    "traverse_any_unified": ("any_unified", "crt_traverse_any_unified", False, "two_level"),
-    "traverse_closest_stream": ("closest_stream", "crt_traverse_closest_stream", True, "flat"),
-    "traverse_any_stream": ("any_stream", "crt_traverse_any_stream", False, "flat"),
-    "traverse_closest_unified_stream": ("closest_unified_stream",
-                                        "crt_traverse_closest_unified_stream", True, "two_level"),
-    "traverse_any_unified_stream": ("any_unified_stream", "crt_traverse_any_unified_stream", False,
-                                    "two_level"),
-    "traverse_closest_persistent": ("closest_persistent", "crt_traverse_closest_persistent", True,
-                                    "flat"),
-    "traverse_any_persistent": ("any_persistent", "crt_traverse_any_persistent", False, "flat"),
-    "traverse_closest_unified_persistent": ("closest_unified_persistent",
-                                            "crt_traverse_closest_unified_persistent", True,
-                                            "two_level"),
-    "traverse_any_unified_persistent": ("any_unified_persistent",
-                                        "crt_traverse_any_unified_persistent", False, "two_level"),
-    "traverse_closest_packet": ("closest_packet", "crt_traverse_closest_packet", True, "binary"),
-    "traverse_any_packet": ("any_packet", "crt_traverse_any_packet", False, "binary"),
+    f"traverse_{key}": (key, k.entry, k.hit == "closest",
+                        "two_level" if k.two_level else "binary" if k.widths == (16,) else "flat")
+    for key, k in traverse_cuda.KERNELS.items()
 }
 
 
@@ -147,16 +130,15 @@ def test_check_takes_stacks_up_to_max_stack(tables, kind, depth):
     kernels and refuses 129, for flat, two-level and grid-packet tables."""
     assert _build.MAX_STACK == 128 and _build.STACK_CAPACITIES == (64, 128)
     table = _with_depth(_table_for(tables, kind), depth)
-    check = {"flat": traverse_cuda._check, "two_level": traverse_cuda._check_unified,
-             "binary": traverse_cuda._check_packet}[kind]
+    key = {"flat": "closest", "two_level": "closest_unified", "binary": "closest_packet"}[kind]
     R = 8
     o, d = _rays(R)
     args = (o, d, torch.zeros((R,)), torch.full((R,), 1e20), torch.ones((R,), dtype=torch.bool))
     if depth > _build.MAX_STACK:
         with pytest.raises(ValueError, match="stack depth 129 exceeds the kernel's 128"):
-            check(table, *args)
+            traverse_cuda._check(traverse_cuda.KERNELS[key], table, *args)
     else:
-        assert check(table, *args)[2] == depth
+        assert traverse_cuda._check(traverse_cuda.KERNELS[key], table, *args)[2] == depth
 
 
 class _Entry:

@@ -1,18 +1,13 @@
 """The port's streamed tier (kernels B5a/B5b, ops/traverse_cuda.py) against
-the JAX package, and the kernels' stack sizing.
+the JAX package.
 
-- The stack depth every kernel wrapper passes: the builder's certified
-  bound plus one, as the TPU kernels size theirs, where the plain versions
-  keep the XLA oracle's cap; above the kernels' MAX_STACK a wrapper raises
-  before any launch.
 - The gate (trace_bvh.streamed_tier) and the routing of make_trace_fns for
-  stream = None / True / False, with the L2's size passed in.
-- The B5a/B5b wrappers' input checks.
+  traversal "auto", "stream" and "lane", with the L2's size set.
 - The streamed route on a small city: the port on the CPU (the wrappers
   run the plain version there) against the JAX stream=True slot-lane
   kernels in interpret mode (the suite's S=16, 8-slot shapes), on a
   sorted camera wavefront and a diffuse-bounce wavefront.
-- The whole slice: the `cuda` backend on the CPU with stream=True against
+- The whole slice: the `cuda` backend on the CPU with traversal "stream" against
   the JAX `tpu` backend, held to tests/test_cross_backend.py's
   _assert_images_match.
 
@@ -38,7 +33,7 @@ from chameleonrt_tpu.ops import rng as jrng
 from chameleonrt_tpu.ops import traverse_slotlane as tsl
 from chameleonrt_tpu.ops.lbvh import PackedBvh as JaxPackedBvh
 from chameleonrt_tpu.ops.traverse import ray_sort_perm_only as jax_sort_perm
-from chameleonrt_tpu_torch import _build, native
+from chameleonrt_tpu_torch import native
 from chameleonrt_tpu_torch.engine import device_scene as tds
 from chameleonrt_tpu_torch.engine import trace_bvh as ttb
 from chameleonrt_tpu_torch.ops import traverse as plain
@@ -46,6 +41,7 @@ from chameleonrt_tpu_torch.ops import traverse_cuda
 from chameleonrt_tpu_torch.scene.loader import load_scene
 from test_cross_backend import _assert_images_match, render_frames
 from test_torch_path_tracer import _camera, _render_port
+from test_torch_route import l2_of, spy_launches
 
 torch.set_num_threads(1)
 
@@ -90,73 +86,6 @@ def _rays(table_nodes, R, seed):
     return torch.from_numpy(o), torch.from_numpy(d)
 
 
-WRAPPERS = {
-    "closest": (traverse_cuda.traverse_closest, "closest"),
-    "any": (traverse_cuda.traverse_any, "any"),
-    "closest_stream": (traverse_cuda.traverse_closest_stream, "closest"),
-    "any_stream": (traverse_cuda.traverse_any_stream, "any"),
-    "closest_unified": (traverse_cuda.traverse_closest_unified, "closest"),
-    "any_unified": (traverse_cuda.traverse_any_unified, "any"),
-    "closest_unified_stream": (traverse_cuda.traverse_closest_unified_stream, "closest"),
-    "any_unified_stream": (traverse_cuda.traverse_any_unified_stream, "any"),
-}
-
-
-def _call(name, table, o, d, t_max=None):
-    fn, kind = WRAPPERS[name]
-    R = o.shape[0]
-    tmin = torch.full((R,), 1e-4)
-    tmax = torch.full((R,), 1e20) if t_max is None else t_max
-    flag = torch.ones((R,), dtype=torch.bool)
-    if kind == "closest":
-        return fn(table, o, d, tmin, flag, tmax)
-    return fn(table, o, d, tmin, tmax, flag)
-
-
-@pytest.mark.parametrize("name", sorted(WRAPPERS))
-def test_wrappers_pass_the_certified_stack_depth(city, unified_table, name, monkeypatch):
-    """A table whose certified bound is 48 (the soup's stack4): every
-    wrapper sizes the kernel's stack at 49, where the plain versions keep
-    the oracle's 48 (flat; the two-level cap is 96). On CPU tensors the
-    wrapper still runs the plain version."""
-    _, flat, _ = city
-    unified = "unified" in name
-    table = (unified_table._replace(stack_bound=SOUP_STACK) if unified
-             else flat.blas[0].any._replace(max_depth=SOUP_STACK))
-    seen = []
-    real = traverse_cuda.stack_depth
-    monkeypatch.setattr(traverse_cuda, "stack_depth", lambda t: seen.append(real(t)) or seen[-1])
-    o, d = _rays(table.nodes, 64, seed=1)
-    _call(name, table, o, d)
-    assert seen == [SOUP_STACK + 1]
-    if unified:
-        assert plain.unified_stack_limit(table) == SOUP_STACK + 1
-    else:
-        assert plain.stack_limit(table) == SOUP_STACK
-
-
-@pytest.mark.parametrize("name", sorted(WRAPPERS))
-def test_wrappers_raise_above_max_stack(city, unified_table, name, monkeypatch):
-    """A bound of MAX_STACK needs MAX_STACK + 1 entries: every wrapper
-    raises before it would reach a kernel or the plain version."""
-    _, flat, _ = city
-    if "unified" in name:
-        table = unified_table._replace(stack_bound=_build.MAX_STACK)
-    else:
-        table = flat.blas[0].any._replace(max_depth=_build.MAX_STACK)
-    assert traverse_cuda.stack_depth(table) == _build.MAX_STACK + 1
-
-    def no_traversal(*args, **kwargs):
-        raise AssertionError("traversed a table the kernels cannot hold")
-
-    for fn in ("traverse_closest", "traverse_any", "traverse_closest_unified", "traverse_any_unified"):
-        monkeypatch.setattr(plain, fn, no_traversal)
-    monkeypatch.setattr(_build, "kernels", no_traversal)
-    o, d = _rays(table.nodes, 8, seed=2)
-    with pytest.raises(ValueError, match="stack depth"):
-        _call(name, table, o, d)
-
-
 def test_gate_compares_the_table_with_the_l2(city):
     _, flat, _ = city
     table = flat.blas[0].any
@@ -168,78 +97,53 @@ def test_gate_compares_the_table_with_the_l2(city):
 
 
 @pytest.mark.parametrize(
-    "stream, l2_fits, want",
+    "traversal, l2_fits, want",
     [
-        (None, False, "stream"),
-        (None, True, "flat"),
-        (True, True, "stream"),
-        (False, False, "flat"),
+        ("auto", False, "stream"),
+        ("auto", True, "flat"),
+        ("stream", True, "stream"),
+        ("lane", False, "flat"),
     ],
 )
-def test_make_trace_fns_routes_by_tier(city, stream, l2_fits, want, monkeypatch):
-    """The functions the returned trace functions call, for each stream
-    setting, with the L2 budget just above or just below the table."""
+def test_make_trace_fns_routes_by_tier(city, traversal, l2_fits, want, monkeypatch):
+    """The kernels the returned trace functions launch, for each traversal,
+    with the L2 budget just above or just below the table."""
     _, flat, meta = city
-    calls = []
-    for name in ("traverse_closest", "traverse_any", "traverse_closest_stream", "traverse_any_stream"):
-        real = getattr(traverse_cuda, name)
-
-        def spy(*args, _name=name, _real=real):
-            calls.append(_name)
-            return _real(*args)
-
-        monkeypatch.setattr(traverse_cuda, name, spy)
+    monkeypatch.delenv("CHAMELEONRT_SLOTLANE", raising=False)
+    monkeypatch.delenv("CHAMELEONRT_PACKET", raising=False)
+    calls = spy_launches(monkeypatch)
     n = ttb.table_bytes(flat.blas[0].any)
-    closest, any_ = ttb.make_trace_fns(meta, stream=stream, blas=flat.blas,
-                                       l2_bytes=n if l2_fits else n - 1)
+    l2_of(monkeypatch, n if l2_fits else n - 1)
+    closest, any_ = ttb.make_trace_fns(meta, traversal, blas=flat.blas)
     o, d = _rays(flat.blas[0].any.nodes, 32, seed=3)
     active = torch.ones((32,), dtype=torch.bool)
     hit = closest(flat, o, d, 1e-4, active)
     any_(flat, o, d, torch.where(hit.tri >= 0, hit.t, torch.full_like(hit.t, 30.0)), active)
     suffix = "_stream" if want == "stream" else ""
-    assert calls == ["traverse_closest" + suffix, "traverse_any" + suffix]
+    assert calls == ["closest" + suffix, "any" + suffix]
 
 
 def test_make_trace_fns_tier_arguments(city, monkeypatch):
-    """The plain traversal ignores the tier; the gate needs the tables, of
-    a flat or a two-level scene; a forced tier does not."""
+    """The plain traversal launches nothing and needs no tables; the gate
+    of "auto" needs the tables, of a flat or a two-level scene; a named
+    tier does not."""
     _, flat, meta = city
-    monkeypatch.setattr(traverse_cuda, "traverse_closest_stream", None)
-    monkeypatch.setattr(traverse_cuda, "traverse_closest_unified_stream", None)
-    closest, any_ = ttb.make_trace_fns(meta, use_kernels=False, stream=True)
-    o, d = _rays(flat.blas[0].any.nodes, 16, seed=4)
-    assert closest(flat, o, d, 1e-4, torch.ones((16,), dtype=torch.bool)).t.shape == (16,)
+    monkeypatch.delenv("CHAMELEONRT_SLOTLANE", raising=False)
+    monkeypatch.delenv("CHAMELEONRT_PACKET", raising=False)
+    with monkeypatch.context() as m:
+        m.setattr(traverse_cuda, "launch_closest", None)
+        m.setattr(traverse_cuda, "launch_any", None)
+        closest, any_ = ttb.make_trace_fns(meta, "plain")
+        o, d = _rays(flat.blas[0].any.nodes, 16, seed=4)
+        assert closest(flat, o, d, 1e-4, torch.ones((16,), dtype=torch.bool)).t.shape == (16,)
     with pytest.raises(ValueError, match="tables"):
         ttb.make_trace_fns(meta)
     imeta = tds.build_device_scene(load_scene(INSTANCES), torch.device("cpu"))[1]
     with pytest.raises(ValueError, match="tables"):
         ttb.make_trace_fns(imeta)
-    assert len(ttb.make_trace_fns(imeta, use_kernels=False, stream=True)) == 2
-    for stream in (True, False):
-        assert len(ttb.make_trace_fns(imeta, stream=stream)) == 2
-
-
-@pytest.mark.parametrize("wrapper", ["closest_stream", "any_stream"])
-@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity", "depth"])
-def test_stream_wrappers_refuse_what_the_kernels_do_not_take(city, wrapper, fault):
-    """float64 rays, a wrong t_max shape, non-contiguous directions and a
-    table whose stack need exceeds MAX_STACK raise before any traversal."""
-    _, flat, _ = city
-    table = flat.blas[0].any
-    R = 8
-    o, d = _rays(table.nodes, R, seed=5)
-    t_max = None
-    if fault == "dtype":
-        o = o.double()
-    elif fault == "shape":
-        t_max = torch.full((R + 1,), 1e20)
-    elif fault == "contiguity":
-        d = torch.from_numpy(np.asfortranarray(d.numpy()))
-        assert not d.is_contiguous()
-    else:
-        table = table._replace(max_depth=_build.MAX_STACK + 5)
-    with pytest.raises(TypeError if fault == "dtype" else ValueError):
-        _call(wrapper, table, o, d, t_max)
+    assert len(ttb.make_trace_fns(imeta, "plain")) == 2
+    for traversal in ("stream", "lane"):
+        assert len(ttb.make_trace_fns(imeta, traversal)) == 2
 
 
 @pytest.fixture(scope="module")
@@ -325,20 +229,13 @@ def test_stream_route_matches_jax_stream_kernels(city_wavefronts, wave):
 
 def test_stream_backend_frames_match_jax_tpu_backend(tmp_path, monkeypatch):
     """The whole slice on the small city: the cuda backend on the CPU with
-    stream=True (each bounce traces through the B5a/B5b wrappers) against
-    the JAX tpu backend, 40 px x 2 frames."""
-    calls = {"traverse_closest_stream": 0, "traverse_any_stream": 0}
-    for name in calls:
-        real = getattr(traverse_cuda, name)
-
-        def spy(*args, _name=name, _real=real):
-            calls[_name] += 1
-            return _real(*args)
-
-        monkeypatch.setattr(traverse_cuda, name, spy)
+    traversal "stream" (each bounce traces through B5a/B5b's launches)
+    against the JAX tpu backend, 40 px x 2 frames."""
+    calls = spy_launches(monkeypatch)
     img_ref, acc_ref, _ = render_frames("tpu", CITY, 40, 2, tmpdir=str(tmp_path))
-    b = _render_port(CITY, 40, 2, stream=True)
+    b = _render_port(CITY, 40, 2, traversal="stream")
     acc = b._accum.numpy()
     assert np.isfinite(acc).all() and acc.max() > 0
     _assert_images_match(img_ref, b.img[..., :3].astype(np.float32), acc_ref, acc)
-    assert calls == {"traverse_closest_stream": 2 * 5, "traverse_any_stream": 2 * 10}
+    assert sorted(set(calls)) == ["any_stream", "closest_stream"]
+    assert (calls.count("closest_stream"), calls.count("any_stream")) == (2 * 5, 2 * 10)

@@ -123,19 +123,26 @@ def jax_frames(tmp_path_factory):
 
 def _spy(monkeypatch):
     """Record each traversal call: (which function, node row width, leaf
-    row width), for the kernels' wrappers and for the plain versions that
-    the plain route calls directly."""
+    row width), for the kernels' launches (as their wrappers' names) and
+    for the plain versions, which the plain route calls directly."""
     calls = []
-    for mod, tag in ((traverse_cuda, "kernel"), (plain, "plain")):
-        for name in ("traverse_closest", "traverse_any", "traverse_closest_unified",
-                     "traverse_any_unified"):
-            real = getattr(mod, name)
+    for name in ("launch_closest", "launch_any"):
+        real = getattr(traverse_cuda, name)
 
-            def spy(table, *args, _real=real, _tag=tag, _name=name, **kwargs):
-                calls.append((_tag, _name, table.nodes.shape[1], table.leaf_rows.shape[1]))
-                return _real(table, *args, **kwargs)
+        def launch(key, table, *args, _real=real):
+            calls.append(("kernel", f"traverse_{key}", table.nodes.shape[1], table.leaf_rows.shape[1]))
+            return _real(key, table, *args)
 
-            monkeypatch.setattr(mod, name, spy)
+        monkeypatch.setattr(traverse_cuda, name, launch)
+    for name in ("traverse_closest", "traverse_any", "traverse_closest_unified",
+                 "traverse_any_unified"):
+        real = getattr(plain, name)
+
+        def spy(table, *args, _real=real, _name=name, **kwargs):
+            calls.append(("plain", _name, table.nodes.shape[1], table.leaf_rows.shape[1]))
+            return _real(table, *args, **kwargs)
+
+        monkeypatch.setattr(plain, name, spy)
     return calls
 
 
@@ -229,7 +236,8 @@ def test_switches_read_as_the_jax_package(env, arity, wide, leaf, kernels, monke
     assert (jtb._closest_table(pair) == 2) == (arity == 2)
     assert ttb.wide_arity() == jtb._wide_arity() == wide
     assert ttb.native_leaf_size() == jtb._native_leaf_size() == leaf
-    assert ttb.kernels_enabled() == kernels
+    table = PackedBvh(torch.zeros((1, 32)), torch.zeros((1, 40)), 1)
+    assert (ttb.choose_route("auto", 1, False, table).closest != "plain") == kernels
     if "CHAMELEONRT_PACKET" in env:
         assert jtb._packet_enabled() == kernels
 
@@ -244,9 +252,9 @@ def test_check_takes_binary_bvh4_and_bvh8_rows_only(width):
             torch.ones((R,), dtype=torch.bool))
     if width == 24:
         with pytest.raises(ValueError, match="16 or 32 or 64 floats"):
-            traverse_cuda._check(table, *args)
+            traverse_cuda._check(traverse_cuda.KERNELS["closest"], table, *args)
     else:
-        assert traverse_cuda._check(table, *args) == (width // 8, 4, 7)
+        assert traverse_cuda._check(traverse_cuda.KERNELS["closest"], table, *args) == (width // 8, 4, 7)
 
 
 def test_spp3_frame_matches_jax_in_image_and_rays_traced(jax_frames, monkeypatch):

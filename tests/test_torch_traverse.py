@@ -30,7 +30,6 @@ from chameleonrt_tpu_torch import native
 from chameleonrt_tpu_torch.engine.device_scene import PackedBvh
 from chameleonrt_tpu_torch.ops import intersect as tint
 from chameleonrt_tpu_torch.ops import traverse as plain
-from chameleonrt_tpu_torch.ops import traverse_cuda
 
 torch.set_num_threads(1)
 
@@ -158,24 +157,6 @@ def test_sort_permutation_matches_jax(scene_and_rays):
     ref = np.asarray(jax_sort_perm(jnp.asarray(o2), jnp.asarray(d), jnp.asarray(a)))
     got = plain.ray_sort_perm_only(*_torch(o2, d, a)).numpy()
     np.testing.assert_array_equal(got, ref)
-
-
-def test_wrapper_routes_cpu_tensors_to_plain(scene_and_rays):
-    """On CPU tensors the kernel wrappers run the plain version, and the
-    launch counters do not move."""
-    _, port_bvh, (o, d, a) = scene_and_rays
-    R = o.shape[0]
-    tmin = np.full((R,), 1e-4, np.float32)
-    tmax = np.full((R,), 1e20, np.float32)
-    before = dict(traverse_cuda.LAUNCHES)
-    args = _torch(o, d, tmin, a, tmax)
-    got = traverse_cuda.traverse_closest(port_bvh[4], *args)
-    ref = plain.traverse_closest(port_bvh[4], *args)
-    for x, y in zip(got, ref):
-        assert torch.equal(x, y)
-    occ = traverse_cuda.traverse_any(port_bvh[4], *_torch(o, d, tmin, tmax, a))
-    assert torch.equal(occ, plain.traverse_any(port_bvh[4], *_torch(o, d, tmin, tmax, a)))
-    assert traverse_cuda.LAUNCHES == before
 
 
 def test_moller_trumbore_matches_jax():

@@ -11,8 +11,8 @@ five rotated, scaled and translated instances (test_unified_tlas._scene).
   (traverse_*_unified_blocked) on 1024 rays, and against the slot-lane
   Pallas kernel that B3/B4 replace, in interpret mode, on 512 rays; both
   on the same tables (convert.from_jax).
-- convert.from_jax with a UnifiedPair, and the unified wrappers' input
-  checks.
+- convert.from_jax with a UnifiedPair (the wrappers' input checks are
+  tests/test_torch_wrappers.py's).
 
 Tolerances: XLA on the CPU contracts a*b+c into fused multiply-adds and
 the port does not (test_torch_traverse.py), and here that rounding also
@@ -41,11 +41,10 @@ from chameleonrt_tpu.ops.traverse import (
     traverse_closest_unified_blocked,
 )
 from chameleonrt_tpu.scene.loader import load_scene as jax_load_scene
-from chameleonrt_tpu_torch import _build, convert, native
+from chameleonrt_tpu_torch import convert, native
 from chameleonrt_tpu_torch.engine import device_scene as tds
 from chameleonrt_tpu_torch.engine import trace_bvh as ttb
 from chameleonrt_tpu_torch.ops import traverse as plain
-from chameleonrt_tpu_torch.ops import traverse_cuda
 from chameleonrt_tpu_torch.scene.loader import load_scene
 from test_torch_host import jax_native_on_port_library, port_scene
 from test_unified_tlas import _scene as three_mesh_scene
@@ -206,46 +205,3 @@ def test_from_jax_carries_a_unified_pair(tables):
         np.testing.assert_array_equal(c.leaf_rows.numpy(), np.asarray(j.leaf_rows))
     np.testing.assert_array_equal(conv.inst_aabb.numpy(), np.asarray(jpair.inst_aabb))
 
-
-def test_unified_wrappers_route_cpu_tensors_to_plain(tables):
-    _, port, _, _, _ = tables
-    R = 300
-    o, d, a = _rays(port.inst_aabb.numpy(), R, seed=14)
-    tmin = np.full((R,), 1e-4, np.float32)
-    tmax = np.full((R,), 1e20, np.float32)
-    before = dict(traverse_cuda.LAUNCHES)
-    got = traverse_cuda.traverse_closest_unified(port.any, *_torch(o, d, tmin, a, tmax))
-    ref = plain.traverse_closest_unified(port.any, *_torch(o, d, tmin, a, tmax))
-    for x, y in zip(got, ref):
-        assert torch.equal(x, y)
-    args = _torch(o, d, tmin, got[0].numpy() * 1.001, a)
-    assert torch.equal(traverse_cuda.traverse_any_unified(port.any, *args),
-                       plain.traverse_any_unified(port.any, *args))
-    assert traverse_cuda.LAUNCHES == before
-
-
-@pytest.mark.parametrize("wrapper", ["closest", "any"])
-@pytest.mark.parametrize("fault", ["stack", "arity", "dtype"])
-def test_unified_wrappers_refuse_what_the_kernels_do_not_take(tables, wrapper, fault):
-    """A table whose stack need exceeds the kernel's, node rows of 24
-    floats (arity 3: the kernels take 2, 4 and 8), and float64 rays raise
-    before any traversal, on any device."""
-    _, port, _, _, _ = tables
-    R = 8
-    o, d, a = _rays(port.inst_aabb.numpy(), R, seed=15)
-    o, d, a = _torch(o, d, a)
-    tmin = torch.full((R,), 1e-4)
-    tmax = torch.full((R,), 1e20)
-    table = port.any
-    if fault == "stack":
-        table = table._replace(stack_bound=_build.MAX_STACK)  # needs MAX_STACK + 1
-    elif fault == "arity":
-        table = table._replace(nodes=table.nodes[:, :24].contiguous())
-    else:
-        o = o.double()
-    err = TypeError if fault == "dtype" else ValueError
-    with pytest.raises(err):
-        if wrapper == "closest":
-            traverse_cuda.traverse_closest_unified(table, o, d, tmin, a, tmax)
-        else:
-            traverse_cuda.traverse_any_unified(table, o, d, tmin, tmax, a)

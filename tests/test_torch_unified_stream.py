@@ -7,12 +7,11 @@ against the JAX package.
   sorted camera wavefront and a diffuse-bounce wavefront at 64x36 of two
   scenes: the 2x2 instance grid and the tiny San Miguel (89 instances of
   7 meshes, loaded through each package's own generator and PBRT loader).
-- The routing of make_trace_fns for a multi-instance scene under stream =
-  None / True / False, with the L2's size passed in.
-- The new wrappers' input checks.
+- The routing of make_trace_fns for a multi-instance scene under
+  traversal "auto", "stream" and "lane", with the L2's size set.
 - The plain walk's optional counter (ops/traverse.py WalkCount), which
   gives chip_smoke.py the kernels' least times.
-- The whole slice: the `cuda` backend on the CPU with stream=True on a
+- The whole slice: the `cuda` backend on the CPU with traversal "stream" on a
   two-level scene against the JAX `tpu` backend, held to
   tests/test_cross_backend.py's _assert_images_match.
 
@@ -37,7 +36,7 @@ from chameleonrt_tpu.ops import rng as jrng
 from chameleonrt_tpu.ops import traverse_slotlane as tsl
 from chameleonrt_tpu.ops.lbvh import UnifiedBvh as JaxUnifiedBvh
 from chameleonrt_tpu.ops.traverse import ray_sort_perm_only as jax_sort_perm
-from chameleonrt_tpu_torch import _build, native
+from chameleonrt_tpu_torch import native
 from chameleonrt_tpu_torch.engine import device_scene as tds
 from chameleonrt_tpu_torch.engine import trace_bvh as ttb
 from chameleonrt_tpu_torch.ops import traverse as plain
@@ -47,6 +46,7 @@ from chameleonrt_tpu_torch.scene.pbrt_gen import generate_san_miguel_proxy
 from test_cross_backend import _assert_images_match, render_frames
 from test_torch_host import TINY_SAN_MIGUEL
 from test_torch_path_tracer import _camera, _render_port
+from test_torch_route import l2_of, spy_launches
 
 torch.set_num_threads(1)
 
@@ -166,44 +166,34 @@ def test_unified_stream_route_matches_jax_stream_kernels(wavefronts, wave):
             assert occ.sum() >= 20
 
 
-_ALL = ("traverse_closest_unified", "traverse_any_unified",
-        "traverse_closest_unified_stream", "traverse_any_unified_stream")
-
-
 @pytest.mark.parametrize(
-    "stream, l2_fits, want",
+    "traversal, l2_fits, want",
     [
-        (None, False, "stream"),
-        (None, True, "vmem"),
-        (True, True, "stream"),
-        (False, False, "vmem"),
+        ("auto", False, "stream"),
+        ("auto", True, "vmem"),
+        ("stream", True, "stream"),
+        ("lane", False, "vmem"),
     ],
 )
-def test_make_trace_fns_routes_two_level_scenes_by_tier(two_level, stream, l2_fits, want,
+def test_make_trace_fns_routes_two_level_scenes_by_tier(two_level, traversal, l2_fits, want,
                                                         monkeypatch):
-    """The wrappers the returned trace functions call for a multi-instance
-    scene, for each stream setting, with the L2 budget just above or just
-    below the two-level BVH4 table."""
+    """The kernels the returned trace functions launch for a
+    multi-instance scene, for each traversal, with the L2 budget just
+    above or just below the two-level BVH4 table."""
     _, flat, meta = two_level
-    calls = []
-    for name in _ALL:
-        real = getattr(traverse_cuda, name)
-
-        def spy(*args, _name=name, _real=real):
-            calls.append(_name)
-            return _real(*args)
-
-        monkeypatch.setattr(traverse_cuda, name, spy)
+    monkeypatch.delenv("CHAMELEONRT_SLOTLANE", raising=False)
+    monkeypatch.delenv("CHAMELEONRT_PACKET", raising=False)
+    calls = spy_launches(monkeypatch)
     n = ttb.table_bytes(flat.blas[0].any)
-    closest, any_ = ttb.make_trace_fns(meta, stream=stream, blas=flat.blas,
-                                       l2_bytes=n if l2_fits else n - 1)
+    l2_of(monkeypatch, n if l2_fits else n - 1)
+    closest, any_ = ttb.make_trace_fns(meta, traversal, blas=flat.blas)
     o = torch.zeros((32, 3))
     d = torch.nn.functional.normalize(torch.randn((32, 3), generator=torch.Generator().manual_seed(3)), dim=1)
     active = torch.ones((32,), dtype=torch.bool)
     hit = closest(flat, o, d, 1e-4, active)
     any_(flat, o, d, torch.where(hit.tri >= 0, hit.t, torch.full_like(hit.t, 30.0)), active)
     suffix = "_stream" if want == "stream" else ""
-    assert calls == ["traverse_closest_unified" + suffix, "traverse_any_unified" + suffix]
+    assert calls == ["closest_unified" + suffix, "any_unified" + suffix]
 
 
 def test_streamed_tier_gate_reads_two_level_tables(two_level):
@@ -214,52 +204,6 @@ def test_streamed_tier_gate_reads_two_level_tables(two_level):
     assert ttb.streamed_tier(table, l2_bytes=n - 1)
     assert not ttb.streamed_tier(table, l2_bytes=n)
     assert not ttb.streamed_tier(table)  # a table on the CPU has no L2
-
-
-@pytest.mark.parametrize("wrapper", ["closest", "any"])
-@pytest.mark.parametrize("fault", ["dtype", "shape", "arity", "depth", "entry_row"])
-def test_unified_stream_wrappers_refuse_what_the_kernels_do_not_take(two_level, wrapper, fault):
-    """float64 rays, a wrong t_max shape, node rows of 24 floats (arity 3:
-    the kernels take 2, 4 and 8), a table whose stack need exceeds
-    MAX_STACK and leaf rows too narrow for an entry row raise before any
-    traversal."""
-    _, flat, _ = two_level
-    table = flat.blas[0].any
-    R = 8
-    o, d = torch.zeros((R, 3)), torch.ones((R, 3))
-    tmin, tmax = torch.full((R,), 1e-4), torch.full((R,), 1e20)
-    flag = torch.ones((R,), dtype=torch.bool)
-    if fault == "dtype":
-        o = o.double()
-    elif fault == "shape":
-        tmax = torch.full((R + 1,), 1e20)
-    elif fault == "arity":
-        table = table._replace(nodes=table.nodes[:, :24].contiguous())
-    elif fault == "depth":
-        table = table._replace(stack_bound=_build.MAX_STACK)
-    else:
-        table = table._replace(leaf_rows=table.leaf_rows[:, :10].contiguous())
-    with pytest.raises(TypeError if fault == "dtype" else ValueError):
-        if wrapper == "closest":
-            traverse_cuda.traverse_closest_unified_stream(table, o, d, tmin, flag, tmax)
-        else:
-            traverse_cuda.traverse_any_unified_stream(table, o, d, tmin, tmax, flag)
-
-
-def test_wrappers_route_cpu_tensors_to_plain_without_counting(wavefronts):
-    table, _, waves = wavefronts
-    (o, d, a), _ = waves["primary"]
-    R = o.shape[0]
-    args = _torch(o, d, np.zeros(R, np.float32), a, np.full(R, 1e20, np.float32))
-    before = dict(traverse_cuda.LAUNCHES)
-    got = traverse_cuda.traverse_closest_unified_stream(table, *args)
-    ref = plain.traverse_closest_unified(table, *args)
-    assert all(torch.equal(x, y) for x, y in zip(got, ref))
-    tm = torch.where(got[0] < 1e19, got[0] * 1.001, torch.full_like(got[0], 30.0))
-    any_args = (args[0], args[1], args[2], tm, args[3])
-    assert torch.equal(traverse_cuda.traverse_any_unified_stream(table, *any_args),
-                       plain.traverse_any_unified(table, *any_args))
-    assert traverse_cuda.LAUNCHES == before
 
 
 def test_walk_count_counts_what_the_rays_need(wavefronts):
@@ -297,21 +241,14 @@ def test_walk_count_counts_what_the_rays_need(wavefronts):
 
 def test_unified_stream_backend_frames_match_jax_tpu_backend(tmp_path, monkeypatch):
     """The whole slice on a two-level scene: the cuda backend on the CPU
-    with stream=True (each bounce traces through the B5c/B5d wrappers)
-    against the JAX tpu backend, 40 px x 2 frames."""
-    calls = {"traverse_closest_unified_stream": 0, "traverse_any_unified_stream": 0}
-    for name in calls:
-        real = getattr(traverse_cuda, name)
-
-        def spy(*args, _name=name, _real=real):
-            calls[_name] += 1
-            return _real(*args)
-
-        monkeypatch.setattr(traverse_cuda, name, spy)
+    with traversal "stream" (each bounce traces through B5c/B5d's
+    launches) against the JAX tpu backend, 40 px x 2 frames."""
+    calls = spy_launches(monkeypatch)
     uri = "proc://instances?nx=3&ny=3&subdiv=1"
     img_ref, acc_ref, _ = render_frames("tpu", uri, 40, 2, tmpdir=str(tmp_path))
-    b = _render_port(uri, 40, 2, stream=True)
+    b = _render_port(uri, 40, 2, traversal="stream")
     acc = b._accum.numpy()
     assert np.isfinite(acc).all() and acc.max() > 0
     _assert_images_match(img_ref, b.img[..., :3].astype(np.float32), acc_ref, acc)
-    assert calls == {"traverse_closest_unified_stream": 2 * 5, "traverse_any_unified_stream": 2 * 10}
+    assert sorted(set(calls)) == ["any_unified_stream", "closest_unified_stream"]
+    assert (calls.count("closest_unified_stream"), calls.count("any_unified_stream")) == (10, 20)

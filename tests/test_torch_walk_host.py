@@ -636,19 +636,20 @@ def test_flat_walk_short_stack_spills_and_returns(walks, monkeypatch, arity, cut
 @pytest.fixture(scope="module")
 def flat_frame(flat_scene):
     """The 5 closest-hit wavefronts of one W x H frame of the flat parity
-    hall that the port renders on the CPU, captured at B1's wrapper as the
-    backend calls it (as chip_smoke.py captures a main path's):
+    hall that the port renders on the CPU, captured at B1's launch as the
+    backend asks for it (as chip_smoke.py captures a main path's):
     [(orig, dir, t_min, active, t_max)] in call order."""
     calls = []
-    real = traverse_cuda.traverse_closest
+    real = traverse_cuda.launch_closest
 
-    def capture(table, *args):
+    def capture(key, table, *args):
+        assert key == "closest"
         calls.append(tuple(a.clone() for a in args))
-        return real(table, *args)
+        return real(key, table, *args)
 
     mp = pytest.MonkeyPatch()
     try:
-        mp.setattr(traverse_cuda, "traverse_closest", capture)
+        mp.setattr(traverse_cuda, "launch_closest", capture)
         b = CudaBackend(device="cpu")
         b.initialize(W, H)
         b.set_scene(flat_scene)
